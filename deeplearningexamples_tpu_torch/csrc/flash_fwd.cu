@@ -31,20 +31,19 @@
 // free of bank conflicts. Tensor cores (mma.sync, then wgmma with TMA loads)
 // are the next step.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "flash_common.cuh"
 
 namespace {
+
+using dlx_flash::NEG_INF;
+using dlx_flash::Strides;
+using dlx_flash::dropout_hash;
+using dlx_flash::from_float;
+using dlx_flash::to_float;
 
 constexpr int BQ = 64;        // query rows per block
 constexpr int BK = 64;        // keys per shared-memory tile
 constexpr int NTHREADS = 256; // 16 x 16 threads; each owns 4 rows x 4 cols
-constexpr float NEG_INF = -1e30f;  // the JAX package's NEG_INF, not -inf
-
-struct Strides {
-  long long b, s, h, d;
-};
 
 struct Params {
   const void* q;
@@ -62,36 +61,6 @@ struct Params {
   float one_minus_rate;  // fp32(1 - rate); kept values scale by 1/this
   uint32_t seed;         // the int32 seed's bits
 };
-
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_float(float x);
-template <>
-__device__ __forceinline__ float from_float<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-
-// The JAX package's _dropout_scale hash, in uint32 so that every product
-// wraps as JAX's int32 arithmetic does (signed overflow is undefined in C++).
-// JAX's arithmetic right shifts are masked to the shifted-in width, which is
-// exactly a logical shift here.
-__device__ __forceinline__ uint32_t dropout_hash(uint32_t row, uint32_t col,
-                                                 uint32_t seed, uint32_t salt) {
-  const uint32_t c1 = 0x9E3779B9u, c2 = 0x85EBCA6Bu, c3 = 0xC2B2AE35u;
-  uint32_t h = row * c1 + col * c2 + seed + salt * c3;
-  h ^= h >> 16;
-  h *= c2;
-  h ^= h >> 13;
-  h *= c3;
-  h ^= h >> 16;
-  return h & 0x7FFFFFFFu;
-}
 
 template <int D>
 constexpr size_t smem_bytes() {

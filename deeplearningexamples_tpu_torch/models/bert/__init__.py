@@ -1,8 +1,9 @@
 from .modeling import (
     BERT_CONFIGS,
     BertConfig,
+    BertForPreTraining,
     BertForQuestionAnswering,
     BertModel,
 )
 from .predict import predict_squad, write_predictions
-from .task import BertSquadTask
+from .task import BertPretrainTask, BertSquadTask

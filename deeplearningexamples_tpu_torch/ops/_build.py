@@ -1,7 +1,8 @@
 """Build the hand-written CUDA kernels under ``csrc/`` at first use.
 
-All ``csrc/*.cu`` files are compiled by ``nvcc`` into one shared library with
-a plain C interface, which the kernels' wrappers load with ``ctypes``. The
+Each ``csrc/*.cu`` file is compiled by its own ``nvcc`` process, all started
+together, and the objects are linked into one shared library with a plain C
+interface, which the kernels' wrappers load with ``ctypes``. The
 library goes into ``deeplearningexamples_tpu_torch/_build/`` under a name that
 carries a hash of the sources and flags, so an edited source is rebuilt and an
 unchanged one is loaded as it is. Nothing is built when a module is imported.
@@ -23,7 +24,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC",
 )
 
 _lock = threading.Lock()
@@ -57,22 +58,38 @@ def _library_path() -> Path:
 
 def build() -> Path:
     """Compile ``csrc/*.cu`` unless a library of the same sources exists.
-    Raises ``RuntimeError`` with nvcc's stderr when the build fails."""
+    Raises ``RuntimeError`` with nvcc's stderr when a step fails."""
     out = _library_path()
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cu = [str(s) for s in _sources() if s.suffix == ".cu"]
-    cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), *cu]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
+    tag = f"{out.stem}.{os.getpid()}"
+    jobs = []
+    for src in (s for s in _sources() if s.suffix == ".cu"):
+        obj = BUILD_DIR / f"{tag}.{src.stem}.o"
+        cmd = [nvcc(), *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+        jobs.append((obj, cmd, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    tmp = out.with_name(f"{tag}.so.tmp")
+    try:
+        failed = []
+        for _, cmd, proc in jobs:
+            _, err = proc.communicate()
+            if proc.returncode != 0:
+                failed.append(f"{' '.join(cmd)}\n{err}")
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+        cmd = [nvcc(), "-shared", "-o", str(tmp), *(str(o) for o, _, _ in jobs)]
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc link failed:\n{' '.join(cmd)}\n{res.stderr}")
+        os.replace(tmp, out)  # atomic: a concurrent build loads a whole file
+    finally:
+        for obj, _, proc in jobs:
+            proc.kill()  # a no-op for a process that has ended
+            proc.wait()
+            obj.unlink(missing_ok=True)
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed with exit code {res.returncode}:\n"
-            f"{' '.join(cmd)}\n{res.stderr}"
-        )
-    os.replace(tmp, out)  # atomic: a concurrent build loads a whole file
     return out
 
 

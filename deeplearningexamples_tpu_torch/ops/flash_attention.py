@@ -1,10 +1,16 @@
-"""Fused multi-head attention forward: a CUDA kernel and its plain version.
+"""Fused multi-head attention, forward and backward: CUDA kernels and their
+plain versions.
 
-Port of ``deeplearningexamples_tpu/ops/flash_attention.py``. On a CUDA tensor
-``flash_attention`` launches the hand-written Hopper kernel in
-``csrc/flash_fwd.cu`` (which replaces the TPU kernels ``_fwd_bshd``, ``_fwd``
-and ``_fwd_kblk``) or raises; on a CPU tensor it runs ``mha_reference``, the
-plain PyTorch version of the same function, which is also the kernel's oracle.
+Port of ``deeplearningexamples_tpu/ops/flash_attention.py``. On CUDA tensors
+``flash_attention`` launches the hand-written Hopper kernels (the forward in
+``csrc/flash_fwd.cu``, which replaces the TPU kernels ``_fwd_bshd``, ``_fwd``
+and ``_fwd_kblk``; the backward's two kernels in ``csrc/flash_bwd.cu``, which
+replace ``_bwd_bshd``, ``_bwd`` and ``_bwd_kblk``) or raises; on CPU tensors
+it runs ``mha_reference`` and ``mha_backward_reference``, the plain PyTorch
+versions of the same functions, which are also the kernels' oracles. A
+``torch.autograd.Function`` joins the two, as ``_flash``'s custom VJP does in
+JAX: the forward saves q, k, v, the key mask, the seed, out and lse, and the
+backward recomputes the probabilities from lse.
 
 Semantics follow the JAX kernels exactly: scale, then mask to ``NEG_INF``
 (-1e30, so a row with every key masked averages V uniformly); causal masking
@@ -12,8 +18,11 @@ compares global row and column; probability dropout multiplies the numerator
 only, by a stateless hash of (row, col, seed, b*H + h); P is rounded to the
 input dtype before the PV product and divided by the row sum at the end.
 
-The backward pass (the TPU's ``_bwd*`` kernels) is not ported yet: a CUDA call
-that needs a gradient raises ``NotImplementedError``.
+The backward follows the TPU kernels' rounding: P times the keep mask is
+rounded to dO's dtype before the dV product, dS to q's dtype before the dQ and
+dK products, dQ is written in q's dtype, and dK and dV are summed in fp32 and
+cast once. P is ``exp(s - lse)``, so a row whose every key is masked (lse is
+-1e30 in fp32) has P = 1 on every key, as in JAX.
 """
 
 from __future__ import annotations
@@ -30,6 +39,9 @@ __all__ = [
     "flash_attention",
     "flash_attention_with_lse",
     "launches",
+    "launches_bwd_dkv",
+    "launches_bwd_dq",
+    "mha_backward_reference",
     "mha_reference",
 ]
 
@@ -38,8 +50,11 @@ SUPPORTED_HEAD_DIMS = (32, 64, 128)
 SUPPORTED_DTYPES = (torch.float32, torch.bfloat16)
 
 # Kernel launches since the count was last set to 0 (by a caller that wants
-# to show a run went through the kernel). Only the CUDA launch adds to it.
+# to show a run went through the kernel). Only the CUDA launch adds to it:
+# ``launches`` counts the forward kernel, the other two the backward's.
 launches = 0
+launches_bwd_dq = 0
+launches_bwd_dkv = 0
 _count_lock = threading.Lock()
 
 # ---------------------------------------------------------------------------
@@ -120,28 +135,75 @@ def mha_reference(q, k, v, key_mask=None, causal=False, sm_scale=None, *,
     return out.contiguous(), lse
 
 
+def mha_backward_reference(q, k, v, key_mask, out, lse, dout, causal=False,
+                           sm_scale=None, *, layout="bhsd", dropout_rate=0.0,
+                           dropout_seed=0):
+    """Plain PyTorch backward with the kernels' arithmetic (JAX
+    ``_bwd_kernel_bshd``). ``lse`` is the forward's (B, H, Sq) fp32; the rest
+    are in ``layout``. Returns ``(dq, dk, dv)`` in the inputs' layout and
+    dtypes."""
+    if layout == "bshd":
+        q, k, v, out, dout = (t.transpose(1, 2) for t in (q, k, v, out, dout))
+    b, h, sq, d = q.shape
+    sk = k.shape[2]
+    scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(d)
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
+    if key_mask is not None:
+        s = s.masked_fill(~key_mask.bool()[:, None, None, :], NEG_INF)
+    rows = torch.arange(sq, device=q.device)[:, None]
+    cols = torch.arange(sk, device=q.device)[None, :]
+    if causal:
+        s = s.masked_fill(rows < cols, NEG_INF)
+    p = torch.exp(s - lse[..., None])
+    dp = torch.einsum("bhqd,bhkd->bhqk", dout.float(), v.float())
+    p_used = p
+    if dropout_rate > 0.0:
+        salt = (torch.arange(b, device=q.device)[:, None] * h
+                + torch.arange(h, device=q.device)[None, :])[:, :, None, None]
+        drop = dropout_scale(rows, cols, dropout_seed, salt, dropout_rate)
+        p_used = p * drop
+        dp = dp * drop
+    dv = torch.einsum("bhqk,bhqd->bhkd", p_used.to(dout.dtype).float(),
+                      dout.float())
+    delta = (dout.float() * out.float()).sum(-1, keepdim=True)
+    ds = (p * (dp - delta) * scale).to(q.dtype).float()
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds, k.float()).to(q.dtype)
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, q.float()).to(k.dtype)
+    dv = dv.to(v.dtype)
+    if layout == "bshd":
+        dq, dk, dv = (t.transpose(1, 2) for t in (dq, dk, dv))
+    return dq.contiguous(), dk.contiguous(), dv.contiguous()
+
+
 # ---------------------------------------------------------------------------
 # The CUDA kernel
 # ---------------------------------------------------------------------------
 
-_kernel_fn = None
+_kernel_fns: dict = {}
+
+# dlx_flash_fwd: q, k, v, mask, out, lse, strides (4 x 4), B, H, Sq, Sk, D,
+# is_bf16, scale, causal, dropout, threshold, 1 - rate, seed, stream.
+# dlx_flash_bwd_dq / _dkv: q, k, v, out, dout, lse, mask, dq, dk, dv, delta,
+# strides (8 x 4), then the same scalars and the stream.
+_ARGTYPES = {
+    "dlx_flash_fwd": [ctypes.c_void_p] * 6,
+    "dlx_flash_bwd_dq": [ctypes.c_void_p] * 11,
+    "dlx_flash_bwd_dkv": [ctypes.c_void_p] * 11,
+}
+_SCALARS = ([ctypes.POINTER(ctypes.c_longlong)] + [ctypes.c_int] * 6
+            + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_uint,
+               ctypes.c_float, ctypes.c_uint, ctypes.c_void_p])
 
 
-def _kernel():
-    global _kernel_fn
-    if _kernel_fn is None:
+def _kernel(name: str = "dlx_flash_fwd"):
+    if name not in _kernel_fns:
         from ._build import load
 
-        fn = load().dlx_flash_fwd
-        fn.argtypes = (
-            [ctypes.c_void_p] * 6 + [ctypes.POINTER(ctypes.c_longlong)]
-            + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
-                                    ctypes.c_uint, ctypes.c_float, ctypes.c_uint,
-                                    ctypes.c_void_p]
-        )
+        fn = getattr(load(), name)
+        fn.argtypes = _ARGTYPES[name] + _SCALARS
         fn.restype = ctypes.c_int
-        _kernel_fn = fn
-    return _kernel_fn
+        _kernel_fns[name] = fn
+    return _kernel_fns[name]
 
 
 def _bshd_strides(t: torch.Tensor, layout: str) -> tuple[int, int, int, int]:
@@ -150,13 +212,9 @@ def _bshd_strides(t: torch.Tensor, layout: str) -> tuple[int, int, int, int]:
     return s if layout == "bshd" else (s[0], s[2], s[1], s[3])
 
 
-def _flash_cuda(q, k, v, key_mask, causal, scale, layout, rate, seed):
-    global launches
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        raise NotImplementedError(
-            "the flash-attention backward has no CUDA kernel yet; call the "
-            "forward under torch.inference_mode() or torch.no_grad()"
-        )
+def _check(q, k, v, key_mask, layout, rate):
+    """Validate what the kernels take; returns (b, h, sq, sk, d, int32 mask
+    or None)."""
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("q, k and v must be 4-d")
     if not (q.dtype == k.dtype == v.dtype) or q.dtype not in SUPPORTED_DTYPES:
@@ -189,25 +247,125 @@ def _flash_cuda(q, k, v, key_mask, causal, scale, layout, rate, seed):
         mask = key_mask.to(device=q.device, dtype=torch.int32).contiguous()
     if not 0.0 <= rate < 1.0:
         raise ValueError(f"dropout rate {rate} not in [0, 1)")
+    return b, h, sq, sk, d, mask
 
+
+def _scalars(b, h, sq, sk, d, q, scale, causal, rate, seed):
+    return (b, h, sq, sk, d, int(q.dtype == torch.bfloat16), scale,
+            int(causal), int(rate > 0.0), int(rate * 2147483648.0), 1.0 - rate,
+            int(seed) & 0xFFFFFFFF)
+
+
+def _flash_cuda(q, k, v, key_mask, causal, scale, layout, rate, seed):
+    global launches
+    b, h, sq, sk, d, mask = _check(q, k, v, key_mask, layout, rate)
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     strides = (ctypes.c_longlong * 16)(
         *(s for t in (q, k, v, out) for s in _bshd_strides(t, layout)))
-    fn = _kernel()
+    fn = _kernel("dlx_flash_fwd")
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                  None if mask is None else mask.data_ptr(),
                  out.data_ptr(), lse.data_ptr(), strides,
-                 b, h, sq, sk, d, int(q.dtype == torch.bfloat16), scale,
-                 int(causal), int(rate > 0.0), int(rate * 2147483648.0),
-                 1.0 - rate, int(seed) & 0xFFFFFFFF, stream)
+                 *_scalars(b, h, sq, sk, d, q, scale, causal, rate, seed),
+                 stream)
     if err != 0:
         raise RuntimeError(f"flash_fwd kernel launch failed: CUDA error {err}")
     with _count_lock:
         launches += 1
     return out, lse
+
+
+def _bwd_buffers(q, k, v, key_mask, out, lse, dout, causal, scale, layout,
+                 rate, seed):
+    """Validate, allocate dq, dk, dv and delta, and build the arguments both
+    backward kernels take (all but the stream)."""
+    b, h, sq, sk, d, mask = _check(q, k, v, key_mask, layout, rate)
+    if dout.dtype != q.dtype or tuple(dout.shape) != tuple(q.shape):
+        raise ValueError(f"dout must be {q.dtype} {tuple(q.shape)}, got "
+                         f"{dout.dtype} {tuple(dout.shape)}")
+    if tuple(lse.shape) != (b, h, sq) or lse.dtype != torch.float32:
+        raise ValueError(f"lse must be fp32 ({b}, {h}, {sq})")
+    if any(t.device != q.device for t in (out, lse, dout)):
+        raise ValueError("out, lse and dout must be on q's device")
+    dout = dout if dout.stride(-1) == 1 else dout.contiguous()
+    lse = lse.contiguous()
+    dq, dk, dv = (torch.empty(t.shape, dtype=t.dtype, device=t.device)
+                  for t in (q, k, v))
+    delta = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    strides = (ctypes.c_longlong * 32)(
+        *(s for t in (q, k, v, out, dout, dq, dk, dv)
+          for s in _bshd_strides(t, layout)))
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            dout.data_ptr(), lse.data_ptr(),
+            None if mask is None else mask.data_ptr(), dq.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), delta.data_ptr(), strides,
+            *_scalars(b, h, sq, sk, d, q, scale, causal, rate, seed))
+    # the tensors behind the pointers live as long as the arguments
+    return (dq, dk, dv), args, (mask, dout, lse, delta)
+
+
+def _flash_bwd_cuda(q, k, v, key_mask, out, lse, dout, causal, scale, layout,
+                    rate, seed):
+    """Launches the dq kernel (which also writes delta = rowsum(dO * O)),
+    then the dk/dv kernel, on the current stream."""
+    global launches_bwd_dq, launches_bwd_dkv
+    grads, args, _keep = _bwd_buffers(q, k, v, key_mask, out, lse, dout,
+                                      causal, scale, layout, rate, seed)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _kernel("dlx_flash_bwd_dq")(*args, stream)
+        if err != 0:
+            raise RuntimeError(f"flash_bwd_dq kernel launch failed: CUDA error {err}")
+        with _count_lock:
+            launches_bwd_dq += 1
+        err = _kernel("dlx_flash_bwd_dkv")(*args, stream)
+        if err != 0:
+            raise RuntimeError(f"flash_bwd_dkv kernel launch failed: CUDA error {err}")
+        with _count_lock:
+            launches_bwd_dkv += 1
+    return grads
+
+
+def _device_kind(q) -> str:
+    if q.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"no flash attention for device {q.device}")
+    return q.device.type
+
+
+class _FlashAttention(torch.autograd.Function):
+    """JAX ``_flash``'s custom VJP: the kernels (CUDA) or the plain versions
+    (CPU) forward and backward, with the probabilities recomputed from lse."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, key_mask, causal, scale, layout, rate, seed):
+        if _device_kind(q) == "cuda":
+            out, lse = _flash_cuda(q, k, v, key_mask, causal, scale, layout,
+                                   rate, seed)
+        else:
+            out, lse = mha_reference(q, k, v, key_mask, causal, scale,
+                                     layout=layout, dropout_rate=rate,
+                                     dropout_seed=seed)
+        ctx.save_for_backward(q, k, v, key_mask, out, lse)
+        ctx.args = (causal, scale, layout, rate, seed)
+        ctx.mark_non_differentiable(lse)
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, dout, _dlse):
+        q, k, v, key_mask, out, lse = ctx.saved_tensors
+        causal, scale, layout, rate, seed = ctx.args
+        if _device_kind(q) == "cuda":
+            grads = _flash_bwd_cuda(q, k, v, key_mask, out, lse, dout, causal,
+                                    scale, layout, rate, seed)
+        else:
+            grads = mha_backward_reference(q, k, v, key_mask, out, lse, dout,
+                                           causal, scale, layout=layout,
+                                           dropout_rate=rate,
+                                           dropout_seed=seed)
+        return (*grads, None, None, None, None, None, None)
 
 
 # ---------------------------------------------------------------------------
@@ -218,19 +376,14 @@ def _flash_cuda(q, k, v, key_mask, causal, scale, layout, rate, seed):
 def flash_attention_with_lse(q, k, v, key_mask=None, *, causal=False,
                              sm_scale=None, layout="bhsd", dropout_rate=0.0,
                              dropout_seed=0):
-    """``flash_attention`` that also returns the logsumexp, (B, H, Sq) fp32."""
+    """``flash_attention`` that also returns the logsumexp, (B, H, Sq) fp32.
+    Differentiable in q, k and v."""
     if layout not in ("bhsd", "bshd"):
         raise ValueError(f"unknown layout {layout!r}")
     d = q.shape[-1]
     scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(d)
-    rate = float(dropout_rate)
-    if q.device.type == "cuda":
-        return _flash_cuda(q, k, v, key_mask, causal, scale, layout, rate,
-                           int(dropout_seed))
-    if q.device.type != "cpu":
-        raise ValueError(f"no flash attention for device {q.device}")
-    return mha_reference(q, k, v, key_mask, causal, scale, layout=layout,
-                         dropout_rate=rate, dropout_seed=int(dropout_seed))
+    return _FlashAttention.apply(q, k, v, key_mask, causal, scale, layout,
+                                 float(dropout_rate), int(dropout_seed))
 
 
 def flash_attention(q, k, v, key_mask=None, *, causal=False, sm_scale=None,

@@ -101,8 +101,8 @@ def test_qa_forward_matches_jax(jax_params, batch, precision):
 def test_init_follows_the_jax_initialisers():
     cfg = BertConfig(**SMALL)
     task = BertSquadTask(cfg, dtype=torch.float32)
-    a = task.init(torch.Generator().manual_seed(3))
-    b = task.init(torch.Generator().manual_seed(3))
+    a = task.init(torch.Generator().manual_seed(3), device="cpu")
+    b = task.init(torch.Generator().manual_seed(3), device="cpu")
     for (name, pa), pb in zip(a.state_dict().items(), b.state_dict().values()):
         torch.testing.assert_close(pa, pb, rtol=0, atol=0, msg=name)
     layer = a.bert.encoder.layer[0]
@@ -112,6 +112,7 @@ def test_init_follows_the_jax_initialisers():
     assert bool((layer.output.LayerNorm.weight == 1).all())
     assert abs(float(a.bert.embeddings.word_embeddings.weight.detach().std())
                - cfg.initializer_range) < 2e-3
-    bf16 = BertSquadTask(cfg).init(torch.Generator().manual_seed(3))
+    bf16 = BertSquadTask(cfg).init(torch.Generator().manual_seed(3),
+                                 device="cpu")
     assert bf16.bert.pooler.dense.weight.dtype == torch.bfloat16
     assert bf16.qa_outputs.weight.dtype == torch.float32

@@ -57,7 +57,7 @@ def _request(rng):
 @pytest.fixture(scope="module")
 def served():
     task = BertSquadTask(BertConfig(**SMALL), dtype=torch.float32)
-    model = task.init(torch.Generator().manual_seed(0))
+    model = task.init(torch.Generator().manual_seed(0), device="cpu")
 
     def infer(batch):
         start, end = task.predict_fn(
