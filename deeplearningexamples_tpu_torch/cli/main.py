@@ -1,14 +1,16 @@
 """The port's training CLI: ``python -m deeplearningexamples_tpu_torch.cli
-bert-pretrain [flags]``.
+<model> [flags]`` for ``bert-pretrain`` and ``dlrm``.
 
-Port of ``deeplearningexamples_tpu/cli/main.py`` for the one model the port
-trains so far, BERT pretraining (``run_bert_pretrain``), with the flag
-spellings of ``dlx-train``. The run is on the card unless ``--device cpu``
-is given. Flags whose machinery is not ported yet (``--zero``, ``--remat``,
-``--attention-impl xla|ring``, ``--binned``, ``--mesh-*``, ``--data-backend
-corpus``) exit with a message that says so, rather than being ignored;
-``--config-file``, ``--platform`` and ``--precision`` (the YAML layers) are
-not flags here yet, so argparse refuses them.
+Port of ``deeplearningexamples_tpu/cli/main.py`` for the models the port
+trains so far, BERT pretraining (``run_bert_pretrain``) and DLRM
+(``run_dlrm``), with the flag spellings of ``dlx-train``. The run is on the
+card unless ``--device cpu`` is given. Flags whose machinery is not ported
+yet exit with a message that says so, rather than being ignored: for
+``bert-pretrain`` ``--zero``, ``--remat``, ``--attention-impl xla|ring``,
+``--binned``, ``--mesh-*`` and ``--data-backend corpus``; for ``dlrm``
+``--data-backend binary`` and ``--mesh-model`` above 1. ``--config-file``,
+``--platform`` and ``--precision`` (the YAML layers) are not flags here yet,
+so argparse refuses them.
 """
 
 from __future__ import annotations
@@ -29,8 +31,9 @@ from ..core.loop import LoopConfig, train_loop
 from ..core.optimizers import lr_poly_warmup
 from ..core.train import create_train_state, make_eval_step, make_train_step
 
-__all__ = ["BertCliConfig", "BertPretrainRun", "CommonConfig", "MODELS",
-           "build_bert_pretrain", "cli", "run_bert_pretrain", "to_device"]
+__all__ = ["BertCliConfig", "BertPretrainRun", "CommonConfig", "DlrmCliConfig",
+           "DlrmRun", "MODELS", "build_bert_pretrain", "build_dlrm", "cli",
+           "run_bert_pretrain", "run_dlrm", "to_device"]
 
 
 @dataclass
@@ -71,9 +74,24 @@ class BertCliConfig(CommonConfig):
     attention_impl: str = "flash"
 
 
-def _unported(cfg: BertCliConfig) -> None:
+@dataclass
+class DlrmCliConfig(CommonConfig):
+    num_tables: int = 26
+    cardinality: int = 100_000  # uniform synthetic cardinality per table
+    embedding_dim: int = 128
+    auc_threshold: float = 0.0  # stop at target AUC (reference --auc_threshold)
+
+
+def _unported(model: str, todo: list[tuple[bool, str]]) -> None:
     """Exit with a clear message on a flag whose machinery is not ported."""
-    todo = [
+    for bad, what in todo:
+        if bad:
+            raise SystemExit(f"{model}: {what} is not ported to the "
+                             "PyTorch package yet (see ROADMAP.md)")
+
+
+def _unported_bert(cfg: BertCliConfig) -> None:
+    _unported("bert-pretrain", [
         (cfg.zero, "--zero (ZeRO-1 optimizer sharding)"),
         (cfg.remat, "--remat (activation checkpointing)"),
         (cfg.attention_impl != "flash",
@@ -84,11 +102,7 @@ def _unported(cfg: BertCliConfig) -> None:
          or cfg.mesh_sequence != 1, "--mesh-* (one card only so far)"),
         (cfg.data_backend != "synthetic",
          f"--data-backend {cfg.data_backend} (only synthetic is ported)"),
-    ]
-    for bad, what in todo:
-        if bad:
-            raise SystemExit(f"bert-pretrain: {what} is not ported to the "
-                             "PyTorch package yet (see ROADMAP.md)")
+    ])
 
 
 def _common_setup(cfg: CommonConfig, name: str) -> Logger:
@@ -150,7 +164,7 @@ def build_bert_pretrain(cfg: BertCliConfig) -> BertPretrainRun:
     from ..models.bert import BERT_CONFIGS, BertPretrainTask
     from ..ops.lamb import lamb
 
-    _unported(cfg)
+    _unported_bert(cfg)
     if cfg.phase2:
         cfg.seq_len, cfg.max_predictions = 512, 76
     bcfg = BERT_CONFIGS[cfg.bert_model]
@@ -206,8 +220,74 @@ def run_bert_pretrain(cfg: BertCliConfig):
     )
 
 
-MODELS = {"bert-pretrain": run_bert_pretrain}
-_CONFIG_CLS = {"bert-pretrain": BertCliConfig}
+@dataclass
+class DlrmRun:
+    """What ``run_dlrm`` trains with, built by ``build_dlrm``."""
+
+    task: Any
+    tx: Any
+    state: Any
+    train_step: Any
+    loader: Any
+    val_loader: Any
+
+
+def build_dlrm(cfg: DlrmCliConfig) -> DlrmRun:
+    """The model, dual SGD, state, step and loaders of ``dlrm``: the
+    synthetic Criteo-like loader over ``num_tables`` tables of
+    ``cardinality`` rows, and 5 eval batches drawn with seed 1."""
+    from ..data.synthetic import SyntheticDlrmLoader
+    from ..models.dlrm import DlrmConfig, DlrmTask, make_dlrm_optimizer
+
+    _unported("dlrm", [
+        (cfg.data_backend != "synthetic",
+         f"--data-backend {cfg.data_backend} (the Criteo binary reader needs "
+         "a feature-spec reader without yaml; only synthetic is ported)"),
+        (cfg.mesh_model > 1, "--mesh-model > 1 (the row-sharded table)"),
+        (cfg.mesh_data not in (-1, 1) or cfg.mesh_sequence != 1,
+         "--mesh-* (one card only so far)"),
+    ])
+    cards = tuple([int(cfg.cardinality)] * cfg.num_tables)
+    task = DlrmTask(
+        DlrmConfig(categorical_cardinalities=cards,
+                   embedding_dim=cfg.embedding_dim,
+                   bottom_mlp=(512, 256, cfg.embedding_dim)),
+        torch.bfloat16 if cfg.amp else torch.float32)
+    model = task.init(torch.Generator().manual_seed(cfg.seed), device=cfg.device)
+    params = dict(model.named_parameters())
+    tx = make_dlrm_optimizer(mlp_lr=cfg.lr, embedding_lr=cfg.lr)
+    state = create_train_state(model, tx, cfg.seed + 1, params=params)
+    loader = SyntheticDlrmLoader(cfg.batch_size, list(cards),
+                                 steps=cfg.steps_per_epoch)
+    val_loader = SyntheticDlrmLoader(cfg.batch_size, list(cards), steps=5,
+                                     seed=1)
+    train_step = make_train_step(task.loss_fn, tx)
+    return DlrmRun(task, tx, state, train_step, loader, val_loader)
+
+
+def run_dlrm(cfg: DlrmCliConfig):
+    """Train DLRM with BCE and dual SGD on synthetic data, evaluating AUC
+    over the whole eval set; returns ``(state, best auc)``."""
+    logger = _common_setup(cfg, "dlrm")
+    run = build_dlrm(cfg)
+    ckpt = CheckpointManager(f"{cfg.workspace}/dlrm_ckpt")
+    state, start_epoch = _maybe_resume(cfg, ckpt, run.state, len(run.loader))
+    loop_cfg = _loop_cfg(cfg, watch="auc", mode="max")
+    if cfg.auc_threshold > 0:
+        loop_cfg = dataclasses.replace(loop_cfg, target_metric=cfg.auc_threshold)
+    return train_loop(
+        state, run.train_step, lambda: to_device(run.loader, cfg.device),
+        cfg=loop_cfg, logger=logger,
+        # dataset-level AUC over all eval scores (not a mean of per-batch AUCs)
+        eval_step=make_eval_step(run.task.eval_collect_fn),
+        eval_iter_fn=lambda: to_device(run.val_loader, cfg.device),
+        eval_reduce=run.task.eval_reduce,
+        checkpoints=ckpt, batch_size=cfg.batch_size, start_epoch=start_epoch,
+    )
+
+
+MODELS = {"bert-pretrain": run_bert_pretrain, "dlrm": run_dlrm}
+_CONFIG_CLS = {"bert-pretrain": BertCliConfig, "dlrm": DlrmCliConfig}
 
 
 def cli(argv=None):

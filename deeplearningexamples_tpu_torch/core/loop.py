@@ -1,8 +1,10 @@
 """Generic epoch loop — train/validate/checkpoint/early-stop/preempt.
 
-Port of ``deeplearningexamples_tpu/core/loop.py`` for the per-batch
-evaluation that BERT pretraining uses. The steps are plain PyTorch functions
-that return 0-d device tensors, and evaluation is handed ``state.model``.
+Port of ``deeplearningexamples_tpu/core/loop.py``: the per-batch mean
+evaluation that BERT pretraining uses and the dataset-level reduction
+(``eval_reduce``) with the target-metric stop that DLRM uses. The steps are
+plain PyTorch functions that return device tensors, and evaluation is handed
+``state.model``.
 
 The framework's single replacement for every recipe's hand-rolled outer loop
 (ConvNets ``train_loop`` ``image_classification/training.py:314-432``, SSD
@@ -12,8 +14,8 @@ The framework's single replacement for every recipe's hand-rolled outer loop
 - per-iteration data/compute time split + items/sec metering
   (``training.py:222-243``, ``calc_ips``)
 - ``prof`` iteration cap for benchmark modes (``main.py:268-270``)
-- validation every epoch with a selectable watch metric; early stopping
-  (ConvNets ``early_stopping_patience``)
+- periodic validation with a selectable watch metric; early stopping
+  (ConvNets ``early_stopping_patience``, DLRM AUC threshold)
 - rolling checkpoints + best tracking (``Checkpointer`` ``utils.py:39-80``)
 - SIGTERM-safe: checkpoint-and-exit between steps (``TimeoutHandler``)
 
@@ -31,6 +33,7 @@ from dataclasses import dataclass
 from typing import Callable, Iterable, Mapping
 
 import numpy as np
+import torch
 
 from .checkpoint import CheckpointManager
 from .logging import Logger
@@ -44,9 +47,11 @@ class LoopConfig:
     epochs: int = 1
     prof: int = -1  # > 0: stop after N iterations per epoch (benchmark mode)
     log_interval: int = 20
+    eval_interval_epochs: int = 1
     early_stop_patience: int = -1  # epochs without watch-metric improvement
     watch_metric: str = "top1"
     watch_mode: str = "max"  # max | min
+    target_metric: float | None = None  # stop when reached (DLRM AUC style)
 
 
 def train_loop(
@@ -58,16 +63,23 @@ def train_loop(
     logger: Logger,
     eval_step: Callable | None = None,
     eval_iter_fn: Callable[[], Iterable] | None = None,
+    eval_reduce: Callable[[dict], Mapping] | None = None,
     checkpoints: CheckpointManager | None = None,
     batch_size: int | None = None,
     start_epoch: int = 0,
 ):
     """Run the full training. Returns (state, best_metric).
 
-    After each epoch, ``eval_step(model, model_state, batch)`` runs over
-    ``eval_iter_fn()`` and its per-batch scalars are averaged into
-    ``val.*`` metrics; ``cfg.watch_metric`` picks the one that decides the
-    best checkpoint and early stopping.
+    Every ``cfg.eval_interval_epochs`` epochs, ``eval_step(model,
+    model_state, batch)`` runs over ``eval_iter_fn()``. By default its
+    per-batch scalars are averaged into ``val.*`` metrics. With
+    ``eval_reduce``, its per-batch outputs (scalars or arrays, e.g. scores
+    and labels) are gathered on the host and ``eval_reduce({key:
+    concatenated ndarray}) -> {metric: scalar}`` computes dataset-level
+    metrics once over the whole eval set (the reference's ``dist_evaluate``:
+    DLRM's AUC over all eval scores, not a mean of per-batch values).
+    ``cfg.watch_metric`` picks the metric that decides the best checkpoint,
+    early stopping and the ``cfg.target_metric`` stop.
     """
     best = -np.inf if cfg.watch_mode == "max" else np.inf
     stale_epochs = 0
@@ -113,14 +125,23 @@ def train_loop(
 
             # ---- validate ----------------------------------------------
             watch_value = None
+            is_eval_epoch = (epoch + 1) % cfg.eval_interval_epochs == 0
             val: dict[str, float] = {}
-            if eval_step is not None and eval_iter_fn is not None:
+            if eval_step is not None and eval_iter_fn is not None and is_eval_epoch:
                 agg: dict[str, list] = {}
                 for batch in eval_iter_fn():
                     m = eval_step(state.model, state.model_state, batch)
                     for k, v in m.items():
-                        agg.setdefault(k, []).append(float(v))
-                val.update({f"val.{k}": float(np.mean(v)) for k, v in agg.items()})
+                        agg.setdefault(k, []).append(
+                            _to_numpy(v) if eval_reduce else float(v))
+                if eval_reduce is not None and agg:
+                    flat = {k: np.concatenate([np.atleast_1d(x) for x in v])
+                            for k, v in agg.items()}
+                    val.update({f"val.{k}": float(v)
+                                for k, v in eval_reduce(flat).items()})
+                elif eval_reduce is None:
+                    val.update({f"val.{k}": float(np.mean(v))
+                                for k, v in agg.items()})
             if val:
                 logger.log((epoch,), val)
                 watch_value = val.get(f"val.{cfg.watch_metric}")
@@ -134,6 +155,12 @@ def train_loop(
                     best, stale_epochs = watch_value, 0
                 else:
                     stale_epochs += 1
+                if cfg.target_metric is not None and (
+                    (cfg.watch_mode == "max" and watch_value >= cfg.target_metric)
+                    or (cfg.watch_mode == "min" and watch_value <= cfg.target_metric)
+                ):
+                    logger.log((epoch,), {"event": f"target {cfg.watch_metric} reached"})
+                    stop = True
                 if 0 < cfg.early_stop_patience <= stale_epochs:
                     logger.log((epoch,), {"event": "early stopping"})
                     stop = True
@@ -147,6 +174,13 @@ def train_loop(
 
     logger.end()
     return state, best
+
+
+def _to_numpy(x) -> np.ndarray:
+    """A device tensor (or number) as a host array."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
 
 
 def _log_train(logger: Logger, metrics: Mapping, batch_size: int | None, t_step: float):

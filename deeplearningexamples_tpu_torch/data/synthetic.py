@@ -1,5 +1,5 @@
-"""Copy of ``deeplearningexamples_tpu/data/synthetic.py`` (``_Synthetic`` and
-``SyntheticBertLoader``), numpy only.
+"""Copy of ``deeplearningexamples_tpu/data/synthetic.py`` (``_Synthetic``,
+``SyntheticBertLoader`` and ``SyntheticDlrmLoader``), numpy only.
 
 Each loader emits numpy batches shaped exactly like the real pipeline's
 output, at zero host cost: one batch generated once, yielded repeatedly,
@@ -12,7 +12,7 @@ from typing import Iterator
 
 import numpy as np
 
-__all__ = ["SyntheticBertLoader"]
+__all__ = ["SyntheticBertLoader", "SyntheticDlrmLoader"]
 
 
 class _Synthetic:
@@ -69,3 +69,54 @@ class SyntheticBertLoader(_Synthetic):
             "mlm_labels": mlm_labels,
             "nsp_label": nsp,
         }
+
+
+class SyntheticDlrmLoader(_Synthetic):
+    """Criteo-like batches: 13 numeric + N categorical + click label.
+
+    Mirrors ``SyntheticDataset`` (``dlrm/data/datasets.py:32``) driven by a
+    feature-spec-style cardinality list. The same numpy calls in the same
+    order as the JAX package's loader, so one seed draws the same batch.
+
+    ``skew``: index distribution. ``"uniform"`` matches the reference's
+    synthetic dataset (``torch.randint``); ``"zipf"`` draws from a power law
+    with exponent ``zipf_a``, the access profile of real Criteo, whose IDs
+    the reference's preprocessing remaps by descending frequency (rank 0
+    hottest).
+    """
+
+    def __init__(
+        self,
+        batch_size: int,
+        categorical_cardinalities: list[int],
+        num_numerical: int = 13,
+        steps: int = 100,
+        seed: int = 0,
+        skew: str = "uniform",
+        zipf_a: float = 1.15,
+    ):
+        super().__init__(steps)
+        self.batch_size = batch_size
+        self.cards = list(categorical_cardinalities)
+        self.num_numerical = num_numerical
+        self.rng = np.random.default_rng(seed)
+        if skew not in ("uniform", "zipf"):
+            raise ValueError(f"unknown skew {skew!r}")
+        self.skew = skew
+        self.zipf_a = zipf_a
+
+    def _draw_indices(self, card: int, n: int) -> np.ndarray:
+        if self.skew == "uniform":
+            return self.rng.integers(0, card, size=(n,))
+        # Zipf over ranks 1..card, truncated: frequency-ranked IDs
+        z = self.rng.zipf(self.zipf_a, size=(n,))
+        return np.minimum(z - 1, card - 1)
+
+    def _make(self):
+        b = self.batch_size
+        numerical = self.rng.normal(size=(b, self.num_numerical)).astype(np.float32)
+        categorical = np.stack(
+            [self._draw_indices(c, b) for c in self.cards], axis=1
+        ).astype(np.int32)
+        label = self.rng.integers(0, 2, size=(b,)).astype(np.float32)
+        return {"numerical": numerical, "categorical": categorical, "label": label}

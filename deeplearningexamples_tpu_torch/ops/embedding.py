@@ -1,0 +1,161 @@
+"""Embedding row gather: the CUDA kernel K4, its plain version, and the
+embedding lookup DLRM trains through.
+
+Port of ``deeplearningexamples_tpu/ops/embedding.py``. ``gather_rows`` is
+``table[idx]`` with ``jnp.take``'s semantics: an index in [-V, 0) wraps to
+row V + idx, any other index outside [0, V) gives a row of NaN. On CUDA
+tensors it launches the hand-written Hopper kernel in ``csrc/gather_rows.cu``,
+which replaces the TPU kernel ``pallas_gather_rows`` (``_gather_kernel``), or
+raises; on CPU tensors it runs ``gather_rows_reference``, the plain PyTorch
+version and the kernel's oracle.
+
+``embedding_lookup`` is a ``torch.autograd.Function`` whose forward is that
+gather. Its backward is plain PyTorch in either mode, as neither was a Pallas
+kernel in JAX:
+
+- ``"scatter"`` (``DlrmConfig.embedding_grad``'s default): the gradient of
+  ``jnp.take``, a dense (V, D) table filled by ``index_add_`` at the wrapped
+  indices, out-of-range rows dropped: what XLA's scatter-add computes;
+- ``"sorted"``: JAX ``embedding_lookup``'s custom VJP, an argsort of the
+  indices, the cotangent rows reordered, then their segment sum. As JAX's
+  ``segment_sum``, it drops every index outside [0, V), negative ones
+  included, so a wrapped index gets no gradient there.
+
+Both sum in fp32 and cast once to the table's dtype. On the card
+``index_add_`` adds with fp32 atomics in no fixed order, so two runs may
+differ in the last bits of a row that several lookups hit.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import threading
+
+import torch
+
+__all__ = ["embedding_lookup", "gather_rows", "gather_rows_reference",
+           "launches"]
+
+SUPPORTED_DTYPES = (torch.float32, torch.bfloat16)
+
+# Kernel launches since the count was last set to 0. Only the CUDA launch
+# adds to it.
+launches = 0
+_count_lock = threading.Lock()
+
+
+def gather_rows_reference(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch ``table[idx]`` with ``jnp.take``'s edges: (N, D) in the
+    table's dtype for int (N,) indices."""
+    v = table.shape[0]
+    idx = idx.long()
+    wrapped = torch.where(idx < 0, idx + v, idx)
+    valid = (wrapped >= 0) & (wrapped < v)
+    out = table.index_select(0, torch.where(valid, wrapped, 0))
+    return out.masked_fill(~valid[:, None], float("nan"))
+
+
+def _check(table: torch.Tensor, idx: torch.Tensor) -> None:
+    if table.dim() != 2 or idx.dim() != 1:
+        raise ValueError(f"table must be 2-d and idx 1-d, got {tuple(table.shape)} "
+                         f"and {tuple(idx.shape)}")
+    if table.dtype not in SUPPORTED_DTYPES:
+        raise ValueError(f"table dtype {table.dtype} not in {SUPPORTED_DTYPES}")
+    if idx.dtype != torch.int32:
+        raise ValueError(f"idx must be int32, got {idx.dtype}")
+    if table.device != idx.device:
+        raise ValueError(f"table and idx must be on one device, got "
+                         f"{table.device} and {idx.device}")
+    if not (table.is_contiguous() and idx.is_contiguous()):
+        raise ValueError("table and idx must be contiguous")
+    if table.shape[0] == 0:
+        raise ValueError("empty table")
+
+
+_kernel_fn = None
+
+
+def _kernel():
+    global _kernel_fn
+    if _kernel_fn is None:
+        from ._build import load
+
+        fn = load().dlx_gather_rows
+        # table, idx, out, n, v, row_bytes, is_bf16, stream
+        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_longlong] * 2 + [
+            ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _kernel_fn = fn
+    return _kernel_fn
+
+
+def _gather_cuda(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    global launches
+    n, (v, d) = idx.shape[0], table.shape
+    out = torch.empty((n, d), dtype=table.dtype, device=table.device)
+    if n == 0:
+        return out
+    with torch.cuda.device(table.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _kernel()(table.data_ptr(), idx.data_ptr(), out.data_ptr(), n, v,
+                        d * table.element_size(),
+                        int(table.dtype == torch.bfloat16), stream)
+    if err != 0:
+        raise RuntimeError(f"gather_rows kernel launch failed: CUDA error {err}")
+    with _count_lock:
+        launches += 1
+    return out
+
+
+def gather_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``table[idx]``: table (V, D) fp32 or bf16, idx int32 (N,) -> (N, D) in
+    the table's dtype. The kernel on a CUDA tensor, the plain version on a
+    CPU tensor."""
+    _check(table, idx)
+    if table.device.type == "cuda":
+        return _gather_cuda(table, idx)
+    if table.device.type == "cpu":
+        return gather_rows_reference(table, idx)
+    raise ValueError(f"no row gather for device {table.device}")
+
+
+def _scatter_grad(g: torch.Tensor, idx: torch.Tensor, v: int) -> torch.Tensor:
+    """Dense (V, D) fp32: row i gets the sum of g's rows whose index is i.
+    Rows of indices outside [0, V) add 0 (no host sync to drop them)."""
+    valid = ((idx >= 0) & (idx < v))[:, None]
+    out = torch.zeros((v, g.shape[1]), dtype=torch.float32, device=g.device)
+    return out.index_add_(0, torch.where(valid[:, 0], idx, 0),
+                          torch.where(valid, g.float(), 0.0))
+
+
+class _EmbeddingLookup(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, table, flat_idx, grad):
+        idx = flat_idx.reshape(-1).to(torch.int32).contiguous()
+        out = gather_rows(table, idx)
+        ctx.save_for_backward(idx)
+        ctx.shape, ctx.dtype, ctx.grad = tuple(table.shape), table.dtype, grad
+        return out.view(*flat_idx.shape, table.shape[1])
+
+    @staticmethod
+    def backward(ctx, g):
+        (idx,) = ctx.saved_tensors
+        v, d = ctx.shape
+        g = g.reshape(-1, d)
+        idx = idx.long()
+        if ctx.grad == "sorted":
+            order = torch.argsort(idx, stable=True)
+            d_table = _scatter_grad(g[order], idx[order], v)
+        else:
+            d_table = _scatter_grad(g, torch.where(idx < 0, idx + v, idx), v)
+        return d_table.to(ctx.dtype), None, None
+
+
+def embedding_lookup(table: torch.Tensor, flat_idx: torch.Tensor,
+                     grad: str = "scatter") -> torch.Tensor:
+    """table (V, D); flat_idx (...,) int -> (..., D) in the table's dtype,
+    differentiable in the table. ``grad``: ``"scatter"`` or ``"sorted"``."""
+    if grad not in ("scatter", "sorted"):
+        raise ValueError(f"unknown embedding grad {grad!r}")
+    return _EmbeddingLookup.apply(table, flat_idx, grad)

@@ -3,9 +3,10 @@
 The JAX package keeps flax parameter trees; the port keeps the NVIDIA/HF
 ``state_dict`` names. This is the inverse of the JAX package's
 ``utils/torch_import.convert_bert`` (which maps HF names onto the JAX tree),
-extended to the QA head and the pretraining heads. The word table keeps its
-``padded_vocab`` rows, and the MLM decoder, tied to it, has no entry of its
-own. The mapping is structural, so it carries any tree of that shape across:
+extended to the QA head and the pretraining heads, and of DLRM's tree into
+the port's ``Dlrm`` names. The word table keeps its ``padded_vocab`` rows,
+and the MLM decoder, tied to it, has no entry of its own. The mapping is
+structural, so it carries any tree of that shape across:
 parameters, or the gradients ``jax.grad`` returns for them.
 """
 
@@ -19,6 +20,7 @@ __all__ = [
     "bert_pretrain_jax_order",
     "bert_pretrain_state_dict_from_jax",
     "bert_qa_state_dict_from_jax",
+    "dlrm_state_dict_from_jax",
 ]
 
 # (JAX path, port name, transpose): flax Dense kernels are (in, out), torch
@@ -101,3 +103,15 @@ def bert_pretrain_jax_order(num_layers: int) -> list[str]:
     level), so a flat buffer laid out in this order matches the JAX
     package's ``_make_layout_blocked`` offset for offset."""
     return [name for _, name, _ in sorted(_pretrain_entries(num_layers))]
+
+
+def dlrm_state_dict_from_jax(tree: Mapping[str, Any]) -> dict[str, np.ndarray]:
+    """JAX ``Dlrm`` params, or their gradients (``{"embedding_table",
+    "bottom_mlp_{i}", "top_mlp_{i}"}``) -> the port's ``Dlrm`` ``state_dict``
+    (``embedding_table``, ``bottom_mlp.{i}.weight/bias``, ``top_mlp.{i}...``),
+    as numpy arrays, each Dense kernel transposed."""
+    entries: list[Entry] = [(("embedding_table",), "embedding_table", False)]
+    for key in sorted(k for k in tree if k != "embedding_table"):
+        stack, _, i = key.rpartition("_")
+        entries += _dense((key,), f"{stack}.{i}")
+    return _convert(tree, entries)

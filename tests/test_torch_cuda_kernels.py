@@ -1,5 +1,6 @@
 """The port's CUDA kernels against their plain versions, on the card: the
-flash-attention forward (K1) and backward (K2) and the flat LAMB passes (K3).
+flash-attention forward (K1) and backward (K2), the flat LAMB passes (K3) and
+the embedding row gather (K4).
 
 Every test here needs a CUDA card and skips without one. The file imports no
 JAX, so that a CUDA host without JAX runs it on its own:
@@ -12,6 +13,7 @@ import pytest
 import torch
 
 from deeplearningexamples_tpu_torch.core import flat
+from deeplearningexamples_tpu_torch.ops import embedding as emb
 from deeplearningexamples_tpu_torch.ops import flash_attention as fa
 
 # kernel vs plain: the online softmax sums in another order (fp32); P rounds
@@ -178,3 +180,75 @@ def test_flat_lamb_kernels_match_plain(cuda, moments):
         # a bf16 moment one ulp apart moves u by 2**-8 of itself, times scale
         torch.testing.assert_close(kp, pp, rtol=1e-5,
                                    atol=1e-5 if moments == torch.float32 else 3e-4)
+
+
+# K4 against its plain version: a gather is a copy, so rows from the table
+# are bitwise equal and the NaN rows (indices outside [-V, V)) fall in the
+# same places. D=6 (fp32 24-byte rows) and D=100 in bf16 (200 bytes) take the
+# kernel's 4- and 2-byte path, the others its 16-byte path.
+def _gather_case(device, dtype, v, d, n, seed=0):
+    rng = np.random.default_rng(seed)
+    table = torch.from_numpy(rng.normal(size=(v, d)).astype(np.float32)).to(
+        device, dtype)
+    idx = rng.integers(-v, v, n).astype(np.int32)
+    edge = np.array([-v - 1, v, v + 9, 2**31 - 1, -2**31], np.int32)
+    idx[rng.choice(n, size=min(n, 5), replace=False)] = edge[:min(n, 5)]
+    return table, torch.from_numpy(idx).to(device)
+
+
+def _assert_same_rows(got, want):
+    nan = torch.isnan(want)
+    assert torch.equal(torch.isnan(got), nan)
+    assert torch.equal(got[~nan], want[~nan])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [8, 32, 128, 6, 100])
+@pytest.mark.parametrize("n", [1, 4097, 100003])
+def test_gather_rows_matches_plain(cuda, dtype, d, n):
+    table, idx = _gather_case(cuda, dtype, 1000, d, n)
+    before = emb.launches
+    got = emb.gather_rows(table, idx)
+    torch.cuda.synchronize()
+    assert emb.launches == before + 1
+    assert got.dtype == dtype and got.shape == (n, d)
+    _assert_same_rows(got, emb.gather_rows_reference(table, idx))
+
+
+@pytest.mark.cuda
+def test_gather_rows_unaligned_table_and_cpu_tensors(cuda):
+    """A table that starts 4 bytes into its storage takes the unit path; a
+    CPU tensor never reaches the kernel; nothing launches for N=0."""
+    base, idx = _gather_case(cuda, torch.float32, 1001, 8, 5000)
+    table = base.view(-1)[1:1 + 1000 * 8].view(1000, 8)
+    assert table.data_ptr() % 16 != 0 and table.is_contiguous()
+    _assert_same_rows(emb.gather_rows(table, idx),
+                      emb.gather_rows_reference(table, idx))
+    before = emb.launches
+    emb.gather_rows(table.cpu(), idx.cpu())
+    assert emb.gather_rows(table, idx[:0]).shape == (0, 8)
+    assert emb.launches == before
+    with pytest.raises(ValueError, match="device"):
+        emb.gather_rows(table, idx.cpu())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["scatter", "sorted"])
+def test_embedding_lookup_on_the_card_matches_the_cpu(cuda, mode):
+    """Forward through K4, backward by index_add_: fp32 atomics add in no
+    fixed order, so a row that several lookups hit may differ in its last
+    bits (1e-6 of the largest entry)."""
+    table, idx = _gather_case("cpu", torch.float32, 3000, 32, 6000)
+    idx = idx.clamp(-3000, 2999).view(2000, 3)
+    cot = torch.randn(2000, 3, 32, generator=torch.Generator().manual_seed(1))
+    out = {}
+    for dev in ("cpu", cuda):
+        t = table.detach().to(dev).requires_grad_()
+        y = emb.embedding_lookup(t, idx.to(dev), grad=mode)
+        y.backward(cot.to(dev))
+        out[str(dev)] = (y.detach().cpu(), t.grad.cpu())
+    (y_cpu, g_cpu), (y_gpu, g_gpu) = out["cpu"], out[str(cuda)]
+    assert torch.equal(y_gpu, y_cpu)
+    torch.testing.assert_close(g_gpu, g_cpu, rtol=0,
+                               atol=1e-6 * float(g_cpu.abs().max()))

@@ -18,7 +18,9 @@ names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")
 for name in names:
     importlib.import_module(name)
 for name in ("core.train", "core.flat", "core.loop", "core.checkpoint",
-             "cli.main", "data.synthetic", "ops.lamb", "ops.dropout"):
+             "cli.main", "data.synthetic", "ops.lamb", "ops.dropout",
+             "models.dlrm", "models.dlrm.model", "models.dlrm.task",
+             "ops.embedding", "ops.dot_interaction", "core.metrics"):
     assert f"deeplearningexamples_tpu_torch.{name}" in names, name
 import chip_smoke
 print(len(names))
@@ -29,9 +31,10 @@ def test_port_imports_with_jax_blocked():
     res = subprocess.run([sys.executable, "-c", _BLOCKED_IMPORT], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
-    # every module of the package: serving, the BERT model and tasks, the
-    # training harness (core/), the CLI (cli/) and the data loaders (data/)
-    assert int(res.stdout.strip()) >= 37
+    # every module of the package: serving, the BERT and DLRM models and
+    # tasks, the training harness (core/), the CLI (cli/), the data loaders
+    # (data/) and the profiling tools (tools/)
+    assert int(res.stdout.strip()) >= 44
 
 
 def test_chip_smoke_fails_without_a_card():
