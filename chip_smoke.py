@@ -30,10 +30,24 @@ and it imports nothing of JAX. Phases, one line each:
 13. DLRM training: ``dlrm`` through the CLI's runner, B=65,536, 20 steps
     and the 5-batch eval, at configs.yml's lr 24 (its curve recorded: it
     diverges without the reference's warmup) and at the CLI's default 0.1
+14. int8: quantize_activations (K5) against its plain version bit for bit
+    at BERT-Large's FFN inputs (B=8 S=384: 3072 x 1024 and 3072 x 4096 fp32,
+    3072 x 1024 bf16) with the statistics of 16 seeds, then ``int8_matmul``
+    at the FFN GEMMs against the fp32 product, with times
+15. fused LAMB: ``fused_lamb`` on full-width BERT-Large through
+    ``make_train_step``, K3 at 8 x 1024-element blocks: one fp32 step against
+    JAX's plain pair on the same gradients, then 10 bf16 steps at B=64 S=128
+    against ``flat_lamb`` with fp32 moments; the update's time beside the
+    tree and flat LAMB's
+16. hot-row gather: hot_gather (K6) against its plain version at the probe's
+    shape (26 x 100,000 x 128 fp32, 256 hot rows a table, 1,703,936 uniform
+    and zipf ids, a hot buffer that is not the table's head), with times
+    beside K4 and ``embedding()`` on the same ids
 
 Each main path (serving: phases 5-6; BERT training: phase 10; DLRM
-training: phase 13) runs with the launch counts set to 0 just before it and
-read just after. Then one JSON
+training: phase 13; ``int8_matmul``: phase 14; ``fused_lamb``: phase 15;
+``hot_gather``: phase 16) runs with the launch counts set to 0 just before it
+and read just after. Then one JSON
 line with each kernel's launches on those paths, its error against the plain
 version, its time, the plain version's, its bound on this card and the time
 of the PyTorch call that computes the same function (where there is one),
@@ -56,6 +70,7 @@ import threading
 import time
 import urllib.request
 from pathlib import Path
+from unittest import mock
 
 import numpy as np
 import torch
@@ -82,6 +97,7 @@ from deeplearningexamples_tpu_torch.models.bert import (
     BertSquadTask,
     predict_squad,
 )
+from deeplearningexamples_tpu_torch.models.bert.task import init_bert_weights_
 from deeplearningexamples_tpu_torch.models.dlrm import (
     Dlrm,
     DlrmConfig,
@@ -91,7 +107,10 @@ from deeplearningexamples_tpu_torch.models.dlrm import (
 from deeplearningexamples_tpu_torch.ops import _build
 from deeplearningexamples_tpu_torch.ops import embedding as emb
 from deeplearningexamples_tpu_torch.ops import flash_attention as fa
+from deeplearningexamples_tpu_torch.ops import fused_lamb as fused
+from deeplearningexamples_tpu_torch.ops import quantization as quant
 from deeplearningexamples_tpu_torch.ops.lamb import lamb
+from deeplearningexamples_tpu_torch.tools.dlrm_hotrow import flat_ids
 from deeplearningexamples_tpu_torch.utils.jax_bridge import bert_pretrain_jax_order
 from deeplearningexamples_tpu_torch.serving import (
     ContinuousBatcher,
@@ -183,7 +202,8 @@ TOL_DLRM = {"loss": 1e-5, "grad": 1e-4, "update": 1e-4}
 def _reset_counts() -> None:
     fa.launches = fa.launches_bwd_dq = fa.launches_bwd_dkv = 0
     flat.launches_moments = flat.launches_apply = 0
-    emb.launches = 0
+    emb.launches = emb.launches_hot = 0
+    quant.launches = 0
 
 
 def _counts() -> dict[str, int]:
@@ -191,7 +211,9 @@ def _counts() -> dict[str, int]:
             "flash_bwd_dkv": fa.launches_bwd_dkv,
             "flat_lamb_moments": flat.launches_moments,
             "flat_lamb_apply": flat.launches_apply,
-            "gather_rows": emb.launches}
+            "gather_rows": emb.launches,
+            "quantize_activations": quant.launches,
+            "hot_gather": emb.launches_hot}
 
 
 def say(phase: str, msg: str) -> None:
@@ -272,6 +294,24 @@ def _event_ms(fn, iters: int = 50) -> float:
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def _device_ms(fn, iters: int = 50) -> float:
+    """``_event_ms`` with the launches queued behind a sleep of about 10 ms
+    on the card, so that a kernel shorter than its launch's host time is
+    timed back to back: the card's time alone."""
+    for _ in range(5):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(20_000_000)  # cycles
     start.record()
     for _ in range(iters):
         fn()
@@ -719,18 +759,6 @@ def _time_bwd(b, s, h, d, layout, masked=True, causal=False) -> dict:
 # -- phase 8 -----------------------------------------------------------------
 
 
-class _PlainFlatPasses:
-    """Runs ``flat_lamb``'s update with the plain passes, on the card."""
-
-    def __enter__(self):
-        self._saved = (flat.flat_lamb_moments, flat.flat_lamb_apply)
-        flat.flat_lamb_moments = flat._moments_plain
-        flat.flat_lamb_apply = flat._apply_plain
-
-    def __exit__(self, *exc):
-        flat.flat_lamb_moments, flat.flat_lamb_apply = self._saved
-
-
 def _large_layout():
     with torch.device("meta"):
         model = BertForPreTraining(BERT_CONFIGS["large"])
@@ -763,8 +791,11 @@ def phase_flat_lamb() -> dict:
             state = flat.FlatLambState(0, m0.to(mdt, copy=True),
                                        v0.to(mdt, copy=True))
             before = (flat.launches_moments, flat.launches_apply)
-            if kind == "plain":
-                with _PlainFlatPasses():
+            if kind == "plain":  # the plain passes, on the card
+                with mock.patch.object(flat, "flat_lamb_moments",
+                                       flat._moments_plain), \
+                        mock.patch.object(flat, "flat_lamb_apply",
+                                          flat._apply_plain):
                     for g in grads:
                         p, state = tx.update(g, state, p)
             else:
@@ -974,10 +1005,10 @@ def phase_training() -> dict[str, int]:
         check(losses[-1] < losses[0], f"{name}: loss did not fall: {losses}")
         curves[name] = losses
         flat_steps = steps if name == "flat" else 0
-        want = {"flash_fwd": LAYERS * (steps + eval_steps),
+        want = {**dict.fromkeys(launched, 0),
+                "flash_fwd": LAYERS * (steps + eval_steps),
                 "flash_bwd_dq": LAYERS * steps, "flash_bwd_dkv": LAYERS * steps,
-                "flat_lamb_moments": flat_steps, "flat_lamb_apply": flat_steps,
-                "gather_rows": 0}
+                "flat_lamb_moments": flat_steps, "flat_lamb_apply": flat_steps}
         check(launched == want, f"{name}: launches {launched}, want {want}")
         for k, v in launched.items():
             total[k] += v
@@ -1234,6 +1265,405 @@ def phase_dlrm_training() -> int:
     return total
 
 
+# -- phase 14 ----------------------------------------------------------------
+
+# BERT-Large's FFN GEMMs at the serving shape B=8 S=384: (M, K, N)
+FFN = ((B * S, 1024, 4096), (B * S, 4096, 1024))
+# int8_matmul against the fp32 product, relative Frobenius error: the JAX
+# test's limit (tests/test_quantization.py). The inputs are uniform in
+# [-1, 1): per-tensor int8 spends its 255 steps on the absmax, and normal
+# inputs of 3M entries put it at 5 standard deviations, where stochastic
+# rounding alone costs about 1.8% (printed, not checked)
+TOL_INT8 = 0.02
+
+
+def _int8_case(m, k, n, gen):
+    x = torch.rand(m, k, generator=gen, device=DEV) * 2 - 1
+    w = torch.randn(k, n, generator=gen, device=DEV) * 0.02  # BERT's init std
+    w_q, w_s = quant.quantize_per_channel(w, axis=1)
+    return x, w, w_q, w_s[0][None, :]
+
+
+def _rel(a: torch.Tensor, b: torch.Tensor) -> float:
+    return float(torch.linalg.norm(a - b) / torch.linalg.norm(b))
+
+
+def phase_quantize() -> tuple[dict, int]:
+    """K5 against its plain version bit for bit over 16 seeds, with the
+    statistics of stochastic rounding; then ``int8_matmul`` at the FFN
+    shapes (the int8 path, counts set to 0 just before it); then times.
+    Returns K5's results and its launches on that path."""
+    gen = torch.Generator(device=DEV).manual_seed(SEED)
+    cases = {f"{m}x{k}": _int8_case(m, k, n, gen) for m, k, n in FFN}
+    first = next(iter(cases.values()))
+    xs = {f"f32 {key}": c[0] for key, c in cases.items()}
+    bf16_name = f"bf16 {next(iter(cases))}"
+    xs[bf16_name] = first[0].bfloat16()
+    stats, at_step = [], 0
+    for name, x in xs.items():
+        x64 = x.double()
+        acc = torch.zeros_like(x64)
+        for seed in range(16):
+            before = quant.launches
+            q, scale = quant.quantize_activations(x, seed)
+            torch.cuda.synchronize()
+            check(quant.launches == before + 1, f"K5 not launched for {name}")
+            want_q, want_s = quant.quantize_activations_reference(x, seed)
+            check(torch.equal(scale, want_s), f"K5 {name} seed {seed}: scale")
+            check(torch.equal(q, want_q), f"K5 {name} seed {seed}: "
+                  f"{int((q != want_q).sum())} of {q.numel()} differ from plain")
+            deq = q.double() * float(scale)
+            dist = (deq - x64).abs()
+            worst = float(dist.max())
+            # within one step, but for fp32's rounding: where y = x / scale
+            # rounds away from x and y + u rounds up to the next integer, q
+            # lands one step and up to an ulp of y (<= 2^-17 of a step) away
+            check(worst <= float(scale) * (1 + 2**-16), f"K5 {name} seed "
+                  f"{seed}: |q s - x| {worst:.6e} > scale {float(scale):.6e}")
+            at_step += int((dist >= float(scale)).sum())
+            if seed == 0:
+                single = float((deq - x64).abs().mean())
+            acc += deq
+        mean_err = float((acc / 16 - x64).abs().mean())
+        check(mean_err < single, f"K5 {name}: 16-seed mean {mean_err:.3e} not "
+              f"closer than one draw {single:.3e}")
+        stats.append(f"{name} {mean_err / single:.3f}")
+        del acc, x64
+
+    # the int8 path: int8_matmul at both FFN GEMMs, fp32 and bf16 inputs
+    calls = [(f"f32 {key}", c[0], c[2], c[3], c[1]) for key, c in cases.items()]
+    calls.append((bf16_name, xs[bf16_name], first[2], first[3], first[1]))
+    _reset_counts()
+    outs = [quant.int8_matmul(x, w_q, w_s, seed=7) for _, x, w_q, w_s, _ in calls]
+    torch.cuda.synchronize()
+    launched = _counts()
+    check(launched == {**dict.fromkeys(launched, 0),
+                       "quantize_activations": len(calls)},
+          f"int8_matmul launches {launched}")
+    errs = []
+    for (name, x, w_q, w_s, w), out in zip(calls, outs):
+        check(out.dtype == torch.float32 and bool(torch.isfinite(out).all()),
+              f"int8_matmul {name}: {out.dtype}, finite "
+              f"{bool(torch.isfinite(out).all())}")
+        rel = _rel(out, x.float() @ w)
+        check(rel < TOL_INT8, f"int8_matmul {name}: relative error {rel:.4f}")
+        errs.append(f"{name} {rel:.4f}")
+    del outs
+    xn = torch.randn(first[0].shape, generator=gen, device=DEV)
+    normal_rel = _rel(quant.int8_matmul(xn, first[2], first[3], seed=7),
+                      xn @ first[1])
+
+    # times: K5 alone (the scale given), its plain version, then the GEMMs
+    times = {}
+    for name, x in xs.items():
+        scale = quant._scale(x)
+        u_plain = lambda x=x, scale=scale: quant.stochastic_round(  # noqa: E731
+            x, scale, quant.philox_uniform(0, x.numel(), DEV).view(x.shape))
+        kernel = lambda x=x, scale=scale: quant._quantize_cuda(x, scale, 0)  # noqa: E731
+        plain_ms = [_event_ms(u_plain, 10)]
+        # a launch takes longer on the host than K5 on the card
+        kernel_ms = [_device_ms(kernel), _device_ms(kernel)]
+        plain_ms.append(_event_ms(u_plain, 10))
+        n = x.numel()
+        # x read once, q written once, the scale; divide, add, floor and the
+        # clip on the fp32 pipe (Philox's integer work has no peak in the
+        # table and is not counted)
+        bound = _bound(n * x.element_size() + n + 4, 5 * n, torch.float32)
+        times[name] = {"ms": min(kernel_ms), "plain_ms": min(plain_ms),
+                       "bound_ms": bound[0], "bound_by": bound[1],
+                       "library_ms": None}
+    gemm = []
+    for (name, x, w_q, w_s, w) in calls[:2]:
+        q, _ = quant.quantize_activations(x, 0)
+        x16, w16 = x.bfloat16(), w.bfloat16()
+        w_cm = w_q.t().contiguous().t()  # the same (K, N), column-major
+        whole = _event_ms(lambda: quant.int8_matmul(x, w_q, w_s, seed=0))
+        int_mm = _event_ms(lambda: torch._int_mm(q, w_q))
+        int_mm_cm = _event_ms(lambda: torch._int_mm(q, w_cm))
+        bf16 = _event_ms(lambda: x16 @ w16)
+        m, k = x.shape
+        gemm.append(f"{name} @ {k}x{w.shape[1]}: int8_matmul {whole:.4f} ms, "
+                    f"_int_mm alone {int_mm:.4f} ms (column-major w "
+                    f"{int_mm_cm:.4f} ms), bf16 matmul {bf16:.4f} ms "
+                    f"(int8 bound {2 * m * k * w.shape[1] / 1979e12 * 1e3:.4f} "
+                    "ms at 1,979 TOP/s)")
+    say("14 int8", "quantize_activations (K5) vs plain, bitwise equal in 16 "
+        "seeds at " + ", ".join(xs) + "; 16-seed mean error over one draw's: "
+        + ", ".join(stats) + f"; every |q scale - x| within a step (and fp32's "
+        f"rounding), {at_step} of {16 * sum(x.numel() for x in xs.values())} "
+        "draws at one step or more; "
+        "int8_matmul vs "
+        "fp32 relative error (uniform inputs): " + ", ".join(errs)
+        + f" (limit {TOL_INT8}); normal inputs {normal_rel:.4f} (not checked); "
+        + "; ".join(f"K5 {k}: kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} "
+                    f"ms, bound {t['bound_ms']:.4f} ms ({t['bound_by']})"
+                    for k, t in times.items())
+        + "; " + "; ".join(gemm) + " (CUDA events; K5's queued behind a "
+        "sleep on the card)")
+    return {"max_abs_err": 0.0, **times[calls[1][0]]}, \
+        launched["quantize_activations"]
+
+
+# -- phase 15 ----------------------------------------------------------------
+
+# fused_lamb's 10 bf16 steps against flat_lamb's (fp32 moments both) on the
+# same batches and dropout, relative to each loss. The first loss comes
+# before any update and must agree to the sums' order. After it the two
+# differ by the order of their norm sums (8K against 64K blocks), the clip
+# norm (over tensors against over the buffer) and new = p + (new - p)
+# against new written: ulps of fp32, which bf16 compute turns into other
+# roundings and LAMB's early u = m / sqrt(v) into sign flips of near-zero
+# gradients. A missing trust ratio or a wrong scale moves the loss by whole
+# units at this rate.
+TOL_FUSED_FIRST = 1e-5
+TOL_FUSED_EARLY = 1e-3  # steps 1-3, before the gaps compound
+TOL_FUSED_FLAT = 1e-2
+
+
+def _bert_large(dtype, dropout: bool):
+    cfg = BERT_CONFIGS["large"]
+    if not dropout:
+        cfg = dataclasses.replace(cfg, hidden_dropout=0.0, attention_dropout=0.0)
+    model = BertForPreTraining(cfg, dtype).to(DEV)
+    init_bert_weights_(model, torch.Generator(device=DEV).manual_seed(SEED),
+                       cfg.initializer_range)
+    return cfg, model
+
+
+def _fused_tx(params, lr):
+    return fused.fused_lamb(lr, weight_decay=0.01,
+                            mask={n: p.ndim > 1 for n, p in params.items()},
+                            order=bert_pretrain_jax_order(LAYERS))
+
+
+def phase_fused_lamb() -> tuple[dict, dict]:
+    """``fused_lamb`` on full-width BERT-Large through make_train_step.
+    Returns K3-at-8K's results and the launches of the 10-step bf16 run
+    (the fused LAMB's path, counts set to 0 just before it)."""
+    t0 = time.perf_counter()
+    lr = float(PRETRAIN_LR)
+    # one fp32 step, K3 at 8K against the plain pair on the same gradients
+    cfg, model = _bert_large(torch.float32, dropout=False)
+    task = BertPretrainTask(cfg, torch.float32, max_predictions=20)
+    params = dict(model.named_parameters())
+    p0 = {n: p.detach().clone() for n, p in params.items()}
+    tx = _fused_tx(params, lr)
+    state = create_train_state(model, tx, SEED, params=params)
+    batch = {k: torch.from_numpy(v).to(DEV)
+             for k, v in _pretrain_batch(8, TS, 20).items()}
+    before = _counts()
+    state, metrics = make_train_step(task.loss_fn, tx)(state, batch)
+    torch.cuda.synchronize()
+    one = {k: v - before[k] for k, v in _counts().items()}
+    check(one["flat_lamb_moments"] == one["flat_lamb_apply"] == 1,
+          f"one fused_lamb step launched K3 {one}")
+    grads = {n: p.grad for n, p in params.items()}
+    tx_plain = _fused_tx(p0, lr)
+    with mock.patch.object(fused, "_passes", fused.passes_plain):  # on the card
+        upd, _ = tx_plain.update(grads, tx_plain.init(p0), p0)
+    torch.cuda.synchronize()
+    err = max(max_err(params[n].detach(), p0[n] + upd[n]) for n in params)
+    top = max(float(p.abs().max()) for p in p0.values())
+    moved = max(max_err(params[n].detach(), p0[n]) for n in params)
+    check(math.isfinite(float(metrics["loss"])) and moved > 0,
+          f"fp32 fused_lamb step: loss {float(metrics['loss'])}, moved {moved}")
+    check(err <= TOL_LAMB[torch.float32] * top,
+          f"K3 at 8K vs the plain pair: p err {err:.3e}, largest {top:.3e}")
+    del model, params, p0, tx, state, grads, upd, tx_plain, batch
+
+    # 10 bf16 steps (dropout 0.1) through make_train_step: fused_lamb, then
+    # flat_lamb with fp32 moments, on the same batch and dropout draws
+    batch = {k: torch.from_numpy(v).to(DEV)
+             for k, v in _pretrain_batch(TB, TS, 20).items()}
+    curves, upd_ms, launched = {}, {}, {}
+    for name in ("fused", "flat"):
+        cfg, model = _bert_large(torch.bfloat16, dropout=True)
+        task = BertPretrainTask(cfg, torch.bfloat16, max_predictions=20)
+        params = dict(model.named_parameters())
+        if name == "fused":
+            tx, opt_params = _fused_tx(params, lr), params
+        else:
+            check(flat.default_wd_mask(list(params))
+                  == {n: p.ndim > 1 for n, p in params.items()},
+                  "flat_lamb's decay mask is not fused_lamb's p.ndim > 1")
+            tx, opt_params, _ = flat.flatten_train(
+                model, lr=lr, weight_decay=0.01, moment_dtype=torch.float32,
+                order=bert_pretrain_jax_order(LAYERS))
+        state = create_train_state(model, tx, SEED, params=opt_params)
+        step = make_train_step(task.loss_fn, tx)
+        losses = []
+        if name == "fused":
+            _reset_counts()  # the fused LAMB's path starts here
+        for _ in range(10):
+            state, metrics = step(state, batch)
+            losses.append(float(metrics["loss"]))
+        torch.cuda.synchronize()
+        if name == "fused":
+            launched = _counts()
+            want = {**dict.fromkeys(launched, 0), "flash_fwd": 10 * LAYERS,
+                    "flash_bwd_dq": 10 * LAYERS, "flash_bwd_dkv": 10 * LAYERS,
+                    "flat_lamb_moments": 10, "flat_lamb_apply": 10}
+            check(launched == want, f"fused_lamb 10 steps: launches {launched}, "
+                  f"want {want}")
+        curves[name] = losses
+        grads = state.params.grad if name == "flat" else \
+            {n: p.grad for n, p in params.items()}
+        upd_ms[name] = _event_ms(lambda: tx.update(grads, state.opt_state,
+                                                   state.params), 5)
+        if name == "fused":  # its parts, and the tree LAMB on the same grads
+            lay = fused.make_layout(params, bert_pretrain_jax_order(LAYERS))
+            buf = fused.pack(lay, params)
+            upd_ms["pack"] = _event_ms(lambda: fused.pack(lay, grads), 5)
+            upd_ms["clip"] = _event_ms(lambda: flat.step_hyp(
+                0.9, 0.999, 1e-6, 1, list(grads.values()), 1.0), 5)
+            upd_ms["deltas"] = _event_ms(lambda: {
+                n: t - params[n] for n, t in fused.unpack(lay, buf, params).items()}, 5)
+            del buf
+            tree = lamb(lr, weight_decay=0.01, moment_dtype=torch.float32,
+                        mask={n: p.ndim > 1 for n, p in params.items()})
+            tree_state = tree.init(params)
+            upd_ms["tree"] = _event_ms(lambda: tree.update(grads, tree_state,
+                                                           params), 5)
+            del tree, tree_state
+        del model, params, opt_params, tx, state, step, grads
+    fu, fl = curves["fused"], curves["flat"]
+    rel = [abs(a - b) / abs(b) for a, b in zip(fu, fl)]
+    check(all(math.isfinite(x) for x in fu + fl), f"losses {fu} {fl}")
+    check(rel[0] <= TOL_FUSED_FIRST, f"first loss fused {fu[0]} vs flat {fl[0]}")
+    check(max(rel[:3]) <= TOL_FUSED_EARLY, f"fused vs flat, steps 1-3: {fu} vs {fl}")
+    check(max(rel) <= TOL_FUSED_FLAT, f"fused vs flat losses: {fu} vs {fl}")
+
+    # K3 at 8K on the fused layout of BERT-Large: each pass, and the plain pair
+    with torch.device("meta"):
+        shapes = dict(BertForPreTraining(BERT_CONFIGS["large"]).named_parameters())
+    layout = fused.make_layout(shapes, bert_pretrain_jax_order(LAYERS))
+    rows = layout.total // flat.LANES
+    g = torch.Generator(device=DEV).manual_seed(SEED)
+    p = torch.randn(rows, flat.LANES, generator=g, device=DEV) * 0.02
+    gr = torch.randn(rows, flat.LANES, generator=g, device=DEV) * 1e-3
+    m = torch.randn(rows, flat.LANES, generator=g, device=DEV) * 1e-4
+    v = torch.rand(rows, flat.LANES, generator=g, device=DEV) * 1e-7
+    seg = torch.as_tensor(layout.seg_ids, dtype=torch.int32, device=DEV)
+    wd = torch.full((layout.n_leaves,), 0.01, device=DEV)
+    hyp = torch.tensor([0.9, 0.999, 1e-6, 0.1, 0.001, 0.5], device=DEV)
+    scale_leaf = torch.full((layout.n_leaves,), 1e-3, device=DEV)
+    index = torch.as_tensor(flat.leaf_index(layout), device=DEV)
+
+    def moments():
+        flat.flat_lamb_moments(gr, p, m, v, seg, wd, hyp, fused.BLOCK)
+
+    def apply():
+        flat.flat_lamb_apply(p, m, v, seg, wd, hyp, scale_leaf, fused.BLOCK)
+
+    def plain():
+        fused.passes_plain(gr, p, m, v, seg, wd, hyp, 1e-3, index)
+
+    plain_ms = [_event_ms(plain, 5)]
+    mom_ms = [_event_ms(moments, 10), _event_ms(moments, 10)]
+    app_ms = [_event_ms(apply, 10), _event_ms(apply, 10)]
+    plain_ms.append(_event_ms(plain, 5))
+    n, nb = layout.total, len(layout.seg_ids)
+    # pass 1 reads g, p, m, v and writes m, v (fp32) and the partials; pass 2
+    # reads p, m, v and writes p; about 20 and 10 fp32 operations an element
+    mom_bound = _bound(n * 24 + nb * 8 + nb * 4, 20 * n, torch.float32)
+    app_bound = _bound(n * 16 + nb * 4, 10 * n, torch.float32)
+    del p, gr, m, v
+    say("15 fused LAMB", f"fused_lamb on BERT-Large ({n} elements in "
+        f"{nb} blocks of 8 x 1024, {layout.n_leaves} tensors, fp32 moments, "
+        "weight decay where p.ndim > 1): one fp32 step at B=8, K3 at 8K vs "
+        f"JAX's plain pair on the same gradients, max abs err {err:.2e} "
+        f"(largest parameter {top:.3e}, limit {TOL_LAMB[torch.float32]:.0e} "
+        "of it); 10 bf16 steps at B=64 S=128 lr " + PRETRAIN_LR + ", loss "
+        "fused " + " ".join(f"{x:.4f}" for x in fu) + ", flat "
+        + " ".join(f"{x:.4f}" for x in fl) + f" (worst {max(rel):.2e} "
+        f"relative, limit {TOL_FUSED_FLAT:.0e}; steps 1-3 {max(rel[:3]):.1e}, "
+        f"limit {TOL_FUSED_EARLY:.0e}; first {rel[0]:.1e}); K3 "
+        f"launches per step {launched['flat_lamb_moments'] // 10}+"
+        f"{launched['flat_lamb_apply'] // 10}; update alone (CUDA events): "
+        f"fused {upd_ms['fused']:.2f} ms (of which packing one buffer "
+        f"{upd_ms['pack']:.2f}, the clip norm and constants "
+        f"{upd_ms['clip']:.2f}, unpacking the deltas {upd_ms['deltas']:.2f}), "
+        f"flat {upd_ms['flat']:.2f} ms, tree {upd_ms['tree']:.2f} ms (fp32 "
+        "moments all); K3 at 8K: moments "
+        f"pass {min(mom_ms):.4f} ms (bound {mom_bound[0]:.4f}, {mom_bound[1]})"
+        f", apply pass {min(app_ms):.4f} ms (bound {app_bound[0]:.4f}, "
+        f"{app_bound[1]}), plain pair {min(plain_ms):.4f} ms; "
+        f"{time.perf_counter() - t0:.1f} s")
+    common = {"max_abs_err": err, "plain_ms": min(plain_ms), "library_ms": None}
+    return {
+        "flat_lamb_moments_8k": {**common, "ms": min(mom_ms),
+                                 "bound_ms": mom_bound[0],
+                                 "bound_by": mom_bound[1]},
+        "flat_lamb_apply_8k": {**common, "ms": min(app_ms),
+                               "bound_ms": app_bound[0],
+                               "bound_by": app_bound[1]},
+    }, launched
+
+
+# -- phase 16 ----------------------------------------------------------------
+
+K_HOT = 256  # hot rows per table, the probe's
+
+
+def phase_hot_gather() -> tuple[dict, int]:
+    """K6 at the probe's shape against its plain version, bitwise, with a
+    hot buffer unlike the table's head (so a row read from the wrong source
+    shows); the hot-gather path (counts set to 0 just before it) on uniform
+    and zipf ids; times beside K4 and embedding() on the same ids."""
+    gen = torch.Generator(device=DEV).manual_seed(SEED)
+    table = torch.randn(DLRM_CFG.total_rows, 128, generator=gen, device=DEV)
+    hot = torch.randn(DLRM_TABLES * K_HOT, 128, generator=gen, device=DEV) + 100
+    rng = np.random.default_rng(SEED)
+    ids = {skew: torch.from_numpy(flat_ids(rng, skew, DLRM_B, DLRM_TABLES,
+                                           DLRM_CARD)).to(DEV)
+           for skew in ("uniform", "zipf")}
+    _reset_counts()  # the hot-gather path starts here
+    outs = {skew: emb.hot_gather(table, hot, i, DLRM_CARD, K_HOT)
+            for skew, i in ids.items()}
+    torch.cuda.synchronize()
+    launched = _counts()
+    check(launched == {**dict.fromkeys(launched, 0), "hot_gather": 2},
+          f"hot_gather launches {launched}")
+    timed, lines = {}, []
+    for skew, i in ids.items():
+        want = emb.hot_gather_reference(table, hot, i, DLRM_CARD, K_HOT)
+        check(torch.equal(outs[skew], want),
+              f"K6 {skew}: max abs err {max_err(outs[skew], want):.3e}")
+        is_hot = (i % DLRM_CARD) < K_HOT
+        check(bool((want[is_hot] > 50).all()) and bool((want[~is_hot] < 50).all()),
+              f"K6 {skew}: a row came from the wrong source")
+        cover = float(is_hot.float().mean())
+        n, uniq = i.numel(), int(torch.unique(i).numel())
+
+        def kernel():
+            return emb.hot_gather(table, hot, i, DLRM_CARD, K_HOT)
+
+        def plain():
+            return emb.hot_gather_reference(table, hot, i, DLRM_CARD, K_HOT)
+
+        plain_ms = [_event_ms(plain, 10)]
+        kernel_ms = [_event_ms(kernel, 20), _event_ms(kernel, 20)]
+        plain_ms.append(_event_ms(plain, 10))
+        k4_ms = _event_ms(lambda: emb.gather_rows(table, i), 20)
+        library_ms = _event_ms(lambda: torch.nn.functional.embedding(i, table), 20)
+        # distinct rows read (cold from the table, hot from the hot buffer),
+        # every row written, every id read
+        bound = _bound(uniq * 512 + n * 512 + n * 4, 0, torch.float32)
+        timed[skew] = {"ms": min(kernel_ms), "plain_ms": min(plain_ms),
+                       "bound_ms": bound[0], "bound_by": bound[1],
+                       "library_ms": library_ms}
+        lines.append(f"{skew} (hot coverage {cover:.4f}, {uniq} distinct "
+                     f"rows of {n}): kernel {min(kernel_ms):.4f} ms, plain "
+                     f"{min(plain_ms):.4f} ms, K4 gather_rows {k4_ms:.4f} ms, "
+                     f"embedding() {library_ms:.4f} ms, bound {bound[0]:.4f} ms"
+                     f" ({bound[1]})")
+    say("16 hot gather", f"hot_gather (K6) vs plain at the probe's shape "
+        f"({DLRM_TABLES} x {DLRM_CARD} x 128 fp32, {K_HOT} hot rows a table "
+        "in a separate buffer), bitwise equal, every hot row from the hot "
+        "buffer; " + "; ".join(lines) + " (CUDA events)")
+    return {"max_abs_err": 0.0, **timed["zipf"]}, launched["hot_gather"]
+
+
 def main() -> None:
     name = phase_device()
     phase_build()
@@ -1245,10 +1675,10 @@ def main() -> None:
     results.update(phase_flat_lamb())
     results["gather_rows"] = phase_gather()
     task, model = phase_slice()
-    launched = dict.fromkeys(results, 0)
+    launched = dict.fromkeys(_counts(), 0)  # each kernel's main-path launches
     launched["flash_fwd"] = phase_serving(task, model)  # counts set to 0 there
     launched["flash_fwd"] += phase_predict(task, model)
-    check(_counts() == {**dict.fromkeys(results, 0),
+    check(_counts() == {**dict.fromkeys(_counts(), 0),
                         "flash_fwd": launched["flash_fwd"]},
           "a launch count moved outside the serving path")
     check(launched["flash_fwd"] > 0, "the serving path never launched flash_fwd")
@@ -1258,21 +1688,46 @@ def main() -> None:
         launched[k] += v
     phase_dlrm_parity()
     launched["gather_rows"] += phase_dlrm_training()  # counts set to 0 there
+    results["quantize_activations"], launched["quantize_activations"] = \
+        phase_quantize()  # counts set to 0 there
+    fused_results, fused_launched = phase_fused_lamb()  # counts set to 0 there
+    results.update(fused_results)
+    for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        launched[k] += fused_launched[k]
+    # K3 at 8K blocks is reported apart from K3 at 64K (phase 10's path)
+    launched["flat_lamb_moments_8k"] = fused_launched["flat_lamb_moments"]
+    launched["flat_lamb_apply_8k"] = fused_launched["flat_lamb_apply"]
+    results["hot_gather"], launched["hot_gather"] = \
+        phase_hot_gather()  # counts set to 0 there
+    check(set(launched) == set(results), f"{sorted(launched)} vs {sorted(results)}")
     for k, v in launched.items():
         check(v > 0, f"the main path never launched {k}")
-    sources = {
-        "flash_fwd": ("csrc/flash_fwd.cu", "ops/flash_attention.py:686"),
-        "flash_bwd_dq": ("csrc/flash_bwd.cu", "ops/flash_attention.py:896"),
-        "flash_bwd_dkv": ("csrc/flash_bwd.cu", "ops/flash_attention.py:896"),
-        "flat_lamb_moments": ("csrc/flat_lamb.cu", "core/flat.py:212"),
-        "flat_lamb_apply": ("csrc/flat_lamb.cu", "core/flat.py:242"),
-        "gather_rows": ("csrc/gather_rows.cu", "ops/embedding.py:118"),
+    sources = {  # (source in the port, the TPU kernel it replaces)
+        "flash_fwd": ("csrc/flash_fwd.cu",
+                      "deeplearningexamples_tpu/ops/flash_attention.py:686"),
+        "flash_bwd_dq": ("csrc/flash_bwd.cu",
+                         "deeplearningexamples_tpu/ops/flash_attention.py:896"),
+        "flash_bwd_dkv": ("csrc/flash_bwd.cu",
+                          "deeplearningexamples_tpu/ops/flash_attention.py:896"),
+        "flat_lamb_moments": ("csrc/flat_lamb.cu",
+                              "deeplearningexamples_tpu/core/flat.py:212"),
+        "flat_lamb_apply": ("csrc/flat_lamb.cu",
+                            "deeplearningexamples_tpu/core/flat.py:242"),
+        "gather_rows": ("csrc/gather_rows.cu",
+                        "deeplearningexamples_tpu/ops/embedding.py:118"),
+        "quantize_activations": ("csrc/quantize.cu",
+                                 "deeplearningexamples_tpu/ops/quantization.py:128"),
+        "flat_lamb_moments_8k": ("csrc/flat_lamb.cu",
+                                 "deeplearningexamples_tpu/ops/fused_lamb.py:142"),
+        "flat_lamb_apply_8k": ("csrc/flat_lamb.cu",
+                               "deeplearningexamples_tpu/ops/fused_lamb.py:177"),
+        "hot_gather": ("csrc/gather_rows.cu", "perf/dlrm_hotrow.py:95"),
     }
     print(json.dumps({"kernels": [{
         "name": k,
         "route": "cuda",
         "source": f"deeplearningexamples_tpu_torch/{sources[k][0]}",
-        "replaces": f"deeplearningexamples_tpu/{sources[k][1]}",
+        "replaces": sources[k][1],
         "launches": launched[k],
         **{f: results[k][f] for f in ("max_abs_err", "ms", "plain_ms",
                                       "bound_ms", "bound_by", "library_ms")},

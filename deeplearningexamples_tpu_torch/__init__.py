@@ -7,6 +7,8 @@ are built at first use (``ops/_build.py``).
 Ported so far: BERT-Large question answering, served through the continuous
 batcher and HTTP server and through ``predict_squad``; BERT-Large pretraining
 and DLRM training through the CLI (``python -m deeplearningexamples_tpu_torch.cli
-bert-pretrain|dlrm``). The flash-attention forward and backward, the flat
-LAMB and DLRM's embedding row gather are CUDA kernels.
+bert-pretrain|dlrm``); int8 quantization with ``int8_matmul``, the
+``fused_lamb`` optimizer and DLRM's hot-row gather. The flash-attention
+forward and backward, the flat LAMB, DLRM's embedding row gather and
+hot-row gather and the stochastic int8 quantization are CUDA kernels.
 """

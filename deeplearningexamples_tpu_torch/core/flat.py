@@ -18,7 +18,9 @@ then reads and writes the two buffers in two passes:
 On CUDA tensors the passes launch the kernels of ``csrc/flat_lamb.cu``
 (which replace the TPU kernels ``_moment_kernel`` and ``_apply_kernel``) or
 raise; on CPU tensors they run the plain versions below, which are the
-kernels' oracles. ``flat_lamb`` evaluates ``lr`` at the update count after the
+kernels' oracles. The passes take 64 x 1024-element blocks (this module's
+layout) or 8 x 1024 (``ops/fused_lamb.py``'s), and the launch counts count
+both. ``flat_lamb`` evaluates ``lr`` at the update count after the
 increment, where the tree LAMB (``ops/lamb.py``) uses the count before it; both
 are as in JAX.
 """
@@ -33,11 +35,11 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..ops.fused_lamb import FlatLayout
 from ..ops.lamb import Transform, global_norm
 
 __all__ = [
     "BLOCK",
+    "FlatLayout",
     "LANES",
     "default_wd_mask",
     "flat_lamb",
@@ -46,7 +48,11 @@ __all__ = [
     "flatten_train",
     "launches_apply",
     "launches_moments",
+    "leaf_index",
+    "leaf_sums",
     "make_layout_blocked",
+    "step_hyp",
+    "trust_scale",
     "unflatten",
 ]
 
@@ -58,6 +64,19 @@ BLOCK = BLOCK_ROWS * LANES
 launches_moments = 0
 launches_apply = 0
 _count_lock = threading.Lock()
+
+
+class FlatLayout(NamedTuple):
+    """JAX ``ops/fused_lamb.py``'s ``FlatLayout``, names in place of the
+    treedef."""
+
+    names: tuple  # leaf names, in buffer order
+    shapes: tuple
+    starts: np.ndarray  # padded start offset per leaf
+    sizes: np.ndarray  # true size per leaf
+    total: int  # padded total
+    seg_ids: np.ndarray  # (total // block,) leaf index per block
+    n_leaves: int
 
 
 def make_layout_blocked(named_shapes: Sequence[tuple[str, tuple]],
@@ -124,11 +143,12 @@ def _apply_plain(p, m, v, seg_ids, wd_leaf, hyp, scale_leaf):
 
 _kernel_fns: dict = {}
 _ARGTYPES = {
-    # g, p, m, v, seg_ids, wd_leaf, hyp, partial, n_blocks, bf16, stream
+    # g, p, m, v, seg_ids, wd_leaf, hyp, partial, n_blocks, block, bf16, stream
     "dlx_flat_lamb_moments": [ctypes.c_void_p] * 8,
-    # p, m, v, seg_ids, wd_leaf, hyp, scale_leaf, n_blocks, bf16, stream
+    # p, m, v, seg_ids, wd_leaf, hyp, scale_leaf, n_blocks, block, bf16, stream
     "dlx_flat_lamb_apply": [ctypes.c_void_p] * 7,
 }
+BLOCKS = (BLOCK, 8 * LANES)  # the block sizes the kernels are built for
 
 
 def _kernel(name: str):
@@ -136,19 +156,21 @@ def _kernel(name: str):
         from ..ops._build import load
 
         fn = getattr(load(), name)
-        fn.argtypes = _ARGTYPES[name] + [ctypes.c_int, ctypes.c_int,
-                                         ctypes.c_void_p]
+        fn.argtypes = _ARGTYPES[name] + [ctypes.c_int] * 3 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _kernel_fns[name] = fn
     return _kernel_fns[name]
 
 
-def _check(p, m, v, seg_ids, wd_leaf, hyp, extra=()):
+def _check(p, m, v, seg_ids, wd_leaf, hyp, block, extra=()):
     """Validate what the kernels take; returns the number of blocks."""
-    if p.dim() != 2 or p.shape[1] != LANES or p.shape[0] % BLOCK_ROWS:
-        raise ValueError(f"the flat buffer must be (64k, {LANES}), got "
+    if block not in BLOCKS:
+        raise ValueError(f"block must be one of {BLOCKS}, got {block}")
+    rows = block // LANES
+    if p.dim() != 2 or p.shape[1] != LANES or p.shape[0] % rows:
+        raise ValueError(f"the flat buffer must be ({rows}k, {LANES}), got "
                          f"{tuple(p.shape)}")
-    nb = p.shape[0] // BLOCK_ROWS
+    nb = p.shape[0] // rows
     if m.dtype != v.dtype or m.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"m and v must share fp32 or bf16, got {m.dtype}, {v.dtype}")
     if seg_ids.dtype != torch.int32 or seg_ids.shape != (nb,):
@@ -166,12 +188,14 @@ def _check(p, m, v, seg_ids, wd_leaf, hyp, extra=()):
     return nb
 
 
-def flat_lamb_moments(g, p, m, v, seg_ids, wd_leaf, hyp) -> torch.Tensor:
+def flat_lamb_moments(g, p, m, v, seg_ids, wd_leaf, hyp,
+                      block: int = BLOCK) -> torch.Tensor:
     """Pass 1: update ``m`` and ``v`` in place; returns the (n_blocks, 2) fp32
     partial sums of p^2 and u^2, u from the unrounded fp32 moments. ``hyp``
-    is (b1, b2, eps, 1 - b1^t, 1 - b2^t, clip factor), fp32 on the device."""
+    is (b1, b2, eps, 1 - b1^t, 1 - b2^t, clip factor), fp32 on the device;
+    ``block`` the elements of a flat block (one of ``BLOCKS``)."""
     global launches_moments
-    nb = _check(p, m, v, seg_ids, wd_leaf, hyp, (("g", g),))
+    nb = _check(p, m, v, seg_ids, wd_leaf, hyp, block, (("g", g),))
     if g.shape != p.shape:
         raise ValueError("g must have the buffer's shape")
     if p.device.type == "cpu":
@@ -183,7 +207,7 @@ def flat_lamb_moments(g, p, m, v, seg_ids, wd_leaf, hyp) -> torch.Tensor:
         err = _kernel("dlx_flat_lamb_moments")(
             g.data_ptr(), p.data_ptr(), m.data_ptr(), v.data_ptr(),
             seg_ids.data_ptr(), wd_leaf.data_ptr(), hyp.data_ptr(),
-            partial.data_ptr(), nb, int(m.dtype == torch.bfloat16),
+            partial.data_ptr(), nb, block, int(m.dtype == torch.bfloat16),
             torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"flat_lamb_moments kernel launch failed: CUDA error {err}")
@@ -192,11 +216,13 @@ def flat_lamb_moments(g, p, m, v, seg_ids, wd_leaf, hyp) -> torch.Tensor:
     return partial
 
 
-def flat_lamb_apply(p, m, v, seg_ids, wd_leaf, hyp, scale_leaf) -> None:
+def flat_lamb_apply(p, m, v, seg_ids, wd_leaf, hyp, scale_leaf,
+                    block: int = BLOCK) -> None:
     """Pass 2: ``p -= scale_leaf[tensor] * u`` in place, u recomputed from the
     stored ``m`` and ``v``."""
     global launches_apply
-    nb = _check(p, m, v, seg_ids, wd_leaf, hyp, (("scale_leaf", scale_leaf),))
+    nb = _check(p, m, v, seg_ids, wd_leaf, hyp, block,
+                (("scale_leaf", scale_leaf),))
     if p.device.type == "cpu":
         return _apply_plain(p, m, v, seg_ids, wd_leaf, hyp, scale_leaf)
     if p.device.type != "cuda":
@@ -205,7 +231,7 @@ def flat_lamb_apply(p, m, v, seg_ids, wd_leaf, hyp, scale_leaf) -> None:
         err = _kernel("dlx_flat_lamb_apply")(
             p.data_ptr(), m.data_ptr(), v.data_ptr(), seg_ids.data_ptr(),
             wd_leaf.data_ptr(), hyp.data_ptr(), scale_leaf.data_ptr(), nb,
-            int(m.dtype == torch.bfloat16),
+            block, int(m.dtype == torch.bfloat16),
             torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"flat_lamb_apply kernel launch failed: CUDA error {err}")
@@ -218,13 +244,56 @@ def flat_lamb_apply(p, m, v, seg_ids, wd_leaf, hyp, scale_leaf) -> None:
 # ---------------------------------------------------------------------------
 
 
+def step_hyp(b1: float, b2: float, eps: float, count: int,
+             grads: Sequence[torch.Tensor],
+             grad_clip_norm: float | None) -> torch.Tensor:
+    """The passes' ``hyp`` for update ``count`` (after its increment): (b1,
+    b2, eps, 1 - b1^t, 1 - b2^t, clip factor), fp32 on the gradients'
+    device. The clip factor is fused_lamb.py's: g /= max(1, gnorm / max_norm),
+    no eps."""
+    device = grads[0].device
+    if grad_clip_norm:
+        gnorm = global_norm(list(grads))
+        cs = torch.where(gnorm > grad_clip_norm,
+                         gnorm.new_full((), grad_clip_norm) / gnorm, 1.0)
+    else:
+        cs = torch.ones((), dtype=torch.float32, device=device)
+    cf = np.float32(count)
+    consts_h = [b1, b2, eps, np.float32(1) - np.float32(b1) ** cf,
+                np.float32(1) - np.float32(b2) ** cf]
+    host = torch.from_numpy(np.asarray(consts_h, np.float32))
+    if device.type == "cuda":
+        # from pinned memory, asynchronously: a pageable copy would make the
+        # host wait here for the whole backward
+        host = host.pin_memory()
+    return torch.cat([host.to(device, non_blocking=True), cs.reshape(1)])
+
+
+def leaf_sums(partial: torch.Tensor, index: torch.Tensor):
+    """Pass 1's (n_blocks, 2) partials summed per leaf in block order through
+    ``index`` (``leaf_index``): (sum p^2, sum u^2), each (n_leaves,)."""
+    return torch.cat([partial, partial.new_zeros((1, 2))])[index].sum(1).unbind(1)
+
+
+def trust_scale(w_sq: torch.Tensor, u_sq: torch.Tensor, wd: torch.Tensor,
+                lr) -> torch.Tensor:
+    """lr * the trust ratio ||p|| / ||u|| of each leaf, from its sums of p^2
+    and u^2."""
+    w_norm, u_norm = torch.sqrt(w_sq), torch.sqrt(u_sq)
+    # LAMBStage2Functor gating (multi_tensor_lamb.cu:276-283): no-decay
+    # leaves take a plain-lr step
+    ratio = torch.where((wd > 0) & (w_norm > 0) & (u_norm > 0),
+                        w_norm / u_norm, 1.0)
+    return torch.as_tensor(lr, dtype=torch.float32) * ratio
+
+
 class FlatLambState(NamedTuple):
     count: int
     flat_m: torch.Tensor
     flat_v: torch.Tensor
 
 
-def _leaf_index(layout: FlatLayout) -> np.ndarray:
+def leaf_index(layout: FlatLayout) -> np.ndarray:
     """(n_leaves, most blocks of a leaf) block indices, padded with n_blocks
     (a zero row): summing along dim 1 adds each leaf's partials in block
     order, with no float atomics."""
@@ -251,7 +320,7 @@ def flat_lamb(
     decay (0.0 where masked). ``update(flat_g, state, flat_p)`` writes the new
     parameters into ``flat_p`` and returns it."""
     rows = layout.total // LANES
-    leaf_index = _leaf_index(layout)
+    index_np = leaf_index(layout)
     consts: dict = {}  # per device: seg_ids, wd_leaf, leaf index
 
     def on(device):
@@ -259,7 +328,7 @@ def flat_lamb(
             consts[device] = (
                 torch.as_tensor(layout.seg_ids, dtype=torch.int32, device=device),
                 torch.as_tensor(wd_leaf, dtype=torch.float32, device=device),
-                torch.as_tensor(leaf_index, device=device))
+                torch.as_tensor(index_np, device=device))
         return consts[device]
 
     def init(flat_params: torch.Tensor) -> FlatLambState:
@@ -275,31 +344,10 @@ def flat_lamb(
         seg, wd, index = on(flat_p.device)
         count = state.count + 1
         lr = learning_rate(count) if callable(learning_rate) else learning_rate
-        if grad_clip_norm:
-            # fused_lamb.py semantics: g /= max(1, gnorm/max_norm), no eps
-            gnorm = global_norm([flat_g])
-            cs = torch.where(gnorm > grad_clip_norm, grad_clip_norm / gnorm, 1.0)
-        else:
-            cs = torch.ones((), dtype=torch.float32, device=flat_p.device)
-        cf = np.float32(count)
-        consts_h = [b1, b2, eps, np.float32(1) - np.float32(b1) ** cf,
-                    np.float32(1) - np.float32(b2) ** cf]
-        host = torch.from_numpy(np.asarray(consts_h, np.float32))
-        if flat_p.device.type == "cuda":
-            # from pinned memory, asynchronously: a pageable copy would make
-            # the host wait here for the whole backward
-            host = host.pin_memory()
-        hyp = torch.cat([host.to(flat_p.device, non_blocking=True),
-                         cs.reshape(1)])
+        hyp = step_hyp(b1, b2, eps, count, [flat_g], grad_clip_norm)
         partial = flat_lamb_moments(flat_g, flat_p, state.flat_m, state.flat_v,
                                     seg, wd, hyp)
-        sums = torch.cat([partial, partial.new_zeros((1, 2))])[index].sum(1)
-        w_norm, u_norm = torch.sqrt(sums).unbind(1)
-        # LAMBStage2Functor gating (multi_tensor_lamb.cu:276-283): no-decay
-        # leaves take a plain-lr step
-        ratio = torch.where((wd > 0) & (w_norm > 0) & (u_norm > 0),
-                            w_norm / u_norm, 1.0)
-        scale_leaf = torch.as_tensor(lr, dtype=torch.float32) * ratio
+        scale_leaf = trust_scale(*leaf_sums(partial, index), wd, lr)
         flat_lamb_apply(flat_p, state.flat_m, state.flat_v, seg, wd, hyp,
                         scale_leaf)
         return flat_p, FlatLambState(count, state.flat_m, state.flat_v)

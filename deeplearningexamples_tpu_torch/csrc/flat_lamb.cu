@@ -2,12 +2,16 @@
 // hand: two passes.
 //
 // Replaces the TPU Pallas kernels of deeplearningexamples_tpu/core/flat.py,
-// _flat_lamb_update's _moment_kernel (pass 1) and _apply_kernel (pass 2); the
-// same math as ops/fused_lamb.py's _update_kernel and _apply_kernel. Every
+// _flat_lamb_update's _moment_kernel (pass 1) and _apply_kernel (pass 2), and
+// of deeplearningexamples_tpu/ops/fused_lamb.py, _fused_update's
+// _update_kernel and _apply_kernel: the same LAMB, except that the TPU's
+// fused pair writes u to memory between its passes and reads it back. Every
 // parameter is a segment of one (rows, 1024) fp32 buffer, padded to whole
-// blocks of 64 x 1024 elements, so a block belongs to one tensor (seg_ids).
+// blocks, so a block belongs to one tensor (seg_ids). The block is 64 x 1024
+// elements for core/flat.py's layout and 8 x 1024 for ops/fused_lamb.py's;
+// each size is its own instantiation, so the 64K code is unchanged by the 8K.
 //
-//   pass 1, one CUDA block per 64 x 1024 block:
+//   pass 1, one CUDA block per flat block:
 //     g  = g * cs                                  cs: global-norm clip
 //     m  = b1 m + (1 - b1) g,  v = b2 v + (1 - b2) g^2   in fp32
 //     u  = (m / c1) / (sqrt(v / c2) + eps) + wd[seg] p
@@ -30,14 +34,14 @@
 // about 10 flops an element. What the design does: consecutive threads touch
 // consecutive elements, so every warp load is one 128-byte line, each thread
 // has several independent loads in flight, and u is recomputed in pass 2
-// instead of being written to and read back from memory.
+// instead of being written to and read back from memory (8 bytes an element
+// less than the TPU's fused pair moves).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int BLOCK = 64 * 1024;  // elements per flat block (core/flat.py)
 constexpr int NTHREADS = 512;
 
 __device__ __forceinline__ float to_float(float x) { return x; }
@@ -54,7 +58,8 @@ __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
 }
 
 // hyp (device, fp32): b1, b2, eps, c1 = 1 - b1^t, c2 = 1 - b2^t, cs
-template <typename M>
+// BLOCK: elements per flat block, 64 x 1024 or 8 x 1024
+template <typename M, int BLOCK>
 __global__ void __launch_bounds__(NTHREADS)
     moments_kernel(const float* __restrict__ g, const float* __restrict__ p,
                    M* __restrict__ m, M* __restrict__ v,
@@ -104,7 +109,7 @@ __global__ void __launch_bounds__(NTHREADS)
   }
 }
 
-template <typename M>
+template <typename M, int BLOCK>
 __global__ void __launch_bounds__(NTHREADS)
     apply_kernel(float* __restrict__ p, const M* __restrict__ m,
                  const M* __restrict__ v, const int* __restrict__ seg_ids,
@@ -125,42 +130,75 @@ __global__ void __launch_bounds__(NTHREADS)
   }
 }
 
+template <typename M, int BLOCK>
+void launch_moments(const float* g, const float* p, void* m, void* v,
+                    const int* seg_ids, const float* wd_leaf, const float* hyp,
+                    float* partial, int n_blocks, cudaStream_t s) {
+  moments_kernel<M, BLOCK><<<n_blocks, NTHREADS, 0, s>>>(
+      g, p, static_cast<M*>(m), static_cast<M*>(v), seg_ids, wd_leaf, hyp,
+      partial);
+}
+
+template <typename M, int BLOCK>
+void launch_apply(float* p, const void* m, const void* v, const int* seg_ids,
+                  const float* wd_leaf, const float* hyp,
+                  const float* scale_leaf, int n_blocks, cudaStream_t s) {
+  apply_kernel<M, BLOCK><<<n_blocks, NTHREADS, 0, s>>>(
+      p, static_cast<const M*>(m), static_cast<const M*>(v), seg_ids, wd_leaf,
+      hyp, scale_leaf);
+}
+
+constexpr int BLOCK_FLAT = 64 * 1024;  // core/flat.py
+constexpr int BLOCK_FUSED = 8 * 1024;  // ops/fused_lamb.py
+
 }  // namespace
 
-// Plain C entry points, bound with ctypes. n_blocks is the buffer's size over
-// 64 x 1024; moments_bf16 says whether m and v hold bf16 (else fp32).
+// Plain C entry points, bound with ctypes. block is the elements of a flat
+// block, 65536 or 8192 (else cudaErrorInvalidValue); n_blocks the buffer's
+// size over it; moments_bf16 says whether m and v hold bf16 (else fp32).
 // Each returns its launch's cudaError_t; the kernel runs on `stream`.
 extern "C" int dlx_flat_lamb_moments(const float* g, const float* p, void* m,
                                      void* v, const int* seg_ids,
                                      const float* wd_leaf, const float* hyp,
-                                     float* partial, int n_blocks,
+                                     float* partial, int n_blocks, int block,
                                      int moments_bf16, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (moments_bf16)
-    moments_kernel<__nv_bfloat16><<<n_blocks, NTHREADS, 0, s>>>(
-        g, p, static_cast<__nv_bfloat16*>(m), static_cast<__nv_bfloat16*>(v),
-        seg_ids, wd_leaf, hyp, partial);
+  if (block == BLOCK_FLAT && moments_bf16)
+    launch_moments<__nv_bfloat16, BLOCK_FLAT>(g, p, m, v, seg_ids, wd_leaf,
+                                              hyp, partial, n_blocks, s);
+  else if (block == BLOCK_FLAT)
+    launch_moments<float, BLOCK_FLAT>(g, p, m, v, seg_ids, wd_leaf, hyp,
+                                      partial, n_blocks, s);
+  else if (block == BLOCK_FUSED && moments_bf16)
+    launch_moments<__nv_bfloat16, BLOCK_FUSED>(g, p, m, v, seg_ids, wd_leaf,
+                                               hyp, partial, n_blocks, s);
+  else if (block == BLOCK_FUSED)
+    launch_moments<float, BLOCK_FUSED>(g, p, m, v, seg_ids, wd_leaf, hyp,
+                                       partial, n_blocks, s);
   else
-    moments_kernel<float><<<n_blocks, NTHREADS, 0, s>>>(
-        g, p, static_cast<float*>(m), static_cast<float*>(v), seg_ids,
-        wd_leaf, hyp, partial);
+    return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" int dlx_flat_lamb_apply(float* p, const void* m, const void* v,
                                    const int* seg_ids, const float* wd_leaf,
                                    const float* hyp, const float* scale_leaf,
-                                   int n_blocks, int moments_bf16,
+                                   int n_blocks, int block, int moments_bf16,
                                    void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (moments_bf16)
-    apply_kernel<__nv_bfloat16><<<n_blocks, NTHREADS, 0, s>>>(
-        p, static_cast<const __nv_bfloat16*>(m),
-        static_cast<const __nv_bfloat16*>(v), seg_ids, wd_leaf, hyp,
-        scale_leaf);
+  if (block == BLOCK_FLAT && moments_bf16)
+    launch_apply<__nv_bfloat16, BLOCK_FLAT>(p, m, v, seg_ids, wd_leaf, hyp,
+                                            scale_leaf, n_blocks, s);
+  else if (block == BLOCK_FLAT)
+    launch_apply<float, BLOCK_FLAT>(p, m, v, seg_ids, wd_leaf, hyp, scale_leaf,
+                                    n_blocks, s);
+  else if (block == BLOCK_FUSED && moments_bf16)
+    launch_apply<__nv_bfloat16, BLOCK_FUSED>(p, m, v, seg_ids, wd_leaf, hyp,
+                                             scale_leaf, n_blocks, s);
+  else if (block == BLOCK_FUSED)
+    launch_apply<float, BLOCK_FUSED>(p, m, v, seg_ids, wd_leaf, hyp,
+                                     scale_leaf, n_blocks, s);
   else
-    apply_kernel<float><<<n_blocks, NTHREADS, 0, s>>>(
-        p, static_cast<const float*>(m), static_cast<const float*>(v), seg_ids,
-        wd_leaf, hyp, scale_leaf);
+    return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());
 }

@@ -26,6 +26,19 @@
 // A row whose byte width is not a multiple of 16, or a table or output not
 // 16-byte aligned, takes the same loop in 4-byte (fp32) or 2-byte (bf16)
 // units.
+//
+// K6, hot_gather_kernel below, is the same gather with the source chosen per
+// row. It replaces the TPU Pallas kernel of perf/dlrm_hotrow.py, hot_gather ->
+// _hot_kernel, which holds the head (k_hot rows) of each of the joint table's
+// tables in VMEM and DMAs only the cold rows from HBM. Row r of the joint
+// table, in table t = r / rows_per_table at within = r % rows_per_table, is
+// hot iff within < k_hot, and is then read from hot[t * k_hot + within],
+// never from the table. Indices outside [0, V) give a row of NaN, read from
+// neither. On this card the hot buffer (3.4 MB at DLRM's 26 x 256 x 128 fp32)
+// cannot live in a block's 227 KB of shared memory; it stays in the 50 MB L2
+// by use, as zipf's hot rows of the table itself do under K4. What bounds it:
+// device memory, as K4; the bytes are the distinct cold rows and hot rows
+// read, N rows written and N indices.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -80,21 +93,81 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
+// K6: as gather_rows_kernel, each row's source chosen between the hot
+// buffer and the table; indices outside [0, v) give a NaN row.
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+    hot_gather_kernel(const T* __restrict__ table, const T* __restrict__ hot,
+                      const int* __restrict__ idx, T* __restrict__ out,
+                      long long n, long long v, unsigned rows_per_table,
+                      unsigned k_hot, int units, T fill) {
+  const int lane = threadIdx.x & 31;
+  const long long warp =
+      (static_cast<long long>(blockIdx.x) * THREADS + threadIdx.x) >> 5;
+  const long long n_warps = static_cast<long long>(gridDim.x) * WARPS;
+  for (long long base = warp * UNROLL; base < n; base += n_warps * UNROLL) {
+    const T* src[UNROLL];  // the row to copy, or nullptr for a NaN row
+#pragma unroll
+    for (int u = 0; u < UNROLL; ++u) {
+      const long long r = base + u;
+      const int i = r < n ? __ldg(idx + r) : -1;
+      src[u] = nullptr;
+      if (i >= 0 && i < v) {
+        const unsigned t = static_cast<unsigned>(i) / rows_per_table;
+        const unsigned within = static_cast<unsigned>(i) - t * rows_per_table;
+        src[u] = within < k_hot
+                     ? hot + (static_cast<long long>(t) * k_hot + within) * units
+                     : table + static_cast<long long>(i) * units;
+      }
+    }
+    for (int c = lane; c < units; c += 32) {
+      T val[UNROLL];
+#pragma unroll
+      for (int u = 0; u < UNROLL; ++u)
+        val[u] = src[u] != nullptr ? load(src[u] + c) : fill;
+#pragma unroll
+      for (int u = 0; u < UNROLL; ++u)
+        if (base + u < n) store(out + (base + u) * units + c, val[u]);
+    }
+  }
+}
+
+// Blocks for n rows: enough for every row, at most BLOCKS_PER_SM per SM (the
+// kernels stride over the rest); 0 on an error, which *err then holds.
+long long grid_for(long long n, cudaError_t* err) {
+  int device = 0, sms = 0;
+  *err = cudaGetDevice(&device);
+  if (*err == cudaSuccess)
+    *err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (*err != cudaSuccess) return 0;
+  const long long rows_per_block = static_cast<long long>(WARPS) * UNROLL;
+  const long long blocks = (n + rows_per_block - 1) / rows_per_block;
+  const long long cap = static_cast<long long>(sms) * BLOCKS_PER_SM;
+  return blocks > cap ? cap : blocks;
+}
+
 template <typename T>
 int launch(const void* table, const int* idx, void* out, long long n,
            long long v, int units, T fill, cudaStream_t stream) {
-  int device = 0, sms = 0;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  cudaError_t err;
+  const long long blocks = grid_for(n, &err);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const long long rows_per_block = static_cast<long long>(WARPS) * UNROLL;
-  long long blocks = (n + rows_per_block - 1) / rows_per_block;
-  const long long cap = static_cast<long long>(sms) * BLOCKS_PER_SM;
-  if (blocks > cap) blocks = cap;
   gather_rows_kernel<T><<<static_cast<unsigned>(blocks), THREADS, 0, stream>>>(
       static_cast<const T*>(table), idx, static_cast<T*>(out), n, v, units,
       fill);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_hot(const void* table, const void* hot, const int* idx, void* out,
+               long long n, long long v, unsigned rows_per_table,
+               unsigned k_hot, int units, T fill, cudaStream_t stream) {
+  cudaError_t err;
+  const long long blocks = grid_for(n, &err);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  hot_gather_kernel<T><<<static_cast<unsigned>(blocks), THREADS, 0, stream>>>(
+      static_cast<const T*>(table), static_cast<const T*>(hot), idx,
+      static_cast<T*>(out), n, v, rows_per_table, k_hot, units, fill);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -117,4 +190,29 @@ extern "C" int dlx_gather_rows(const void* table, const int* idx, void* out,
     return launch<uint32_t>(table, idx, out, n, v, row_bytes / 4, nan32, s);
   return launch<uint16_t>(table, idx, out, n, v, row_bytes / 2,
                           static_cast<uint16_t>(0x7fc0u), s);
+}
+
+// K6's plain C entry point. table (v, row_bytes) and hot (v / rows_per_table
+// * k_hot, row_bytes) in one dtype (is_bf16: bf16, else fp32), idx int32 (n,),
+// out (n, row_bytes); all contiguous, n > 0, rows_per_table and k_hot below
+// 2^31. Returns the launch's cudaError_t; runs on `stream`.
+extern "C" int dlx_hot_gather(const void* table, const void* hot,
+                              const int* idx, void* out, long long n,
+                              long long v, long long rows_per_table, int k_hot,
+                              int row_bytes, int is_bf16, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const unsigned rpt = static_cast<unsigned>(rows_per_table);
+  const unsigned kh = static_cast<unsigned>(k_hot);
+  const uint32_t nan32 = is_bf16 ? 0x7fc07fc0u : 0x7fc00000u;
+  const bool aligned = (reinterpret_cast<uintptr_t>(table) % 16 == 0) &&
+                       (reinterpret_cast<uintptr_t>(hot) % 16 == 0) &&
+                       (reinterpret_cast<uintptr_t>(out) % 16 == 0);
+  if (row_bytes % 16 == 0 && aligned)
+    return launch_hot<uint4>(table, hot, idx, out, n, v, rpt, kh, row_bytes / 16,
+                             make_uint4(nan32, nan32, nan32, nan32), s);
+  if (!is_bf16)
+    return launch_hot<uint32_t>(table, hot, idx, out, n, v, rpt, kh,
+                                row_bytes / 4, nan32, s);
+  return launch_hot<uint16_t>(table, hot, idx, out, n, v, rpt, kh,
+                              row_bytes / 2, static_cast<uint16_t>(0x7fc0u), s);
 }

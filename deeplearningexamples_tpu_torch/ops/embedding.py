@@ -24,6 +24,12 @@ kernel in JAX:
 Both sum in fp32 and cast once to the table's dtype. On the card
 ``index_add_`` adds with fp32 atomics in no fixed order, so two runs may
 differ in the last bits of a row that several lookups hit.
+
+``hot_gather`` (the CUDA kernel K6, also in ``csrc/gather_rows.cu``) is the
+row gather of ``perf/dlrm_hotrow.py``'s probe, which replaces its TPU kernel
+``_hot_kernel``: the head (``k_hot`` rows) of each table of the joint table
+is read from a separate ``hot`` buffer, the other rows from the table.
+``hot_gather_reference`` is its plain version.
 """
 
 from __future__ import annotations
@@ -34,13 +40,14 @@ import threading
 import torch
 
 __all__ = ["embedding_lookup", "gather_rows", "gather_rows_reference",
-           "launches"]
+           "hot_gather", "hot_gather_reference", "launches", "launches_hot"]
 
 SUPPORTED_DTYPES = (torch.float32, torch.bfloat16)
 
-# Kernel launches since the count was last set to 0. Only the CUDA launch
-# adds to it.
+# Kernel launches since the count was last set to 0 (K4, K6). Only the CUDA
+# launches add to them.
 launches = 0
+launches_hot = 0
 _count_lock = threading.Lock()
 
 
@@ -117,6 +124,88 @@ def gather_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     if table.device.type == "cpu":
         return gather_rows_reference(table, idx)
     raise ValueError(f"no row gather for device {table.device}")
+
+
+def _check_hot(table, hot, ids, rows_per_table, k_hot) -> None:
+    _check(table, ids)
+    v, d = table.shape
+    if not 0 < k_hot <= rows_per_table < 2**31 or v % rows_per_table:
+        raise ValueError(f"need 0 < k_hot <= rows_per_table < 2^31 dividing "
+                         f"V={v}, got k_hot={k_hot}, rows_per_table="
+                         f"{rows_per_table}")
+    want = (v // rows_per_table * k_hot, d)
+    if tuple(hot.shape) != want or hot.dtype != table.dtype:
+        raise ValueError(f"hot must be {want} {table.dtype}, got "
+                         f"{tuple(hot.shape)} {hot.dtype}")
+    if hot.device != table.device or not hot.is_contiguous():
+        raise ValueError(f"hot must be contiguous on {table.device}")
+
+
+def hot_gather_reference(table: torch.Tensor, hot: torch.Tensor,
+                         ids: torch.Tensor, rows_per_table: int = 100_000,
+                         k_hot: int = 256) -> torch.Tensor:
+    """Plain PyTorch hot/cold gather: row r of the joint table, in table
+    t = r // rows_per_table at within = r % rows_per_table, comes from
+    ``hot[t * k_hot + within]`` if within < k_hot, else from ``table[r]``;
+    an id outside [0, V) gives a row of NaN."""
+    v = table.shape[0]
+    ids = ids.long()
+    valid = (ids >= 0) & (ids < v)
+    r = torch.where(valid, ids, 0)
+    t, within = r // rows_per_table, r % rows_per_table
+    is_hot = within < k_hot
+    out = torch.where(is_hot[:, None],
+                      hot.index_select(0, torch.where(is_hot, t * k_hot + within, 0)),
+                      table.index_select(0, r))
+    return out.masked_fill(~valid[:, None], float("nan"))
+
+
+_hot_fn = None
+
+
+def _hot_kernel():
+    global _hot_fn
+    if _hot_fn is None:
+        from ._build import load
+
+        fn = load().dlx_hot_gather
+        # table, hot, idx, out, n, v, rows_per_table, k_hot, row_bytes,
+        # is_bf16, stream
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 3 + [
+            ctypes.c_int] * 3 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _hot_fn = fn
+    return _hot_fn
+
+
+def hot_gather(table: torch.Tensor, hot: torch.Tensor, ids: torch.Tensor,
+               rows_per_table: int = 100_000, k_hot: int = 256) -> torch.Tensor:
+    """The probe's hot/cold gather: table (V, D) fp32 or bf16, hot
+    (V / rows_per_table * k_hot, D) in its dtype, ids int32 (N,) in [0, V)
+    -> (N, D). Any N. The ids are not checked against V (that would cost a
+    host sync): one outside [0, V) gives a NaN row and reads nothing. The
+    kernel on CUDA tensors, the plain version on CPU tensors."""
+    global launches_hot
+    _check_hot(table, hot, ids, rows_per_table, k_hot)
+    if table.device.type == "cpu":
+        return hot_gather_reference(table, hot, ids, rows_per_table, k_hot)
+    if table.device.type != "cuda":
+        raise ValueError(f"no hot gather for device {table.device}")
+    n, (v, d) = ids.shape[0], table.shape
+    out = torch.empty((n, d), dtype=table.dtype, device=table.device)
+    if n == 0:
+        return out
+    with torch.cuda.device(table.device):
+        err = _hot_kernel()(table.data_ptr(), hot.data_ptr(), ids.data_ptr(),
+                            out.data_ptr(), n, v, rows_per_table, k_hot,
+                            d * table.element_size(),
+                            int(table.dtype == torch.bfloat16),
+                            torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"hot_gather kernel launch failed: CUDA error {err}")
+    with _count_lock:
+        launches_hot += 1
+    return out
 
 
 def _scatter_grad(g: torch.Tensor, idx: torch.Tensor, v: int) -> torch.Tensor:

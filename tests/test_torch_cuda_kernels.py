@@ -1,6 +1,8 @@
 """The port's CUDA kernels against their plain versions, on the card: the
-flash-attention forward (K1) and backward (K2), the flat LAMB passes (K3) and
-the embedding row gather (K4).
+flash-attention forward (K1) and backward (K2), the flat LAMB passes (K3, at
+the flat layout's 64 x 1024 blocks and the fused LAMB's 8 x 1024), the
+embedding row gather (K4), the int8 activation quantization (K5) and the
+hot-row gather (K6).
 
 Every test here needs a CUDA card and skips without one. The file imports no
 JAX, so that a CUDA host without JAX runs it on its own:
@@ -15,6 +17,8 @@ import torch
 from deeplearningexamples_tpu_torch.core import flat
 from deeplearningexamples_tpu_torch.ops import embedding as emb
 from deeplearningexamples_tpu_torch.ops import flash_attention as fa
+from deeplearningexamples_tpu_torch.ops import fused_lamb as fused
+from deeplearningexamples_tpu_torch.ops import quantization as quant
 
 # kernel vs plain: the online softmax sums in another order (fp32); P rounds
 # to bf16 against another running maximum (bf16); lse stays fp32 on both
@@ -138,12 +142,13 @@ def test_flash_bwd_matches_plain(cuda, dtype, case):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("block", flat.BLOCKS)
 @pytest.mark.parametrize("moments", [torch.float32, torch.bfloat16])
-def test_flat_lamb_kernels_match_plain(cuda, moments):
+def test_flat_lamb_kernels_match_plain(cuda, moments, block):
     """Three steps of both passes on the card against the plain versions on
-    the same card."""
+    the same card, at either block size."""
     layout = flat.make_layout_blocked(
-        [("w", (1024, 1000)), ("b", (1000,)), ("e", (3000, 64))])
+        [("w", (1024, 1000)), ("b", (1000,)), ("e", (3000, 64))], block)
     rows = layout.total // flat.LANES
     gen = torch.Generator().manual_seed(0)
     p = torch.randn(rows, flat.LANES, generator=gen).to(cuda)
@@ -160,8 +165,8 @@ def test_flat_lamb_kernels_match_plain(cuda, moments):
         scale = torch.tensor([0.01, 0.02, 0.03], device=cuda)
         kp, km, kv = state["kernel"]
         before = (flat.launches_moments, flat.launches_apply)
-        part_k = flat.flat_lamb_moments(g, kp, km, kv, seg, wd, hyp)
-        flat.flat_lamb_apply(kp, km, kv, seg, wd, hyp, scale)
+        part_k = flat.flat_lamb_moments(g, kp, km, kv, seg, wd, hyp, block)
+        flat.flat_lamb_apply(kp, km, kv, seg, wd, hyp, scale, block)
         assert (flat.launches_moments, flat.launches_apply) == (
             before[0] + 1, before[1] + 1)
         pp, pm, pv = state["plain"]
@@ -180,6 +185,89 @@ def test_flat_lamb_kernels_match_plain(cuda, moments):
         # a bf16 moment one ulp apart moves u by 2**-8 of itself, times scale
         torch.testing.assert_close(kp, pp, rtol=1e-5,
                                    atol=1e-5 if moments == torch.float32 else 3e-4)
+
+
+@pytest.mark.cuda
+def test_fused_lamb_k3_at_8k_blocks_matches_the_plain_pair(cuda):
+    """The fused LAMB's passes on the card, K3 at 8 x 1024-element blocks,
+    against JAX's pair as written (u stored between the passes) on the same
+    card: the kernel may fuse a multiply-add that the plain version rounds
+    twice, an fp32 ulp in m and v, and the norms sum in another order."""
+    layout = flat.make_layout_blocked(
+        [("w", (1024, 1000)), ("b", (1000,)), ("e", (3000, 64)), ("s", ())],
+        fused.BLOCK)
+    rows = layout.total // flat.LANES
+    gen = torch.Generator().manual_seed(0)
+    p0 = torch.randn(rows, flat.LANES, generator=gen).to(cuda)
+    seg = torch.as_tensor(layout.seg_ids, dtype=torch.int32, device=cuda)
+    wd = torch.tensor([0.01, 0.0, 0.01, 0.01], device=cuda)
+    index = torch.as_tensor(flat.leaf_index(layout), device=cuda)
+    out = {}
+    for name, passes in (("kernel", fused.passes_kernel),
+                         ("plain", fused.passes_plain)):
+        p, m, v = p0.clone(), torch.zeros_like(p0), torch.zeros_like(p0)
+        g_gen = torch.Generator().manual_seed(1)
+        before = (flat.launches_moments, flat.launches_apply)
+        for t in range(1, 4):
+            g = torch.randn(rows, flat.LANES, generator=g_gen).to(cuda)
+            hyp = flat.step_hyp(0.9, 0.999, 1e-6, t, [g], 1.0)
+            passes(g, p, m, v, seg, wd, hyp, 1e-2 * t, index)
+        torch.cuda.synchronize()
+        launched = (flat.launches_moments - before[0],
+                    flat.launches_apply - before[1])
+        assert launched == ((3, 3) if name == "kernel" else (0, 0))
+        out[name] = (p, m, v)
+    (kp, km, kv), (pp, pm, pv) = out["kernel"], out["plain"]
+    for got, want in ((km, pm), (kv, pv)):
+        torch.testing.assert_close(got, want, rtol=1e-6,
+                                   atol=1e-6 * float(want.abs().max()))
+    torch.testing.assert_close(kp, pp, rtol=1e-5, atol=1e-5)
+
+
+# K5 against its plain version: the same Philox words, the same IEEE fp32
+# division, floor and clip, so q is equal bit for bit. Shapes not a multiple
+# of a thread's 4 (fp32) or 8 (bf16) elements take the ragged path.
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(1,), (3, 5), (17, 33), (1000, 1003),
+                                   (3072, 1024)])
+def test_quantize_activations_matches_plain(cuda, dtype, shape):
+    gen = torch.Generator().manual_seed(0)
+    x = (torch.randn(shape, generator=gen) * 3).to(cuda, dtype)
+    for seed in (0, 12345, 2**40 + 7, -1):
+        before = quant.launches
+        q, scale = quant.quantize_activations(x, seed)
+        torch.cuda.synchronize()
+        assert quant.launches == before + 1
+        want_q, want_scale = quant.quantize_activations_reference(x, seed)
+        assert q.dtype == torch.int8 and q.shape == x.shape
+        assert torch.equal(scale, want_scale)
+        assert torch.equal(q, want_q), f"seed {seed}: {(q != want_q).sum()} differ"
+
+
+@pytest.mark.cuda
+def test_quantize_unaligned_input_and_int8_matmul(cuda):
+    """An x 4 bytes into its storage takes the element-wise path; the int8
+    GEMM equals the plain product of the plain q, is within the JAX test's
+    2% of fp32, and raises on shapes the card's int8 GEMM refuses."""
+    gen = torch.Generator().manual_seed(1)
+    x = torch.randn(4097, generator=gen).to(cuda)[1:]
+    assert x.data_ptr() % 16 != 0 and x.is_contiguous()
+    assert torch.equal(quant.quantize_activations(x, 3)[0],
+                       quant.quantize_activations_reference(x, 3)[0])
+    xm = torch.randn(32, 64, generator=gen).to(cuda)
+    w_q, w_s = quant.quantize_per_channel(torch.randn(64, 48, generator=gen).to(cuda)
+                                          * 0.1, axis=1)
+    w_s = w_s[0][None, :]
+    out = quant.int8_matmul(xm, w_q, w_s, seed=5)
+    q, s = quant.quantize_activations_reference(xm, 5)
+    assert torch.equal(out, torch._int_mm(q, w_q).float() * s * w_s)
+    ref = xm @ quant.dequantize(w_q, w_s)
+    assert float(torch.linalg.norm(out - ref) / torch.linalg.norm(ref)) < 0.02
+    with pytest.raises(ValueError, match="M > 16"):
+        quant.int8_matmul(xm[:16], w_q, w_s)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        quant.int8_matmul(xm[:, :60], w_q[:60], w_s)
 
 
 # K4 against its plain version: a gather is a copy, so rows from the table
@@ -252,3 +340,41 @@ def test_embedding_lookup_on_the_card_matches_the_cpu(cuda, mode):
     assert torch.equal(y_gpu, y_cpu)
     torch.testing.assert_close(g_gpu, g_cpu, rtol=0,
                                atol=1e-6 * float(g_cpu.abs().max()))
+
+
+# K6 against its plain version: a copy from one of two sources, so rows are
+# bitwise equal and ids outside [0, V) give NaN rows in the same places.
+# D=6 fp32 and D=100 bf16 take the 4- and 2-byte path.
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [8, 32, 128, 6, 100])
+@pytest.mark.parametrize("n", [1, 4097, 100003])
+def test_hot_gather_matches_plain(cuda, dtype, d, n):
+    rpt, k_hot, tables = 1000, 64, 4
+    rng = np.random.default_rng(0)
+    table = torch.from_numpy(rng.normal(size=(tables * rpt, d)).astype(
+        np.float32)).to(cuda, dtype)
+    hot = torch.from_numpy(rng.normal(size=(tables * k_hot, d)).astype(
+        np.float32) + 100).to(cuda, dtype)  # not the table's head
+    ids = rng.integers(-2, tables * rpt + 2, n).astype(np.int32)
+    ids[:min(n, 3)] = [0, tables * rpt - 1, 2**31 - 1][:min(n, 3)]
+    ids = torch.from_numpy(ids).to(cuda)
+    before = emb.launches_hot
+    got = emb.hot_gather(table, hot, ids, rpt, k_hot)
+    torch.cuda.synchronize()
+    assert emb.launches_hot == before + 1
+    assert got.dtype == dtype and got.shape == (n, d)
+    _assert_same_rows(got, emb.hot_gather_reference(table, hot, ids, rpt, k_hot))
+
+
+@pytest.mark.cuda
+def test_hot_gather_unaligned_table(cuda):
+    """A table 4 bytes into its storage takes the unit path."""
+    rng = np.random.default_rng(3)
+    base = torch.from_numpy(rng.normal(size=(2001, 8)).astype(np.float32)).to(cuda)
+    table = base.view(-1)[1:1 + 2000 * 8].view(2000, 8)
+    assert table.data_ptr() % 16 != 0 and table.is_contiguous()
+    hot = torch.from_numpy(rng.normal(size=(2 * 16, 8)).astype(np.float32)).to(cuda)
+    ids = torch.from_numpy(rng.integers(0, 2000, 5000).astype(np.int32)).to(cuda)
+    _assert_same_rows(emb.hot_gather(table, hot, ids, 1000, 16),
+                      emb.hot_gather_reference(table, hot, ids, 1000, 16))

@@ -20,7 +20,8 @@ for name in names:
 for name in ("core.train", "core.flat", "core.loop", "core.checkpoint",
              "cli.main", "data.synthetic", "ops.lamb", "ops.dropout",
              "models.dlrm", "models.dlrm.model", "models.dlrm.task",
-             "ops.embedding", "ops.dot_interaction", "core.metrics"):
+             "ops.embedding", "ops.dot_interaction", "core.metrics",
+             "ops.quantization", "ops.fused_lamb", "tools.dlrm_hotrow"):
     assert f"deeplearningexamples_tpu_torch.{name}" in names, name
 import chip_smoke
 print(len(names))
@@ -33,8 +34,9 @@ def test_port_imports_with_jax_blocked():
     assert res.returncode == 0, res.stderr
     # every module of the package: serving, the BERT and DLRM models and
     # tasks, the training harness (core/), the CLI (cli/), the data loaders
-    # (data/) and the profiling tools (tools/)
-    assert int(res.stdout.strip()) >= 44
+    # (data/), the profiling tools and the hot-row probe (tools/), and the
+    # int8 quantization and fused LAMB ops
+    assert int(res.stdout.strip()) >= 46
 
 
 def test_chip_smoke_fails_without_a_card():
