@@ -320,6 +320,20 @@ def _device_ms(fn, iters: int = 50) -> float:
     return start.elapsed_time(end) / iters
 
 
+def _clocks(fns: dict, turns: int = 3) -> dict:
+    """Each of ``fns`` ({name: (fn, iters)}) timed in turns, ``turns`` times
+    on each clock, so that drift between readings spreads over all of them:
+    {name: (least ``_event_ms``, least ``_device_ms``)}. The first, the
+    launches as a caller makes them, is the one the kernels JSON line
+    carries; the second is the card's time alone."""
+    got = {name: ([], []) for name in fns}
+    for _ in range(turns):
+        for name, (fn, iters) in fns.items():
+            got[name][0].append(_event_ms(fn, iters))
+            got[name][1].append(_device_ms(fn, iters))
+    return {name: (min(ev), min(dev)) for name, (ev, dev) in got.items()}
+
+
 def phase_kernel() -> dict:
     cases = []
     for dtype in (torch.float32, torch.bfloat16):
@@ -367,10 +381,11 @@ def phase_kernel() -> dict:
 
     main = _time_fwd(B, S, H, D, "bshd")
     # the shapes of the TPU's other forwards: _fwd (bhsd) and _fwd_kblk
-    # (long causal context)
+    # (long causal context); and the fp32 instance (the FMA kernel)
     others = {"bhsd": _time_fwd(B, S, H, D, "bhsd"),
               "causal s2048": _time_fwd(1, 2048, H, D, "bshd", masked=False,
-                                        causal=True)}
+                                        causal=True),
+              "fp32": _time_fwd(B, S, H, D, "bshd", dtype=torch.float32)}
     errs = ", ".join(
         f"{'f32' if c['dtype'] == torch.float32 else 'bf16'} {c['layout']} "
         f"b{c['b']} s{c['s']} h{c['h']} d{c['d']}"
@@ -380,15 +395,20 @@ def phase_kernel() -> dict:
     say("3 kernel", f"flash_fwd vs plain, max abs err out/lse: {errs}; "
         f"bf16 b{B} s{S} h{H} d{D} masked: {_fmt_times(main)}; bf16 b{B} "
         f"s{S} h{H} d{D} bhsd masked: {_fmt_times(others['bhsd'])}; bf16 b1 "
-        f"s2048 h{H} d{D} causal: {_fmt_times(others['causal s2048'])} "
-        "(CUDA events, 50 iters)")
+        f"s2048 h{H} d{D} causal: {_fmt_times(others['causal s2048'])}; fp32 "
+        f"b{B} s{S} h{H} d{D} masked: {_fmt_times(others['fp32'])} "
+        "(CUDA events over 50 calls, least of 3 in turns; [the card's clock "
+        "alone, launches queued behind a sleep])")
     return {"max_abs_err": worst, **main}
 
 
 def _fmt_times(t: dict) -> str:
-    return (f"kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
-            f"scaled_dot_product_attention {t['library_ms']:.4f} ms, bound "
-            f"{t['bound_ms']:.4f} ms ({t['bound_by']})")
+    dev = t["device_ms"]
+    return (f"kernel {t['ms']:.4f} [{dev['ms']:.4f}] ms, plain "
+            f"{t['plain_ms']:.4f} [{dev['plain_ms']:.4f}] ms, "
+            f"scaled_dot_product_attention {t['library_ms']:.4f} "
+            f"[{dev['library_ms']:.4f}] ms, bound {t['bound_ms']:.4f} ms "
+            f"({t['bound_by']})")
 
 
 def _pairs(b: int, h: int, s: int, causal: bool) -> int:
@@ -397,9 +417,10 @@ def _pairs(b: int, h: int, s: int, causal: bool) -> int:
     return b * h * (s * (s + 1) // 2 if causal else s * s)
 
 
-def _time_fwd(b, s, h, d, layout, masked=True, causal=False) -> dict:
-    """K1, its plain version and SDPA on one bf16 input, in turns."""
-    q, k, v, mask = _attn_inputs(b, s, h, d, torch.bfloat16, layout, masked)
+def _time_fwd(b, s, h, d, layout, masked=True, causal=False,
+              dtype=torch.bfloat16) -> dict:
+    """K1, its plain version and SDPA on one input, in turns."""
+    q, k, v, mask = _attn_inputs(b, s, h, d, dtype, layout, masked)
 
     def kernel():
         return fa.flash_attention(q, k, v, mask, causal=causal, layout=layout)
@@ -416,17 +437,16 @@ def _time_fwd(b, s, h, d, layout, masked=True, causal=False) -> dict:
             qt, kt, vt, attn_mask=sdpa_mask, is_causal=causal)
 
     with torch.inference_mode():
-        # in turns, plain and kernel, to spread drift over both
-        plain_ms = [_event_ms(plain)]
-        kernel_ms = [_event_ms(kernel), _event_ms(kernel)]
-        plain_ms.append(_event_ms(plain))
-        library_ms = _event_ms(library)
+        ms = _clocks({"ms": (kernel, 50), "plain_ms": (plain, 20),
+                      "library_ms": (library, 50)})
     n = b * s * h * d
     bound_ms, bound_by = _bound(  # q, k, v, out; lse; mask
-        bytes_=4 * n * 2 + b * h * s * 4 + (b * s * 4 if masked else 0),
-        flops=4 * _pairs(b, h, s, causal) * d, dtype=torch.bfloat16)
-    return {"ms": min(kernel_ms), "plain_ms": min(plain_ms),
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms}
+        bytes_=4 * n * q.element_size() + b * h * s * 4
+        + (b * s * 4 if masked else 0),
+        flops=4 * _pairs(b, h, s, causal) * d, dtype=dtype)
+    return {**{k: ev for k, (ev, _) in ms.items()}, "bound_ms": bound_ms,
+            "bound_by": bound_by,
+            "device_ms": {k: dev for k, (_, dev) in ms.items()}}
 
 
 # -- phase 4 -----------------------------------------------------------------
@@ -669,7 +689,8 @@ def phase_flash_bwd() -> tuple[float, dict]:
     main = _time_bwd(TB, TS, 16, 64, "bshd")
     others = {"bhsd": _time_bwd(B, S, H, D, "bhsd"),
               "causal s2048": _time_bwd(1, 2048, H, D, "bshd", masked=False,
-                                        causal=True)}
+                                        causal=True),
+              "fp32": _time_bwd(B, S, H, D, "bshd", dtype=torch.float32)}
     errs = ", ".join(
         f"{'f32' if c['dtype'] == torch.float32 else 'bf16'} {c['layout']} "
         f"b{c['b']} s{c['s']} h{c['h']} d{c['d']}"
@@ -681,7 +702,9 @@ def phase_flash_bwd() -> tuple[float, dict]:
         f"the largest entry {worst_rel:.2e}; bf16 b{TB} s{TS} h16 d64 masked: "
         f"{_fmt_bwd_times(main)}; bf16 b{B} s{S} h{H} d{D} bhsd masked: "
         f"{_fmt_bwd_times(others['bhsd'])}; bf16 b1 s2048 h{H} d{D} causal: "
-        f"{_fmt_bwd_times(others['causal s2048'])} (CUDA events)")
+        f"{_fmt_bwd_times(others['causal s2048'])}; fp32 b{B} s{S} h{H} d{D} "
+        f"masked: {_fmt_bwd_times(others['fp32'])} (CUDA events, least of 3 "
+        "in turns; [the card's clock alone, launches queued behind a sleep])")
     common = {"max_abs_err": worst, "plain_ms": main["plain_ms"],
               "library_ms": main["library_ms"]}
     return worst_fwd, {
@@ -692,23 +715,26 @@ def phase_flash_bwd() -> tuple[float, dict]:
 
 
 def _fmt_bwd_times(t: dict) -> str:
-    return (f"dq kernel {t['dq'][0]:.4f} ms (bound {t['dq'][1]:.4f}, "
-            f"{t['dq'][2]}), dk/dv kernel {t['dkv'][0]:.4f} ms (bound "
-            f"{t['dkv'][1]:.4f}, {t['dkv'][2]}), plain backward "
-            f"{t['plain_ms']:.4f} ms, scaled_dot_product_attention backward "
-            f"{t['library_ms']:.4f} ms")
+    dev = t["device_ms"]
+    return (f"dq kernel {t['dq'][0]:.4f} [{dev['dq']:.4f}] ms (bound "
+            f"{t['dq'][1]:.4f}, {t['dq'][2]}), dk/dv kernel {t['dkv'][0]:.4f} "
+            f"[{dev['dkv']:.4f}] ms (bound {t['dkv'][1]:.4f}, {t['dkv'][2]}), "
+            f"plain backward {t['plain_ms']:.4f} [{dev['plain_ms']:.4f}] ms, "
+            f"scaled_dot_product_attention backward {t['library_ms']:.4f} "
+            f"[{dev['library_ms']:.4f}] ms")
 
 
-def _time_bwd(b, s, h, d, layout, masked=True, causal=False) -> dict:
-    """K2's two kernels, the plain backward and SDPA's backward on one bf16
-    input: {"dq": (ms, bound ms, bound by), "dkv": ..., "plain_ms",
-    "library_ms"}."""
-    q, k, v, mask = _attn_inputs(b, s, h, d, torch.bfloat16, layout, masked)
+def _time_bwd(b, s, h, d, layout, masked=True, causal=False,
+              dtype=torch.bfloat16) -> dict:
+    """K2's two kernels, the plain backward and SDPA's backward on one input,
+    in turns: {"dq": (ms, bound ms, bound by), "dkv": ..., "plain_ms",
+    "library_ms", "device_ms": the same times on the card's clock alone}."""
+    q, k, v, mask = _attn_inputs(b, s, h, d, dtype, layout, masked)
     with torch.no_grad():
         out, lse = fa.flash_attention_with_lse(q, k, v, mask, causal=causal,
                                                layout=layout)
     dout = torch.randn(q.shape, generator=torch.Generator().manual_seed(2)
-                       ).to(DEV, torch.bfloat16)
+                       ).to(DEV, dtype)
     scale = 1.0 / math.sqrt(d)
     _, args, _keep = fa._bwd_buffers(q, k, v, mask, out, lse, dout, causal,
                                      scale, layout, 0.0, 0)
@@ -737,23 +763,22 @@ def _time_bwd(b, s, h, d, layout, masked=True, causal=False) -> dict:
                                    retain_graph=True)
 
     dq_kernel()
-    plain_ms = [_event_ms(plain, 20)]
-    dq_ms = [_event_ms(dq_kernel), _event_ms(dq_kernel)]
-    dkv_ms = [_event_ms(dkv_kernel), _event_ms(dkv_kernel)]
-    plain_ms.append(_event_ms(plain, 20))
-    library_ms = _event_ms(library, 20)
+    ms = _clocks({"dq": (dq_kernel, 50), "dkv": (dkv_kernel, 50),
+                  "plain_ms": (plain, 10), "library_ms": (library, 20)})
     n = b * s * h * d
     rows = b * h * s  # lse and delta entries
     mask_bytes = b * s * 4 if masked else 0
     pairs = _pairs(b, h, s, causal)
+    size = q.element_size()
     # dq: reads q, k, v, out, dout, lse, mask; writes dq, delta; s, dp, dq
-    dq_bound = _bound(6 * n * 2 + 2 * rows * 4 + mask_bytes, 6 * pairs * d,
-                      torch.bfloat16)
+    dq_bound = _bound(6 * n * size + 2 * rows * 4 + mask_bytes, 6 * pairs * d,
+                      dtype)
     # dk/dv: reads q, k, v, dout, lse, delta, mask; writes dk, dv; s, dp, dv, dk
-    dkv_bound = _bound(6 * n * 2 + 2 * rows * 4 + mask_bytes, 8 * pairs * d,
-                       torch.bfloat16)
-    return {"dq": (min(dq_ms), *dq_bound), "dkv": (min(dkv_ms), *dkv_bound),
-            "plain_ms": min(plain_ms), "library_ms": library_ms}
+    dkv_bound = _bound(6 * n * size + 2 * rows * 4 + mask_bytes, 8 * pairs * d,
+                       dtype)
+    return {"dq": (ms["dq"][0], *dq_bound), "dkv": (ms["dkv"][0], *dkv_bound),
+            "plain_ms": ms["plain_ms"][0], "library_ms": ms["library_ms"][0],
+            "device_ms": {k: dev for k, (_, dev) in ms.items()}}
 
 
 # -- phase 8 -----------------------------------------------------------------

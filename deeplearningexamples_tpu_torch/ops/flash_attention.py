@@ -10,7 +10,12 @@ it runs ``mha_reference`` and ``mha_backward_reference``, the plain PyTorch
 versions of the same functions, which are also the kernels' oracles. A
 ``torch.autograd.Function`` joins the two, as ``_flash``'s custom VJP does in
 JAX: the forward saves q, k, v, the key mask, the seed, out and lse, and the
-backward recomputes the probabilities from lse.
+backward recomputes the probabilities from lse. In bf16 the kernels run on
+the tensor cores and copy 16 bytes at a time, so bf16 tensors must start on
+a 16-byte boundary with batch, seq and head strides of whole 16 bytes
+(the kernels' entry points check it, and a ``ValueError`` is raised
+otherwise); fp32 runs on the FMA pipe and takes any strides whose last is
+1.
 
 Semantics follow the JAX kernels exactly: scale, then mask to ``NEG_INF``
 (-1e30, so a row with every key masked averages V uniformly); causal masking
@@ -212,6 +217,22 @@ def _bshd_strides(t: torch.Tensor, layout: str) -> tuple[int, int, int, int]:
     return s if layout == "bshd" else (s[0], s[2], s[1], s[3])
 
 
+# What an entry point returns, before any launch, when a bf16 tensor does not
+# start on a 16-byte boundary or has a batch, seq or head stride that is not
+# whole 16 bytes (cudaErrorMisalignedAddress): the bf16 kernels copy 16 bytes
+# at a time.
+_MISALIGNED = 716
+
+
+def _raise_on(err: int, kernel: str) -> None:
+    if err == _MISALIGNED:
+        raise ValueError(
+            "bf16 q, k, v, out and dout must start on a 16-byte boundary with "
+            "batch, seq and head strides of whole 16 bytes")
+    if err != 0:
+        raise RuntimeError(f"{kernel} kernel launch failed: CUDA error {err}")
+
+
 def _check(q, k, v, key_mask, layout, rate):
     """Validate what the kernels take; returns (b, h, sq, sk, d, int32 mask
     or None)."""
@@ -271,8 +292,7 @@ def _flash_cuda(q, k, v, key_mask, causal, scale, layout, rate, seed):
                  out.data_ptr(), lse.data_ptr(), strides,
                  *_scalars(b, h, sq, sk, d, q, scale, causal, rate, seed),
                  stream)
-    if err != 0:
-        raise RuntimeError(f"flash_fwd kernel launch failed: CUDA error {err}")
+    _raise_on(err, "flash_fwd")
     with _count_lock:
         launches += 1
     return out, lse
@@ -283,14 +303,15 @@ def _bwd_buffers(q, k, v, key_mask, out, lse, dout, causal, scale, layout,
     """Validate, allocate dq, dk, dv and delta, and build the arguments both
     backward kernels take (all but the stream)."""
     b, h, sq, sk, d, mask = _check(q, k, v, key_mask, layout, rate)
-    if dout.dtype != q.dtype or tuple(dout.shape) != tuple(q.shape):
-        raise ValueError(f"dout must be {q.dtype} {tuple(q.shape)}, got "
-                         f"{dout.dtype} {tuple(dout.shape)}")
+    for name, t in (("out", out), ("dout", dout)):
+        if t.dtype != q.dtype or tuple(t.shape) != tuple(q.shape):
+            raise ValueError(f"{name} must be {q.dtype} {tuple(q.shape)}, got "
+                             f"{t.dtype} {tuple(t.shape)}")
     if tuple(lse.shape) != (b, h, sq) or lse.dtype != torch.float32:
         raise ValueError(f"lse must be fp32 ({b}, {h}, {sq})")
     if any(t.device != q.device for t in (out, lse, dout)):
         raise ValueError("out, lse and dout must be on q's device")
-    dout = dout if dout.stride(-1) == 1 else dout.contiguous()
+    out, dout = (t if t.stride(-1) == 1 else t.contiguous() for t in (out, dout))
     lse = lse.contiguous()
     dq, dk, dv = (torch.empty(t.shape, dtype=t.dtype, device=t.device)
                   for t in (q, k, v))
@@ -304,7 +325,7 @@ def _bwd_buffers(q, k, v, key_mask, out, lse, dout, causal, scale, layout,
             dk.data_ptr(), dv.data_ptr(), delta.data_ptr(), strides,
             *_scalars(b, h, sq, sk, d, q, scale, causal, rate, seed))
     # the tensors behind the pointers live as long as the arguments
-    return (dq, dk, dv), args, (mask, dout, lse, delta)
+    return (dq, dk, dv), args, (mask, out, dout, lse, delta)
 
 
 def _flash_bwd_cuda(q, k, v, key_mask, out, lse, dout, causal, scale, layout,
@@ -317,13 +338,11 @@ def _flash_bwd_cuda(q, k, v, key_mask, out, lse, dout, causal, scale, layout,
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = _kernel("dlx_flash_bwd_dq")(*args, stream)
-        if err != 0:
-            raise RuntimeError(f"flash_bwd_dq kernel launch failed: CUDA error {err}")
+        _raise_on(err, "flash_bwd_dq")
         with _count_lock:
             launches_bwd_dq += 1
         err = _kernel("dlx_flash_bwd_dkv")(*args, stream)
-        if err != 0:
-            raise RuntimeError(f"flash_bwd_dkv kernel launch failed: CUDA error {err}")
+        _raise_on(err, "flash_bwd_dkv")
         with _count_lock:
             launches_bwd_dkv += 1
     return grads

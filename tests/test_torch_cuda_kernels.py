@@ -24,6 +24,10 @@ from deeplearningexamples_tpu_torch.ops import quantization as quant
 # to bf16 against another running maximum (bf16); lse stays fp32 on both
 TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (2e-2, 1e-3)}
 
+# The bf16 kernels tile by 64 queries and 64 keys on the tensor cores, 16
+# rows a warp: ragged S, D=128, a causal dead row (a masked key prefix), the
+# dropout hash and Sk != Sq test that tiling. Every case's last batch row has
+# every key masked.
 CASES = [
     dict(layout="bshd", d=64, s=384),
     dict(layout="bhsd", d=64, s=200),
@@ -31,6 +35,13 @@ CASES = [
     dict(layout="bshd", d=128, s=96),
     dict(layout="bshd", d=64, s=300, causal=True),
     dict(layout="bhsd", d=64, s=256, rate=0.1, seed=-99),
+    dict(layout="bshd", d=64, s=130),
+    dict(layout="bshd", d=64, s=520),
+    dict(layout="bshd", d=128, s=300),
+    dict(layout="bhsd", d=64, s=300, causal=True, dead=70),
+    dict(layout="bshd", d=64, s=130, rate=0.1, seed=12345),
+    dict(layout="bshd", d=64, s=96, sk=200),
+    dict(layout="bhsd", d=128, s=200, sk=96, causal=True, dead=40),
 ]
 
 
@@ -42,27 +53,40 @@ def cuda():
     return torch.device("cuda")
 
 
-def _inputs(layout, b, h, s, d, dtype, device, seed=0):
-    """q, k, v and a key mask whose last batch row has every key masked."""
+def _inputs(layout, b, h, s, d, dtype, device, seed=0, sk=None, dead=0):
+    """q, k, v and a key mask whose last batch row has every key masked;
+    ``dead`` masks the first keys of batch row 0 as well, so that under
+    causal masking its first ``dead`` query rows see no key."""
+    sk = sk or s
     rng = np.random.default_rng(seed)
-    shape = (b, s, h, d) if layout == "bshd" else (b, h, s, d)
-    q, k, v = (torch.from_numpy(rng.normal(size=shape).astype(np.float32))
-               .to(device, dtype) for _ in range(3))
-    mask = torch.ones((b, s), dtype=torch.int32)
-    mask[0, s - 13:] = 0
+
+    def shape(n):
+        return (b, n, h, d) if layout == "bshd" else (b, h, n, d)
+
+    q, k, v = (torch.from_numpy(rng.normal(size=shape(n)).astype(np.float32))
+               .to(device, dtype) for n in (s, sk, sk))
+    mask = torch.ones((b, sk), dtype=torch.int32)
+    mask[0, sk - 13:] = 0
+    mask[0, :dead] = 0
     mask[-1] = 0
     return q, k, v, mask.to(device)
+
+
+def _case_inputs(case, dtype, device):
+    q, k, v, mask = _inputs(case["layout"], case.get("b", 2), case.get("h", 4),
+                            case["s"], case["d"], dtype, device,
+                            sk=case.get("sk"), dead=case.get("dead", 0))
+    kw = dict(causal=case.get("causal", False), layout=case["layout"],
+              dropout_rate=case.get("rate", 0.0),
+              dropout_seed=case.get("seed", 0))
+    return q, k, v, (mask if case.get("masked", True) else None), kw
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("case", CASES, ids=lambda c: "-".join(map(str, c.values())))
 def test_flash_fwd_matches_plain(cuda, dtype, case):
-    q, k, v, mask = _inputs(case["layout"], 2, 4, case["s"], case["d"], dtype,
-                            cuda)
-    kw = dict(causal=case.get("causal", False), layout=case["layout"],
-              dropout_rate=case.get("rate", 0.0),
-              dropout_seed=case.get("seed", 0))
+    q, k, v, mask, kw = _case_inputs(case, dtype, cuda)
     before = fa.launches
     out, lse = fa.flash_attention_with_lse(q, k, v, mask, **kw)
     torch.cuda.synchronize()
@@ -105,40 +129,93 @@ BWD_CASES = [
     dict(layout="bshd", d=64, s=300, causal=True),
     dict(layout="bhsd", d=64, s=2048, causal=True, masked=False, b=1, h=2),
     dict(layout="bshd", d=64, s=256, rate=0.1, seed=-99),
+    dict(layout="bshd", d=64, s=130),
+    dict(layout="bshd", d=64, s=520),
+    dict(layout="bshd", d=128, s=300),
+    dict(layout="bhsd", d=64, s=300, causal=True, dead=70),
+    dict(layout="bshd", d=64, s=130, rate=0.1, seed=12345),
+    dict(layout="bshd", d=64, s=96, sk=200),
+    dict(layout="bhsd", d=128, s=200, sk=96, causal=True, dead=40),
 ]
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("case", BWD_CASES, ids=lambda c: "-".join(map(str, c.values())))
-def test_flash_bwd_matches_plain(cuda, dtype, case):
-    q, k, v, mask = _inputs(case["layout"], case.get("b", 2), case.get("h", 4),
-                            case["s"], case["d"], dtype, cuda)
-    if not case.get("masked", True):
-        mask = None
-    kw = dict(causal=case.get("causal", False), layout=case["layout"],
-              dropout_rate=case.get("rate", 0.0),
-              dropout_seed=case.get("seed", 0))
-    dout = torch.randn(q.shape, generator=torch.Generator().manual_seed(1)).to(
-        cuda, dtype)
-    q.requires_grad_()
-    k.requires_grad_()
-    v.requires_grad_()
+def _backward(q, k, v, mask, kw, dout):
+    """One forward and backward through the autograd function; returns
+    (out, lse, dq, dk, dv)."""
+    q, k, v = (t.detach().requires_grad_() for t in (q, k, v))
     before = (fa.launches_bwd_dq, fa.launches_bwd_dkv)
     out, lse = fa.flash_attention_with_lse(q, k, v, mask, **kw)
     out.backward(dout)
     torch.cuda.synchronize()
     assert (fa.launches_bwd_dq, fa.launches_bwd_dkv) == (before[0] + 1,
                                                          before[1] + 1)
+    return out.detach(), lse, q.grad, k.grad, v.grad
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", BWD_CASES, ids=lambda c: "-".join(map(str, c.values())))
+def test_flash_bwd_matches_plain(cuda, dtype, case):
+    q, k, v, mask, kw = _case_inputs(case, dtype, cuda)
+    dout = torch.randn(q.shape, generator=torch.Generator().manual_seed(1)).to(
+        cuda, dtype)
+    out, lse, *grads = _backward(q, k, v, mask, kw, dout)
     want = fa.mha_backward_reference(
-        q.detach(), k.detach(), v.detach(), mask, out.detach(), lse, dout,
-        kw["causal"], layout=kw["layout"], dropout_rate=kw["dropout_rate"],
-        dropout_seed=kw["dropout_seed"])
-    for name, got, ref in zip("qkv", (q.grad, k.grad, v.grad), want):
+        q, k, v, mask, out, lse, dout, kw["causal"], layout=kw["layout"],
+        dropout_rate=kw["dropout_rate"], dropout_seed=kw["dropout_seed"])
+    for name, got, ref in zip("qkv", grads, want):
         assert got.dtype == dtype and got.shape == ref.shape
         err = float((got.float() - ref.float()).abs().max())
         scale = float(ref.float().abs().max())
         assert err <= TOL_BWD[dtype] * scale, f"d{name}: {err} vs {scale}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_bwd_is_deterministic(cuda, dtype):
+    """Each dq, dk and dv element is written by one block from sums in a
+    fixed order, so two runs on the same inputs agree bit for bit."""
+    case = dict(layout="bshd", d=64, s=300, causal=True, dead=70, rate=0.1,
+                seed=7)
+    q, k, v, mask, kw = _case_inputs(case, dtype, cuda)
+    dout = torch.randn(q.shape, generator=torch.Generator().manual_seed(3)).to(
+        cuda, dtype)
+    first = _backward(q, k, v, mask, kw, dout)[2:]
+    second = _backward(q, k, v, mask, kw, dout)[2:]
+    for name, a, b in zip("qkv", first, second):
+        assert torch.equal(a, b), f"d{name} differs between two runs"
+
+
+@pytest.mark.cuda
+def test_flash_bf16_misaligned_views_raise(cuda):
+    """The bf16 kernels copy 16 bytes at a time: a view that starts off a
+    16-byte boundary, or whose head stride is not whole 16 bytes, is
+    refused; the fp32 kernel reads the same views in place."""
+    b, s, h, d = 2, 64, 4, 64
+    flat_buf = torch.randn(b * s * h * d + 1, device=cuda)
+    wide = torch.randn(b, s, h, d + 4, device=cuda)
+    views = {"offset": lambda t: t[1:].view(b, s, h, d),
+             "head stride": lambda t: t[..., :d]}
+    for what, view in views.items():
+        src = flat_buf if what == "offset" else wide
+        q = view(src.to(torch.bfloat16))
+        good = torch.randn(b, s, h, d, device=cuda, dtype=torch.bfloat16)
+        with pytest.raises(ValueError, match="16-byte"):
+            fa.flash_attention(q, good, good, layout="bshd")
+        with pytest.raises(ValueError, match="16-byte"):
+            fa.flash_attention(good, good, q, layout="bshd")
+        out, lse = fa.flash_attention_with_lse(good, good, good, layout="bshd")
+        before = (fa.launches, fa.launches_bwd_dq, fa.launches_bwd_dkv)
+        with pytest.raises(ValueError, match="16-byte"):
+            fa._flash_bwd_cuda(good, good, good, None, out, lse, q, False,
+                               0.125, "bshd", 0.0, 0)
+        # refused before any launch
+        assert (fa.launches, fa.launches_bwd_dq, fa.launches_bwd_dkv) == before
+        q32 = view(src)
+        got = fa.flash_attention(q32, q32, q32, layout="bshd")
+        want, _ = fa.mha_reference(q32, q32, q32, layout="bshd")
+        torch.testing.assert_close(got, want, atol=TOL[torch.float32][0],
+                                   rtol=0)
 
 
 @pytest.mark.cuda

@@ -25,13 +25,16 @@ ATOL_F32, ATOL_LSE = 2e-5, 1e-5
 ATOL_BF16 = 3e-2
 
 
-def _inputs(layout, b=2, h=2, s=64, d=64, seed=0):
-    """q, k, v and a key mask whose last batch row has every key masked."""
+def _inputs(layout, b=2, h=2, s=64, d=64, seed=0, dead=0):
+    """q, k, v and a key mask whose last batch row has every key masked;
+    ``dead`` masks the first keys of row 0 too, so that under causal masking
+    its first ``dead`` queries see no key."""
     rng = np.random.default_rng(seed)
     shape = (b, s, h, d) if layout == "bshd" else (b, h, s, d)
     q, k, v = (rng.normal(size=shape).astype(np.float32) for _ in range(3))
     mask = np.ones((b, s), np.int32)
     mask[0, s - 13:] = 0
+    mask[0, :dead] = 0
     mask[-1] = 0
     return q, k, v, mask
 
@@ -46,12 +49,16 @@ def _np(t):
 
 
 # D=64 with H=2 reaches the JAX _fwd_bshd kernel (two heads fill 128 lanes);
-# D=32 with H=2 cannot fold and falls back to the (B,H,S,D) _fwd kernel.
+# D=32 with H=2 cannot fold and falls back to the (B,H,S,D) _fwd kernel;
+# D=128 takes one head a block. S=130 is ragged against the CUDA kernels'
+# 64-row tiles, and a masked key prefix leaves causal rows with no key.
 @pytest.mark.parametrize("layout", ["bshd", "bhsd"])
-@pytest.mark.parametrize("d", [64, 32])
+@pytest.mark.parametrize("d, s, dead", [(64, 64, 0), (32, 64, 0), (128, 64, 0),
+                                        (64, 130, 0), (64, 130, 70)],
+                         ids=["64", "32", "128", "64-s130", "64-s130-dead70"])
 @pytest.mark.parametrize("causal", [False, True])
-def test_plain_matches_jax_fp32(layout, d, causal):
-    q, k, v, mask = _inputs(layout, d=d)
+def test_plain_matches_jax_fp32(layout, d, s, dead, causal):
+    q, k, v, mask = _inputs(layout, s=s, d=d, dead=dead)
     scale = 1.0 / np.sqrt(d)
     want_out, want_lse = _fwd(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
                               jnp.asarray(mask), causal, scale, 512,
@@ -61,7 +68,7 @@ def test_plain_matches_jax_fp32(layout, d, causal):
     tq, tk, tv, tm = _torch(q, k, v, mask)
     out, lse = fa.flash_attention_with_lse(tq, tk, tv, tm, causal=causal,
                                            layout=layout)
-    assert out.shape == q.shape and lse.shape == (2, 2, 64)
+    assert out.shape == q.shape and lse.shape == (2, 2, s)
     np.testing.assert_allclose(_np(out), np.asarray(public), atol=ATOL_F32,
                                rtol=ATOL_F32)
     np.testing.assert_allclose(_np(out), np.asarray(want_out), atol=ATOL_F32,

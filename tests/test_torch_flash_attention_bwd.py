@@ -38,17 +38,24 @@ CASES = {
     "bhsd-causal-kblocked": dict(layout="bhsd", causal=True,
                                  jax_kw=dict(block_q=16, block_k=16)),
     "bshd-dropout": dict(layout="bshd", masked=True, rate=0.1, seed=-1234567),
+    # ragged against the CUDA kernels' 64-row tiles; D=128; causal rows whose
+    # every key is masked (a masked key prefix)
+    "bshd-s130-masked": dict(layout="bshd", masked=True, s=130),
+    "bshd-d128-masked": dict(layout="bshd", masked=True, d=128),
+    "bhsd-causal-dead-rows": dict(layout="bhsd", masked=True, causal=True,
+                                  s=130, dead=70),
 }
 
 
-def _inputs(layout, masked, seed=0):
+def _inputs(layout, masked, seed=0, s=S, d=D, dead=0):
     rng = np.random.default_rng(seed)
-    shape = (B, S, H, D) if layout == "bshd" else (B, H, S, D)
+    shape = (B, s, H, d) if layout == "bshd" else (B, H, s, d)
     q, k, v, g = (rng.normal(size=shape).astype(np.float32) for _ in range(4))
     mask = None
     if masked:
-        mask = np.ones((B, S), np.int32)
-        mask[0, S - 13:] = 0
+        mask = np.ones((B, s), np.int32)
+        mask[0, s - 13:] = 0
+        mask[0, :dead] = 0  # under causal masking, rows with no key
         mask[-1] = 0  # every key of the last batch row masked
     return q, k, v, g, mask
 
@@ -90,7 +97,9 @@ def test_backward_matches_jax(name, precision):
     case = CASES[name]
     jdtype, tdtype, tol = {"fp32": (jnp.float32, torch.float32, TOL_F32),
                            "bf16": (jnp.bfloat16, torch.bfloat16, TOL_BF16)}[precision]
-    q, k, v, g, mask = _inputs(case["layout"], case.get("masked", False))
+    q, k, v, g, mask = _inputs(case["layout"], case.get("masked", False),
+                               s=case.get("s", S), d=case.get("d", D),
+                               dead=case.get("dead", 0))
     want_out, want = _jax_grads(q, k, v, g, mask, case, jdtype)
     out, got = _torch_grads(q, k, v, g, mask, case, tdtype)
     np.testing.assert_allclose(out.detach().float().numpy(), want_out,

@@ -21,7 +21,8 @@ for name in ("core.train", "core.flat", "core.loop", "core.checkpoint",
              "cli.main", "data.synthetic", "ops.lamb", "ops.dropout",
              "models.dlrm", "models.dlrm.model", "models.dlrm.task",
              "ops.embedding", "ops.dot_interaction", "core.metrics",
-             "ops.quantization", "ops.fused_lamb", "tools.dlrm_hotrow"):
+             "ops.quantization", "ops.fused_lamb", "tools.dlrm_hotrow",
+             "tools.kernel_report"):
     assert f"deeplearningexamples_tpu_torch.{name}" in names, name
 import chip_smoke
 print(len(names))
