@@ -43,11 +43,22 @@ and it imports nothing of JAX. Phases, one line each:
     shape (26 x 100,000 x 128 fp32, 256 hot rows a table, 1,703,936 uniform
     and zipf ids, a hot buffer that is not the table's head), with times
     beside K4 and ``embedding()`` on the same ids
+17. fine-tune parity: K1 and K2 against their plain versions at the
+    fine-tuning shapes (SQuAD B=32 S=384 H=16, GLUE B=32 and SWAG's folded
+    B=128 at S=128 H=12; bf16, masked, dropout), then one fp32 SQuAD step of
+    full-width BERT-Large at B=2 S=384 on the card against the CPU under
+    ``bert_adam`` and under ``adamw``, and the same step in bf16 (the
+    control)
+18. fine-tuning: ``bert-squad`` through the CLI's runner at B=32 S=384 bf16,
+    10 synthetic steps under ``adamw`` and under ``bert_adam`` at lr 3e-5,
+    then 2 steps on a SQuAD file the script writes with ``--predict-file``
+    (EM/F1), then ``bert-glue`` and ``bert-swag`` at their defaults for 5
+    synthetic steps each, with their dev and validation accuracy
 
 Each main path (serving: phases 5-6; BERT training: phase 10; DLRM
 training: phase 13; ``int8_matmul``: phase 14; ``fused_lamb``: phase 15;
-``hot_gather``: phase 16) runs with the launch counts set to 0 just before it
-and read just after. Then one JSON
+``hot_gather``: phase 16; BERT fine-tuning: phase 18) runs with the launch
+counts set to 0 just before it and read just after. Then one JSON
 line with each kernel's launches on those paths, its error against the plain
 version, its time, the plain version's, its bound on this card and the time
 of the PyTorch call that computes the same function (where there is one),
@@ -80,7 +91,7 @@ from deeplearningexamples_tpu_torch.data.squad import (
     read_squad_examples,
 )
 from deeplearningexamples_tpu_torch.data.tokenization import BertTokenizer
-from deeplearningexamples_tpu_torch.cli.main import cli
+from deeplearningexamples_tpu_torch.cli.main import _bert_finetune_tx, cli
 from deeplearningexamples_tpu_torch.core import flat
 from deeplearningexamples_tpu_torch.core.train import (
     create_train_state,
@@ -93,6 +104,7 @@ from deeplearningexamples_tpu_torch.data.synthetic import (
 from deeplearningexamples_tpu_torch.models.bert import (
     BERT_CONFIGS,
     BertForPreTraining,
+    BertForQuestionAnswering,
     BertPretrainTask,
     BertSquadTask,
     predict_squad,
@@ -623,6 +635,47 @@ def phase_predict(task, model) -> int:
 # -- phase 7 -----------------------------------------------------------------
 
 
+def _fwd_bwd_case(c: dict) -> None:
+    """K1 and K2 on one case against their plain versions (raises past
+    ``TOL``/``TOL_BWD``); sets ``c["err"]`` to (K2's max abs err, K1's out
+    and lse errors) and ``c["rel"]`` to K2's worst error over the largest
+    entry of its gradient."""
+    q, k, v, mask = _attn_inputs(c["b"], c["s"], c["h"], c["d"], c["dtype"],
+                                 c["layout"], c.get("masked", True))
+    kw = dict(causal=c.get("causal", False), layout=c["layout"],
+              dropout_rate=c.get("rate", 0.0), dropout_seed=c.get("seed", 0))
+    dout = torch.randn(q.shape, generator=torch.Generator().manual_seed(1)
+                       ).to(DEV, c["dtype"])
+    for t in (q, k, v):
+        t.requires_grad_()
+    out, lse = fa.flash_attention_with_lse(q, k, v, mask, **kw)
+    # K1 at this shape too: the training path's forward
+    ref, ref_lse = fa.mha_reference(q.detach(), k.detach(), v.detach(),
+                                    mask, **kw)
+    e_out, e_lse = max_err(out, ref), max_err(lse, ref_lse)
+    tol_out, tol_lse = TOL[c["dtype"]]
+    check(e_out <= tol_out and e_lse <= tol_lse,
+          f"K1 vs plain {c}: out {e_out:.3e} lse {e_lse:.3e}")
+    del ref, ref_lse
+    before = (fa.launches_bwd_dq, fa.launches_bwd_dkv)
+    out.backward(dout)
+    torch.cuda.synchronize()
+    check((fa.launches_bwd_dq, fa.launches_bwd_dkv)
+          == (before[0] + 1, before[1] + 1), f"K2 not launched for {c}")
+    want = fa.mha_backward_reference(
+        q.detach(), k.detach(), v.detach(), mask, out.detach(), lse, dout,
+        kw["causal"], layout=kw["layout"], dropout_rate=kw["dropout_rate"],
+        dropout_seed=kw["dropout_seed"])
+    errs, rel = [], 0.0
+    for name, got, ref in zip("qkv", (q.grad, k.grad, v.grad), want):
+        err, scale = max_err(got, ref), float(ref.float().abs().max())
+        check(math.isfinite(err) and err <= TOL_BWD[c["dtype"]] * scale,
+              f"K2 vs plain {c}: d{name} err {err:.3e}, largest {scale:.3e}")
+        errs.append(err)
+        rel = max(rel, err / max(scale, 1e-30))
+    c["err"], c["rel"] = (max(errs), e_out, e_lse), rel
+
+
 def phase_flash_bwd() -> tuple[float, dict]:
     """K2 against the plain backward in every layout, dtype and head dim the
     kernels take, and K1's forward at the same shapes (the training shapes
@@ -644,44 +697,11 @@ def phase_flash_bwd() -> tuple[float, dict]:
             dict(b=8, s=512, h=16, d=64, dtype=dtype, layout="bshd", rate=0.1,
                  seed=-7654321),
         ]
-    worst, worst_rel, worst_fwd = 0.0, 0.0, 0.0
     for c in cases:
-        q, k, v, mask = _attn_inputs(c["b"], c["s"], c["h"], c["d"], c["dtype"],
-                                     c["layout"], c.get("masked", True))
-        kw = dict(causal=c.get("causal", False), layout=c["layout"],
-                  dropout_rate=c.get("rate", 0.0), dropout_seed=c.get("seed", 0))
-        dout = torch.randn(q.shape, generator=torch.Generator().manual_seed(1)
-                           ).to(DEV, c["dtype"])
-        for t in (q, k, v):
-            t.requires_grad_()
-        out, lse = fa.flash_attention_with_lse(q, k, v, mask, **kw)
-        # K1 at this shape too: the training path's forward
-        ref, ref_lse = fa.mha_reference(q.detach(), k.detach(), v.detach(),
-                                        mask, **kw)
-        e_out, e_lse = max_err(out, ref), max_err(lse, ref_lse)
-        tol_out, tol_lse = TOL[c["dtype"]]
-        check(e_out <= tol_out and e_lse <= tol_lse,
-              f"K1 vs plain {c}: out {e_out:.3e} lse {e_lse:.3e}")
-        worst_fwd = max(worst_fwd, e_out)
-        del ref, ref_lse
-        before = (fa.launches_bwd_dq, fa.launches_bwd_dkv)
-        out.backward(dout)
-        torch.cuda.synchronize()
-        check((fa.launches_bwd_dq, fa.launches_bwd_dkv)
-              == (before[0] + 1, before[1] + 1), f"K2 not launched for {c}")
-        want = fa.mha_backward_reference(
-            q.detach(), k.detach(), v.detach(), mask, out.detach(), lse, dout,
-            kw["causal"], layout=kw["layout"], dropout_rate=kw["dropout_rate"],
-            dropout_seed=kw["dropout_seed"])
-        errs = []
-        for name, got, ref in zip("qkv", (q.grad, k.grad, v.grad), want):
-            err, scale = max_err(got, ref), float(ref.float().abs().max())
-            check(math.isfinite(err) and err <= TOL_BWD[c["dtype"]] * scale,
-                  f"K2 vs plain {c}: d{name} err {err:.3e}, largest {scale:.3e}")
-            errs.append(err)
-            worst_rel = max(worst_rel, err / max(scale, 1e-30))
-        worst = max(worst, *errs)
-        c["err"] = (max(errs), e_out, e_lse)
+        _fwd_bwd_case(c)
+    worst = max(c["err"][0] for c in cases)
+    worst_fwd = max(c["err"][1] for c in cases)
+    worst_rel = max(c["rel"] for c in cases)
 
     # times at the pretraining shape, bf16, masked (dropout off), and at the
     # shapes of the TPU's other backwards: _bwd (bhsd) and _bwd_kblk (long
@@ -1689,6 +1709,288 @@ def phase_hot_gather() -> tuple[dict, int]:
     return {"max_abs_err": 0.0, **timed["zipf"]}, launched["hot_gather"]
 
 
+# -- phase 17 ----------------------------------------------------------------
+
+# SQuAD fine-tuning at bench.py's bert_squad_finetune shape (B=32, S=384) and
+# configs.yml's rate (the CLI's own default is CommonConfig's 0.1)
+FT_B, FT_LR = 32, "3e-5"
+# GLUE's and SWAG's CLI defaults: BERT-Base, B=32, S=128, SWAG's 4 choices
+# folded into the batch (B=128), and the JAX runners' fallback rate
+GLUE_B, GLUE_S, GLUE_LR = 32, 128, "2e-5"
+# AdamW's step on the card against the CPU's on the same gradients: the
+# foreach ops round each entry of the update once or twice in another order
+# (TOL_ADAMW of the largest update), and an update an ulp apart can round
+# p + u to the next fp32 value (an ulp of p + u)
+TOL_ADAMW = 1e-5
+EPS32 = torch.finfo(torch.float32).eps
+
+
+def _adamw_first_update(init, grads) -> dict[str, torch.Tensor]:
+    """The CPU's first ``adamw`` step (as ``_squad_step`` builds it) on
+    ``grads``, as the change ``(p + u) - p`` that the step makes to each
+    fp32 weight of ``init``."""
+    params = {n: p.detach().clone() for n, p in init.named_parameters()}
+    tx = _bert_finetune_tx("adamw", float(FT_LR), 10, params)
+    upd, _ = tx.update({n: g.cpu() for n, g in grads.items()},
+                       tx.init(params), params)
+    return {n: (p + upd[n]) - p for n, p in params.items()}
+
+
+def _squad_train_batch(b: int, s: int) -> dict[str, np.ndarray]:
+    """Padded questions (``_qa_batch``) with start and end positions inside
+    each row's length."""
+    rng = np.random.default_rng(SEED)
+    batch = _qa_batch(rng, b, s)
+    lengths = batch["attention_mask"].sum(1)
+    start = rng.integers(0, lengths)
+    batch["start_positions"] = start.astype(np.int32)
+    batch["end_positions"] = np.minimum(start + rng.integers(0, 8, b),
+                                        lengths - 1).astype(np.int32)
+    return batch
+
+
+def _squad_step(model, dtype, batch, device, optimizer):
+    """One fine-tuning step through ``make_train_step`` under the CLI's
+    ``optimizer`` (lr 3e-5, 10 steps in the schedule): the metrics, each
+    gradient (the pooler's is 0: the span loss does not reach it), each
+    update and the first moments."""
+    task = BertSquadTask(model.cfg, dtype)
+    params = dict(model.named_parameters())
+    tx = _bert_finetune_tx(optimizer, float(FT_LR), 10, params)
+    state = create_train_state(model, tx, SEED, params=params)
+    step = make_train_step(task.loss_fn, tx)
+    t = {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+    before = {n: p.detach().clone() for n, p in params.items()}
+    state, metrics = step(state, t)
+    return ({k: float(v) for k, v in metrics.items()},
+            {n: torch.zeros_like(p) if p.grad is None else p.grad.detach()
+             for n, p in params.items()},
+            {n: p.detach() - before[n] for n, p in params.items()},
+            state.opt_state.mu)
+
+
+def phase_finetune_parity() -> float:
+    """K1 and K2 at the fine-tuning shapes against their plain versions, then
+    one fp32 SQuAD step of full-width BERT-Large, card against CPU, under
+    each optimizer, and the same step in bf16 as the control. Returns the
+    worst K1/K2 errors here (out, dq/dk/dv)."""
+    t0 = time.perf_counter()
+    cases = [  # bf16 with dropout, as the fine-tuning runs call them
+        dict(b=FT_B, s=S, h=H, d=D, dtype=torch.bfloat16, layout="bshd",
+             rate=0.1, seed=-2468013),
+        dict(b=GLUE_B, s=GLUE_S, h=12, d=64, dtype=torch.bfloat16,
+             layout="bshd", rate=0.1, seed=97531),
+        dict(b=4 * GLUE_B, s=GLUE_S, h=12, d=64, dtype=torch.bfloat16,
+             layout="bshd", rate=0.1, seed=-13579),
+    ]
+    for c in cases:
+        _fwd_bwd_case(c)
+    kernels = "; ".join(
+        f"b{c['b']} s{c['s']} h{c['h']}: out {c['err'][1]:.2e}, lse "
+        f"{c['err'][2]:.2e}, dq/dk/dv {c['err'][0]:.2e} ({c['rel']:.2e} of "
+        "the largest entry)" for c in cases)
+
+    cfg = dataclasses.replace(BERT_CONFIGS["large"], hidden_dropout=0.0,
+                              attention_dropout=0.0)
+    init = BertForQuestionAnswering(cfg, torch.float32)
+    init_bert_weights_(init, torch.Generator().manual_seed(SEED),
+                       cfg.initializer_range)
+    batch = _squad_train_batch(2, S)
+    lines = []
+    for optimizer in ("bert_adam", "adamw"):
+        gpu = copy.deepcopy(init).to(DEV)
+        before = dict(_counts())
+        m_gpu, g_gpu, d_gpu, mu_gpu = _squad_step(gpu, torch.float32, batch,
+                                                  DEV, optimizer)
+        torch.cuda.synchronize()
+        launched = {k: v - before[k] for k, v in _counts().items()}
+        check(launched["flash_fwd"] == LAYERS
+              and launched["flash_bwd_dq"] == LAYERS
+              and launched["flash_bwd_dkv"] == LAYERS,
+              f"one SQuAD step launched {launched}, want {LAYERS} of each "
+              "flash kernel")
+        del gpu
+        m_cpu, g_cpu, d_cpu, mu_cpu = _squad_step(
+            copy.deepcopy(init), torch.float32, batch, "cpu", optimizer)
+        rel = {key: abs(m_gpu[key] - m_cpu[key]) / abs(m_cpu[key])
+               for key in ("loss", "grad_norm")}
+        g_top = max(float(g.abs().max()) for g in g_cpu.values())
+        g_rel = max((max_err(g_gpu[n], g_cpu[n]) / g_top, n) for n in g_cpu)
+        for key in ("loss", "grad_norm"):
+            check(rel[key] <= TOL_STEP[key], f"{optimizer} fp32 step {key}: "
+                  f"card {m_gpu[key]} vs CPU {m_cpu[key]} ({rel[key]:.2e})")
+        check(g_rel[0] <= TOL_STEP["grad"], f"{optimizer} fp32 step "
+              f"gradients: {g_rel[1]} {g_rel[0]:.3e} of the largest entry")
+        if optimizer == "bert_adam":
+            # warmup_linear's first update is exactly 0; the moments carry
+            # the per-tensor clipped gradients
+            moved = max(float(d.abs().max()) for d in (*d_gpu.values(),
+                                                        *d_cpu.values()))
+            check(moved == 0.0, f"bert_adam's first update moved {moved}")
+            mu_top = max(float(m.abs().max()) for m in mu_cpu.values())
+            mu_rel = max((max_err(mu_gpu[n], mu_cpu[n]) / mu_top, n)
+                         for n in mu_cpu)
+            check(mu_rel[0] <= TOL_STEP["grad"], f"bert_adam first moments: "
+                  f"{mu_rel[1]} {mu_rel[0]:.3e} of the largest entry")
+            state_line = (f"update 0 on both (warmup_linear at count 0), "
+                          f"first moments worst {mu_rel[1]} {mu_rel[0]:.2e} "
+                          "of the largest entry")
+        else:
+            # AdamW's first update is about lr * g / |g| per entry, so an
+            # entry whose gradient is near its rounding noise may step the
+            # other way on the CPU: the update is held against the CPU's
+            # update from the card's own gradients
+            d_ref = _adamw_first_update(init, g_gpu)
+            upd = max(float(d.abs().max()) for d in d_ref.values())
+            weights = dict(init.named_parameters())
+            # past the allowance: TOL_ADAMW of the largest update, plus one
+            # ulp of p + u (at most EPS32 * (|p| + |u|))
+            over = max((float(((d_gpu[n].cpu() - d_ref[n]).abs()
+                               - TOL_ADAMW * upd
+                               - EPS32 * (weights[n].detach().abs() + upd)
+                               ).max()), n)
+                       for n in d_ref)
+            p_err, p_worst = max((max_err(d_gpu[n], d_ref[n]), n) for n in d_ref)
+            check(over[0] <= 0.0, f"adamw fp32 step updates: {over[1]} "
+                  f"{over[0]:.3e} past the allowance (largest update "
+                  f"{upd:.3e})")
+            flips = max((max_err(d_gpu[n], d_cpu[n]), n) for n in d_cpu)
+            state_line = (f"updates vs the CPU's from the card's gradients "
+                          f"worst {p_worst} {p_err:.2e} (largest update "
+                          f"{upd:.3e}, each entry within {TOL_ADAMW:.0e} of "
+                          f"it plus an ulp of p + u); vs the CPU's own "
+                          f"step {flips[1]} {flips[0]:.2e} (entries whose "
+                          "gradient is near its noise)")
+        del d_gpu, mu_gpu, d_cpu, mu_cpu
+        lines.append(
+            f"{optimizer}: loss {m_gpu['loss']:.6f} vs {m_cpu['loss']:.6f} "
+            f"({rel['loss']:.2e}), grad_norm {m_gpu['grad_norm']:.6f} vs "
+            f"{m_cpu['grad_norm']:.6f} ({rel['grad_norm']:.2e}), worst "
+            f"gradient {g_rel[1]} {g_rel[0]:.2e} of the largest entry "
+            f"{g_top:.3e} (limit {TOL_STEP['grad']:.0e}), {state_line}")
+        del g_gpu
+
+    gpu16 = BertForQuestionAnswering(cfg, torch.bfloat16)  # fp32 weights
+    gpu16.load_state_dict(init.state_dict())
+    m16, g16, _, _ = _squad_step(gpu16.to(DEV), torch.bfloat16, batch, DEV,
+                                 "adamw")
+    del gpu16
+    a = torch.cat([g16[n].cpu().double().flatten() for n in g_cpu])
+    b = torch.cat([g_cpu[n].double().flatten() for n in g_cpu])
+    cos = float(a @ b / (a.norm() * b.norm()))
+    g16_rel = max((max_err(g16[n], g_cpu[n]) / g_top, n) for n in g_cpu)
+    check(math.isfinite(m16["loss"]) and cos >= MIN_COS_GRAD_BF16,
+          f"bf16 SQuAD step: loss {m16['loss']}, gradient cosine {cos:.5f}")
+    say("17 finetune parity", f"K1/K2 vs plain at the fine-tuning shapes "
+        f"(bshd, bf16, masked, dropout 0.1), max abs err: {kernels}; "
+        f"BERT-Large SQuAD b2 s{S} fp32, one step, card vs CPU: "
+        + "; ".join(lines) + f"; bf16 card step (adamw): loss "
+        f"{m16['loss']:.6f}, gradient cosine vs fp32 CPU {cos:.6f}, worst "
+        f"gradient {g16_rel[1]} {g16_rel[0]:.2e} of the largest entry (the "
+        f"control); {time.perf_counter() - t0:.1f} s")
+    return (max(c["err"][1] for c in cases), max(c["err"][0] for c in cases))
+
+
+# -- phase 18 ----------------------------------------------------------------
+
+
+def _squad_files(tmp: Path) -> tuple[dict[str, str], int]:
+    """phase 6's three questions as a dev file, the first two as a train
+    file, and a vocabulary of their words; returns the paths and the dev
+    features' count at S=384."""
+    para = SQUAD["data"][0]["paragraphs"][0]
+    words = sorted({w for text in [para["context"]]
+                    + [qa["question"] for qa in para["qas"]]
+                    for w in BertTokenizer({}).basic.tokenize(text)})
+    vocab = ["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]"] + words
+    (tmp / "vocab.txt").write_text("\n".join(vocab) + "\n")
+    (tmp / "dev.json").write_text(json.dumps(SQUAD))
+    train = copy.deepcopy(SQUAD)
+    train["data"][0]["paragraphs"][0]["qas"] = para["qas"][:2]
+    (tmp / "train.json").write_text(json.dumps(train))
+    dev = convert_examples_to_features(
+        read_squad_examples(str(tmp / "dev.json"), is_training=False),
+        BertTokenizer(str(tmp / "vocab.txt")), max_seq_length=S,
+        doc_stride=128, is_training=False)
+    return {k: str(tmp / f"{k}.{e}") for k, e in
+            (("vocab", "txt"), ("dev", "json"), ("train", "json"))}, len(dev)
+
+
+def phase_finetune() -> dict[str, int]:
+    """``bert-squad``, ``bert-glue`` and ``bert-swag`` through the CLI's
+    runners on the card; returns the launches of the five runs (the
+    fine-tuning path, counts set to 0 just before each)."""
+    work = ROOT / "workspace" / "chip_smoke_finetune"
+    total = dict.fromkeys(_counts(), 0)
+    lines = []
+    with tempfile.TemporaryDirectory() as tmp:
+        files, n_dev = _squad_files(Path(tmp))
+        base = BERT_CONFIGS["base"].num_layers
+        large = ["--bert-model", "large", "--lr", FT_LR]
+        synthetic = [*large, "--batch-size", str(FT_B), "--steps-per-epoch", "10"]
+        # (label, command, steps, layers, eval batches, flags, metric keys)
+        runs = [
+            ("squad adamw", "bert-squad", 10, LAYERS, 0,
+             [*synthetic, "--optimizer", "adamw"], ()),
+            ("squad bert_adam", "bert-squad", 10, LAYERS, 0,
+             [*synthetic, "--optimizer", "bert_adam"], ()),
+            ("squad files", "bert-squad", 2, LAYERS, n_dev,
+             [*large, "--batch-size", "1", "--train-file", files["train"],
+              "--predict-file", files["dev"], "--vocab-file", files["vocab"]],
+             ("val.exact_match", "val.f1")),
+            ("glue", "bert-glue", 5, base, 1,
+             ["--lr", GLUE_LR, "--steps-per-epoch", "5"], ("dev.accuracy",)),
+            ("swag", "bert-swag", 5, base, 1,
+             ["--lr", GLUE_LR, "--steps-per-epoch", "5"], ("val.accuracy",)),
+        ]
+        for label, command, steps, layers, evals, flags, keys in runs:
+            ws = work / label.replace(" ", "_")
+            shutil.rmtree(ws, ignore_errors=True)
+            torch.cuda.reset_peak_memory_stats()
+            _reset_counts()  # this fine-tuning path starts here
+            t0 = time.perf_counter()
+            state, _ = cli([command, "--workspace", str(ws), *flags])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launched = _counts()
+            peak_gb = torch.cuda.max_memory_allocated() / 1e9
+            check(state.step == steps, f"{label}: {state.step} steps, want {steps}")
+            del state
+            data = _raport_data(ws / f"{command.replace('-', '_')}_raport.json")
+            shutil.rmtree(ws, ignore_errors=True)
+            losses = [d["train.loss"] for d in data if "train.loss" in d]
+            times = [d["train.compute_time"] for d in data if "train.loss" in d]
+            check(len(losses) == steps and all(math.isfinite(x) for x in losses),
+                  f"{label}: losses {losses}")
+            want = {**dict.fromkeys(launched, 0),
+                    "flash_fwd": layers * (steps + evals),
+                    "flash_bwd_dq": layers * steps,
+                    "flash_bwd_dkv": layers * steps}
+            check(launched == want, f"{label}: launches {launched}, want {want}")
+            metrics = {k: next(d[k] for d in data if k in d) for k in keys}
+            for k, v in metrics.items():
+                top = 100.0 if "squad" in label else 1.0
+                check(math.isfinite(v) and 0.0 <= v <= top, f"{label}: {k} {v}")
+            for k, v in launched.items():
+                total[k] += v
+            step_ms = statistics.median(times[1:]) * 1e3
+            lines.append(
+                f"{label} {steps} steps: loss "
+                + " ".join(f"{x:.4f}" for x in losses)
+                + "".join(f", {k} {v:.4f}" for k, v in metrics.items())
+                + f", median step {step_ms:.1f} ms, peak device memory "
+                f"{peak_gb:.2f} GB, run {wall:.1f} s; K1 {launched['flash_fwd']}"
+                f" ({evals} eval batches), K2 {launched['flash_bwd_dq']}+"
+                f"{launched['flash_bwd_dkv']}")
+    shutil.rmtree(work, ignore_errors=True)
+    say("18 finetune", f"bert-squad BERT-Large B={FT_B} S={S} bf16 lr {FT_LR} "
+        f"and bert-glue / bert-swag at their defaults (BERT-Base, B={GLUE_B}, "
+        f"S={GLUE_S}, lr {GLUE_LR}), dropout 0.1, through the CLI: "
+        + "; ".join(lines) + " (step time: the loop's host clock per step, "
+        "median after the first)")
+    return total
+
+
 def main() -> None:
     name = phase_device()
     phase_build()
@@ -1724,6 +2026,13 @@ def main() -> None:
     launched["flat_lamb_apply_8k"] = fused_launched["flat_lamb_apply"]
     results["hot_gather"], launched["hot_gather"] = \
         phase_hot_gather()  # counts set to 0 there
+    ft_fwd, ft_bwd = phase_finetune_parity()
+    results["flash_fwd"]["max_abs_err"] = max(
+        results["flash_fwd"]["max_abs_err"], ft_fwd)
+    for k in ("flash_bwd_dq", "flash_bwd_dkv"):
+        results[k]["max_abs_err"] = max(results[k]["max_abs_err"], ft_bwd)
+    for k, v in phase_finetune().items():  # counts set to 0 there
+        launched[k] += v
     check(set(launched) == set(results), f"{sorted(launched)} vs {sorted(results)}")
     for k, v in launched.items():
         check(v > 0, f"the main path never launched {k}")

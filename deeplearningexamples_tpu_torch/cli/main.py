@@ -1,39 +1,51 @@
 """The port's training CLI: ``python -m deeplearningexamples_tpu_torch.cli
-<model> [flags]`` for ``bert-pretrain`` and ``dlrm``.
+<model> [flags]`` for ``bert-pretrain``, ``bert-squad``, ``bert-glue``,
+``bert-swag`` and ``dlrm``.
 
 Port of ``deeplearningexamples_tpu/cli/main.py`` for the models the port
-trains so far, BERT pretraining (``run_bert_pretrain``) and DLRM
-(``run_dlrm``), with the flag spellings of ``dlx-train``. The run is on the
-card unless ``--device cpu`` is given. Flags whose machinery is not ported
-yet exit with a message that says so, rather than being ignored: for
-``bert-pretrain`` ``--zero``, ``--remat``, ``--attention-impl xla|ring``,
-``--binned``, ``--mesh-*`` and ``--data-backend corpus``; for ``dlrm``
-``--data-backend binary`` and ``--mesh-model`` above 1. ``--config-file``,
-``--platform`` and ``--precision`` (the YAML layers) are not flags here yet,
-so argparse refuses them.
+trains so far, BERT pretraining (``run_bert_pretrain``), BERT fine-tuning on
+SQuAD, GLUE and SWAG (``run_bert_squad``, ``run_bert_glue``,
+``run_bert_swag``) and DLRM (``run_dlrm``), with the flag names and defaults
+of ``dlx-train``. The run is on the card unless ``--device cpu`` is given.
+Flags whose machinery is not ported yet exit with a message that says so,
+rather than being ignored: for ``bert-pretrain`` ``--zero``, ``--remat``,
+``--attention-impl xla|ring``, ``--binned``, ``--mesh-*`` and
+``--data-backend corpus``; for the fine-tuning commands ``--mesh-*`` and an
+``--init-checkpoint`` in TF format; for ``dlrm`` ``--data-backend binary``
+and ``--mesh-model`` above 1. ``--config-file``, ``--platform`` and
+``--precision`` (the YAML layers) are not flags here yet, so argparse refuses
+them, as it refuses ``--zero`` for the fine-tuning commands, which
+``dlx-train`` does not give them either.
 """
 
 from __future__ import annotations
 
 import argparse
+import csv
 import dataclasses
 import os
 import sys
 from dataclasses import dataclass
 from typing import Any
 
+import numpy as np
 import torch
 
 from ..core import config as cfgmod
 from ..core.checkpoint import CheckpointManager
 from ..core.logging import JSONStreamBackend, Logger, StdOutBackend
 from ..core.loop import LoopConfig, train_loop
-from ..core.optimizers import lr_poly_warmup
+from ..core.optimizers import adamw, bert_adam, lr_poly_warmup
 from ..core.train import create_train_state, make_eval_step, make_train_step
 
 __all__ = ["BertCliConfig", "BertPretrainRun", "CommonConfig", "DlrmCliConfig",
-           "DlrmRun", "MODELS", "build_bert_pretrain", "build_dlrm", "cli",
-           "run_bert_pretrain", "run_dlrm", "to_device"]
+           "DlrmRun", "FinetuneRun", "GlueCliConfig", "MODELS",
+           "SquadCliConfig", "SwagCliConfig", "build_bert_pretrain",
+           "build_bert_squad", "build_dlrm", "cli", "featurize_swag",
+           "read_swag", "run_bert_glue", "run_bert_pretrain",
+           "run_bert_squad", "run_bert_swag", "run_dlrm", "to_device"]
+
+INPUTS = ("input_ids", "attention_mask", "token_type_ids")
 
 
 @dataclass
@@ -105,6 +117,11 @@ def _unported_bert(cfg: BertCliConfig) -> None:
     ])
 
 
+def _dtype(cfg: CommonConfig) -> torch.dtype:
+    """The compute dtype: bf16 under ``--amp`` (the default), else fp32."""
+    return torch.bfloat16 if cfg.amp else torch.float32
+
+
 def _common_setup(cfg: CommonConfig, name: str) -> Logger:
     logger = Logger(backends=[
         StdOutBackend(),
@@ -168,8 +185,7 @@ def build_bert_pretrain(cfg: BertCliConfig) -> BertPretrainRun:
     if cfg.phase2:
         cfg.seq_len, cfg.max_predictions = 512, 76
     bcfg = BERT_CONFIGS[cfg.bert_model]
-    task = BertPretrainTask(bcfg, torch.bfloat16 if cfg.amp else torch.float32,
-                            max_predictions=cfg.max_predictions)
+    task = BertPretrainTask(bcfg, _dtype(cfg), max_predictions=cfg.max_predictions)
     model = task.init(torch.Generator().manual_seed(cfg.seed), device=cfg.device)
     loader = SyntheticBertLoader(cfg.batch_size, cfg.seq_len, bcfg.vocab_size,
                                  cfg.max_predictions, steps=cfg.steps_per_epoch)
@@ -221,6 +237,388 @@ def run_bert_pretrain(cfg: BertCliConfig):
 
 
 @dataclass
+class SquadCliConfig(CommonConfig):
+    bert_model: str = "large"
+    max_seq_length: int = 384
+    doc_stride: int = 128
+    vocab_file: str = ""
+    train_file: str = ""
+    predict_file: str = ""  # dev json; enables EM/F1 eval (run_squad --do_predict)
+    init_checkpoint: str = ""  # torch BERT checkpoint to fine-tune from
+    # SQuAD v2 (reference --version_2_with_negative + --null_score_diff_threshold)
+    version_2_with_negative: bool = False
+    null_score_diff_threshold: float = 0.0
+    # bert_adam = the reference's fp32 BertAdam (optimization.py:64); adamw =
+    # the FusedAdam/amp-equivalent path
+    optimizer: str = "bert_adam"
+
+
+@dataclass
+class GlueCliConfig(CommonConfig):
+    bert_model: str = "base"
+    task_name: str = "mrpc"  # mrpc | sst-2 | cola
+    max_seq_length: int = 128
+    vocab_file: str = ""
+    init_checkpoint: str = ""  # torch BERT checkpoint to fine-tune from
+    optimizer: str = "bert_adam"  # reference run_glue.py fp32 path
+
+
+@dataclass
+class SwagCliConfig(CommonConfig):
+    bert_model: str = "base"
+    max_seq_length: int = 128
+    vocab_file: str = ""
+    init_checkpoint: str = ""
+    optimizer: str = "bert_adam"  # reference run_swag.py fp32 path
+
+
+# TSV column layouts per task (reference run_glue.py processors)
+_GLUE_COLS = {
+    "mrpc": dict(text_a_col=3, text_b_col=4, label_col=0),
+    "sst-2": dict(text_a_col=0, text_b_col=None, label_col=1),
+    "cola": dict(text_a_col=3, text_b_col=None, label_col=1),
+}
+
+
+def _bert_finetune_tx(optimizer: str, lr: float, total: int, params):
+    """Fine-tune optimizer per the reference recipe: ``BertAdam`` with
+    warmup_linear over the first tenth (no bias correction, per-tensor clip,
+    no decay on 1-d tensors) in the fp32 path, or AdamW (decay on every
+    tensor) with a linear warmup and decay, matching the fp16 FusedAdam
+    path."""
+    if optimizer == "bert_adam":
+        return bert_adam(lr, warmup=0.1, t_total=total,
+                         mask={n: p.ndim > 1 for n, p in params.items()})
+    if optimizer == "adamw":
+        sched = lr_poly_warmup(lr, max(int(total * 0.1), 1), total, power=1.0)
+        return adamw(sched, weight_decay=0.01)
+    raise SystemExit(f"--optimizer {optimizer}: bert_adam or adamw")
+
+
+def _unported_finetune(name: str, cfg: CommonConfig) -> None:
+    _unported(name, [
+        (cfg.mesh_data not in (-1, 1) or cfg.mesh_model != 1
+         or cfg.mesh_sequence != 1, "--mesh-* (one card only so far)"),
+        (bool(cfg.init_checkpoint)
+         and os.path.exists(cfg.init_checkpoint + ".index"),
+         f"--init-checkpoint {cfg.init_checkpoint} (a TF checkpoint: its "
+         "reader needs tensorflow; give a torch file)"),
+    ])
+
+
+@dataclass
+class FinetuneRun:
+    """What a fine-tuning runner trains with, built by ``_finetune``."""
+
+    tx: Any
+    state: Any
+    train_step: Any
+    loader: Any
+    checkpoints: CheckpointManager
+    start_epoch: int
+
+
+def _finetune(cfg, name: str, model, loss_fn, loader,
+              default_lr: float) -> FinetuneRun:
+    """The optimizer, state, step and checkpoints the three fine-tuning
+    runners share, after ``--init-checkpoint`` loads the encoder."""
+    if cfg.init_checkpoint:
+        from ..utils.torch_import import load_bert_encoder
+
+        load_bert_encoder(model.bert, cfg.init_checkpoint)
+    params = dict(model.named_parameters())
+    # as dlx-train: CommonConfig.lr is 0.1, so the default never applies
+    tx = _bert_finetune_tx(cfg.optimizer, cfg.lr or default_lr,
+                           cfg.epochs * len(loader), params)
+    state = create_train_state(model, tx, cfg.seed + 1, params=params)
+    ckpt = CheckpointManager(f"{cfg.workspace}/{name}_ckpt")
+    state, start_epoch = _maybe_resume(cfg, ckpt, state, len(loader))
+    train_step = make_train_step(loss_fn, tx, accum_steps=cfg.accum_steps)
+    return FinetuneRun(tx, state, train_step, loader, ckpt, start_epoch)
+
+
+def _synthetic_vocab(bcfg) -> int:
+    """The JAX runners draw synthetic ids in [1, 30000); a config with a
+    smaller vocabulary (``tiny``) draws them below its own size instead."""
+    return min(30000, bcfg.vocab_size)
+
+
+def build_bert_squad(cfg: SquadCliConfig):
+    """``bert-squad``'s task and ``FinetuneRun``: the model from seed
+    ``cfg.seed``, and the ``--train-file`` features or one synthetic batch
+    repeated ``steps_per_epoch`` times."""
+    from ..models.bert import BERT_CONFIGS, BertSquadTask
+
+    _unported_finetune("bert-squad", cfg)
+    task = BertSquadTask(BERT_CONFIGS[cfg.bert_model], _dtype(cfg))
+    model = task.init_train(torch.Generator().manual_seed(cfg.seed),
+                            device=cfg.device)
+    if cfg.train_file and cfg.vocab_file:
+        from ..data.squad import (
+            SquadLoader, convert_examples_to_features, read_squad_examples,
+        )
+        from ..data.tokenization import BertTokenizer
+
+        feats = convert_examples_to_features(
+            read_squad_examples(cfg.train_file), BertTokenizer(cfg.vocab_file),
+            cfg.max_seq_length, cfg.doc_stride,
+        )
+        loader = SquadLoader(feats, cfg.batch_size, seed=cfg.seed)
+    else:  # synthetic features (benchmark mode)
+        rng = np.random.default_rng(cfg.seed)
+        b, s = cfg.batch_size, cfg.max_seq_length
+        fixed = {
+            "input_ids": rng.integers(1, _synthetic_vocab(task.cfg),
+                                      (b, s)).astype(np.int32),
+            "attention_mask": np.ones((b, s), np.int32),
+            "token_type_ids": np.zeros((b, s), np.int32),
+            "start_positions": rng.integers(0, s, b).astype(np.int32),
+            "end_positions": rng.integers(0, s, b).astype(np.int32),
+        }
+        loader = [fixed] * cfg.steps_per_epoch
+    return task, _finetune(cfg, "bert_squad", model, task.loss_fn, loader, 3e-5)
+
+
+def _squad_eval_fn(cfg: SquadCliConfig, task):
+    """Dev-set prediction and the official EM/F1 (reference
+    run_squad.py:427-478 + evaluate-v1.1; v2 with the null threshold and
+    the best-threshold sweep of evaluate-v2.0), as ``eval_fn(state)``."""
+    from ..data.squad import convert_examples_to_features, read_squad_examples
+    from ..data.tokenization import BertTokenizer
+    from ..models.bert import (
+        predict_squad, read_squad_references, write_predictions,
+    )
+    from ..models.bert.squad_eval import (
+        apply_null_threshold, find_best_null_threshold, squad_evaluate,
+    )
+
+    dev_feats = convert_examples_to_features(
+        read_squad_examples(cfg.predict_file, is_training=False),
+        BertTokenizer(cfg.vocab_file), cfg.max_seq_length, cfg.doc_stride,
+        is_training=False,
+    )
+    refs = read_squad_references(cfg.predict_file)
+
+    def eval_fn(state):
+        if not cfg.version_2_with_negative:
+            preds = predict_squad(task, state.model, dev_feats, cfg.batch_size)
+            write_predictions(preds, f"{cfg.workspace}/predictions.json")
+            return squad_evaluate(preds, refs)
+        # v2: unthresholded span text + null odds, then the configured
+        # threshold for the reported metric and a best-threshold sweep
+        preds, null_odds = predict_squad(
+            task, state.model, dev_feats, cfg.batch_size,
+            version_2_with_negative=True,
+            null_score_diff_threshold=float("inf"), return_null_odds=True,
+        )
+        thresholded = apply_null_threshold(preds, null_odds,
+                                           cfg.null_score_diff_threshold)
+        write_predictions(thresholded, f"{cfg.workspace}/predictions.json")
+        write_predictions(null_odds, f"{cfg.workspace}/null_odds.json")
+        metrics = squad_evaluate(thresholded, refs)
+        best_t, best_m = find_best_null_threshold(preds, null_odds, refs)
+        metrics["best_f1"] = best_m["f1"]
+        metrics["best_f1_thresh"] = best_t
+        return metrics
+
+    return eval_fn
+
+
+def run_bert_squad(cfg: SquadCliConfig):
+    """SQuAD fine-tuning (reference ``run_squad.py``) on synthetic features
+    or ``--train-file``; with ``--predict-file`` (and ``--vocab-file``),
+    EM/F1 on it each epoch as ``val.*``, watched for the best checkpoint.
+    Returns ``(state, best watched metric)``."""
+    logger = _common_setup(cfg, "bert_squad")
+    task, run = build_bert_squad(cfg)
+    eval_fn, watch = None, ("val_loss", "min")
+    if cfg.predict_file and cfg.vocab_file:
+        eval_fn, watch = _squad_eval_fn(cfg, task), ("f1", "max")
+    return train_loop(
+        run.state, run.train_step, lambda: to_device(run.loader, cfg.device),
+        cfg=_loop_cfg(cfg, *watch), logger=logger, eval_fn=eval_fn,
+        checkpoints=run.checkpoints, batch_size=cfg.batch_size,
+        start_epoch=run.start_epoch,
+    )
+
+
+def _batches(data: dict[str, np.ndarray], bs: int, shuffle_seed=None,
+             include_tail: bool = False) -> list[dict[str, np.ndarray]]:
+    """Whole batches of ``data`` (optionally in a seeded shuffled order);
+    with ``include_tail`` also the remainder, so an eval scores every
+    example."""
+    n = len(data["label"])
+    order = np.arange(n)
+    if shuffle_seed is not None:
+        np.random.default_rng(shuffle_seed).shuffle(order)
+    out = [{k: v[order[i:i + bs]] for k, v in data.items()}
+           for i in range(0, n - bs + 1, bs)]
+    if include_tail and n % bs:
+        out.append({k: v[order[n - n % bs:]] for k, v in data.items()})
+    return out
+
+
+def _synthetic_examples(rng, bcfg, n: int, s: int, choices: int | None,
+                        labels: int) -> dict[str, np.ndarray]:
+    """The JAX runners' synthetic examples: ids in [1, 30000), no padding,
+    one segment; (n, s) for GLUE, (n, choices, s) for SWAG."""
+    shape = (n, s) if choices is None else (n, choices, s)
+    return {
+        "input_ids": rng.integers(1, _synthetic_vocab(bcfg), shape
+                                  ).astype(np.int32),
+        "attention_mask": np.ones(shape, np.int32),
+        "token_type_ids": np.zeros(shape, np.int32),
+        "label": rng.integers(0, labels, n).astype(np.int32),
+    }
+
+
+@torch.inference_mode()
+def _predict_classes(model, data: dict[str, np.ndarray], batch_size: int,
+                     device: str) -> tuple[np.ndarray, np.ndarray]:
+    """argmax of the model's logits over every example, without dropout,
+    and the labels in the same order."""
+    preds, labels = [], []
+    for b in _batches(data, min(batch_size, len(data["label"])),
+                      include_tail=True):
+        t = [torch.from_numpy(b[k]).to(device) for k in INPUTS]
+        preds.append(model(*t).argmax(-1).cpu().numpy())
+        labels.append(b["label"])
+    if not preds:
+        return np.zeros(0, np.int64), np.zeros(0, np.int32)
+    return np.concatenate(preds), np.concatenate(labels)
+
+
+def run_bert_glue(cfg: GlueCliConfig):
+    """GLUE fine-tuning (reference ``run_glue.py``): train.tsv/dev.tsv in
+    --data-dir (or synthetic examples), then dev accuracy (and Matthews
+    correlation for CoLA) as ``dev.*``. Returns ``(state, dev metrics)``."""
+    from ..models.bert import BERT_CONFIGS
+    from ..models.bert.glue import (
+        GlueTask, convert_pair_features, matthews_corrcoef, read_tsv,
+    )
+
+    logger = _common_setup(cfg, "bert_glue")
+    _unported_finetune("bert-glue", cfg)
+    task = GlueTask(BERT_CONFIGS[cfg.bert_model], num_labels=2,
+                    dtype=_dtype(cfg))
+    model = task.init(torch.Generator().manual_seed(cfg.seed), device=cfg.device)
+    if cfg.data_dir and cfg.vocab_file:
+        from ..data.tokenization import BertTokenizer
+
+        tok, cols = BertTokenizer(cfg.vocab_file), _GLUE_COLS[cfg.task_name]
+        train, dev = (convert_pair_features(
+            read_tsv(f"{cfg.data_dir}/{split}.tsv", **cols), tok,
+            cfg.max_seq_length) for split in ("train", "dev"))
+    else:  # synthetic benchmark mode
+        rng = np.random.default_rng(cfg.seed)
+        train = _synthetic_examples(rng, task.cfg,
+                                    cfg.batch_size * cfg.steps_per_epoch,
+                                    cfg.max_seq_length, None, 2)
+        dev = _synthetic_examples(rng, task.cfg, cfg.batch_size,
+                                  cfg.max_seq_length, None, 2)
+    loader = _batches(train, cfg.batch_size, shuffle_seed=cfg.seed)
+    run = _finetune(cfg, "bert_glue", model, task.loss_fn, loader, 2e-5)
+    state, _ = train_loop(
+        run.state, run.train_step, lambda: to_device(loader, cfg.device),
+        cfg=_loop_cfg(cfg), logger=logger, checkpoints=run.checkpoints,
+        batch_size=cfg.batch_size, start_epoch=run.start_epoch,
+    )
+    # dev evaluation (reference do_eval: accuracy; CoLA reports MCC)
+    preds, labels = _predict_classes(state.model, dev, cfg.batch_size,
+                                     cfg.device)
+    out = {}
+    if len(preds):
+        out["dev.accuracy"] = float((preds == labels).mean())
+        if cfg.task_name == "cola":
+            out["dev.mcc"] = matthews_corrcoef(preds, labels)
+        logger.log((), out)
+    return state, out
+
+
+def read_swag(path: str) -> list[tuple[str, list[str], int]]:
+    """(context, [4 endings], label) rows of a SWAG csv with the columns
+    sent1, sent2, ending0..3 and label."""
+    rows = []
+    with open(path, newline="") as f:
+        r = csv.reader(f)
+        col = {k: i for i, k in enumerate(next(r))}
+        for line in r:
+            context = line[col["sent1"]] + " " + line[col["sent2"]]
+            endings = [line[col[f"ending{i}"]] for i in range(4)]
+            rows.append((context, endings, int(line[col["label"]])))
+    return rows
+
+
+def featurize_swag(rows, tok, s: int) -> dict[str, np.ndarray]:
+    """[CLS] context [SEP] ending [SEP] per choice, the longer of the two
+    trimmed from its end to fit ``s``: features (N, 4, s) and labels (N,)."""
+    n = len(rows)
+    ids = np.zeros((n, 4, s), np.int32)
+    mask = np.zeros((n, 4, s), np.int32)
+    seg = np.zeros((n, 4, s), np.int32)
+    y = np.zeros((n,), np.int32)
+    for i, (context, endings, label) in enumerate(rows):
+        ta = tok.tokenize(context)
+        for c, end in enumerate(endings):
+            tb = tok.tokenize(end)
+            while len(ta) + len(tb) > s - 3:
+                (ta if len(ta) > len(tb) else tb).pop()
+            tokens = ["[CLS]"] + ta + ["[SEP]"] + tb + ["[SEP]"]
+            ii = tok.convert_tokens_to_ids(tokens)
+            ids[i, c, :len(ii)] = ii
+            mask[i, c, :len(ii)] = 1
+            seg[i, c, len(ta) + 2:len(ii)] = 1
+        y[i] = label
+    return {"input_ids": ids, "attention_mask": mask, "token_type_ids": seg,
+            "label": y}
+
+
+def run_bert_swag(cfg: SwagCliConfig):
+    """SWAG multiple choice (reference ``run_swag.py``): train.csv/val.csv in
+    --data-dir (or synthetic examples), then validation accuracy as
+    ``val.accuracy``. Returns ``(state, validation metrics)``."""
+    from ..models.bert import BERT_CONFIGS, BertForMultipleChoice
+    from ..models.bert.glue import classification_loss
+    from ..models.bert.task import init_bert_weights_
+
+    logger = _common_setup(cfg, "bert_swag")
+    _unported_finetune("bert-swag", cfg)
+    bcfg = BERT_CONFIGS[cfg.bert_model]
+    model = BertForMultipleChoice(bcfg, _dtype(cfg))
+    init_bert_weights_(model, torch.Generator().manual_seed(cfg.seed),
+                       bcfg.initializer_range)
+    model = model.to(cfg.device).train()
+    if cfg.data_dir and cfg.vocab_file:
+        from ..data.tokenization import BertTokenizer
+
+        tok = BertTokenizer(cfg.vocab_file)
+        train, val = (featurize_swag(read_swag(f"{cfg.data_dir}/{split}.csv"),
+                                     tok, cfg.max_seq_length)
+                      for split in ("train", "val"))
+    else:
+        rng = np.random.default_rng(cfg.seed)
+        train = _synthetic_examples(rng, bcfg,
+                                    cfg.batch_size * cfg.steps_per_epoch,
+                                    cfg.max_seq_length, 4, 4)
+        val = _synthetic_examples(rng, bcfg, cfg.batch_size,
+                                  cfg.max_seq_length, 4, 4)
+    loader = _batches(train, cfg.batch_size)
+    run = _finetune(cfg, "bert_swag", model, classification_loss, loader, 2e-5)
+    state, _ = train_loop(
+        run.state, run.train_step, lambda: to_device(loader, cfg.device),
+        cfg=_loop_cfg(cfg), logger=logger, checkpoints=run.checkpoints,
+        batch_size=cfg.batch_size, start_epoch=run.start_epoch,
+    )
+    preds, labels = _predict_classes(state.model, val, cfg.batch_size,
+                                     cfg.device)
+    out = {}
+    if len(preds):
+        out["val.accuracy"] = float((preds == labels).mean())
+        logger.log((), out)
+    return state, out
+
+
+@dataclass
 class DlrmRun:
     """What ``run_dlrm`` trains with, built by ``build_dlrm``."""
 
@@ -252,7 +650,7 @@ def build_dlrm(cfg: DlrmCliConfig) -> DlrmRun:
         DlrmConfig(categorical_cardinalities=cards,
                    embedding_dim=cfg.embedding_dim,
                    bottom_mlp=(512, 256, cfg.embedding_dim)),
-        torch.bfloat16 if cfg.amp else torch.float32)
+        _dtype(cfg))
     model = task.init(torch.Generator().manual_seed(cfg.seed), device=cfg.device)
     params = dict(model.named_parameters())
     tx = make_dlrm_optimizer(mlp_lr=cfg.lr, embedding_lr=cfg.lr)
@@ -286,8 +684,12 @@ def run_dlrm(cfg: DlrmCliConfig):
     )
 
 
-MODELS = {"bert-pretrain": run_bert_pretrain, "dlrm": run_dlrm}
-_CONFIG_CLS = {"bert-pretrain": BertCliConfig, "dlrm": DlrmCliConfig}
+MODELS = {"bert-pretrain": run_bert_pretrain, "bert-squad": run_bert_squad,
+          "bert-glue": run_bert_glue, "bert-swag": run_bert_swag,
+          "dlrm": run_dlrm}
+_CONFIG_CLS = {"bert-pretrain": BertCliConfig, "bert-squad": SquadCliConfig,
+               "bert-glue": GlueCliConfig, "bert-swag": SwagCliConfig,
+               "dlrm": DlrmCliConfig}
 
 
 def cli(argv=None):

@@ -1,8 +1,9 @@
 """Generic epoch loop — train/validate/checkpoint/early-stop/preempt.
 
 Port of ``deeplearningexamples_tpu/core/loop.py``: the per-batch mean
-evaluation that BERT pretraining uses and the dataset-level reduction
-(``eval_reduce``) with the target-metric stop that DLRM uses. The steps are
+evaluation that BERT pretraining uses, the dataset-level reduction
+(``eval_reduce``) with the target-metric stop that DLRM uses, and the
+``eval_fn`` hook that SQuAD's EM/F1 uses. The steps are
 plain PyTorch functions that return device tensors, and evaluation is handed
 ``state.model``.
 
@@ -64,6 +65,7 @@ def train_loop(
     eval_step: Callable | None = None,
     eval_iter_fn: Callable[[], Iterable] | None = None,
     eval_reduce: Callable[[dict], Mapping] | None = None,
+    eval_fn: Callable[[object], Mapping] | None = None,
     checkpoints: CheckpointManager | None = None,
     batch_size: int | None = None,
     start_epoch: int = 0,
@@ -78,6 +80,11 @@ def train_loop(
     concatenated ndarray}) -> {metric: scalar}`` computes dataset-level
     metrics once over the whole eval set (the reference's ``dist_evaluate``:
     DLRM's AUC over all eval scores, not a mean of per-batch values).
+    On the same epochs ``eval_fn(state) -> {metric: scalar}`` adds its
+    metrics as ``val.*`` (SQuAD's EM/F1 over a dev file). It runs with the
+    training generator's state saved and put back, and the model's
+    train/eval mode restored, so a run with it draws the same dropout bits as
+    a run without it.
     ``cfg.watch_metric`` picks the metric that decides the best checkpoint,
     early stopping and the ``cfg.target_metric`` stop.
     """
@@ -142,6 +149,14 @@ def train_loop(
                 elif eval_reduce is None:
                     val.update({f"val.{k}": float(np.mean(v))
                                 for k, v in agg.items()})
+            if eval_fn is not None and is_eval_epoch:
+                training, rng = state.model.training, state.generator.get_state()
+                try:
+                    val.update({f"val.{k}": float(v)
+                                for k, v in eval_fn(state).items()})
+                finally:
+                    state.model.train(training)
+                    state.generator.set_state(rng)
             if val:
                 logger.log((epoch,), val)
                 watch_value = val.get(f"val.{cfg.watch_metric}")

@@ -7,9 +7,15 @@ optax that the ported recipes use:
   in fp32 on an int32 step; so does this port, in numpy fp32 on the host,
   and returns the fp32 value as a Python float.
 - ``sgd`` (``optax.sgd(lr)``, no momentum), ``adam`` (``optax.adam``) and
-  ``partition`` (``optax.multi_transform``), for DLRM's dual optimizer. Each
-  is a ``Transform`` over a dict name -> tensor; a schedule is read at the
-  update count before the update, as optax's ``scale_by_schedule``.
+  ``partition`` (``optax.multi_transform``), for DLRM's dual optimizer.
+- ``bert_adam`` (the reference's ``BertAdam``) and ``adamw``
+  (``optax.adamw``), the two optimizers of BERT fine-tuning.
+
+Each is a ``Transform`` over a dict name -> tensor; a schedule is read at the
+update count before the update, as optax's ``scale_by_schedule``. The
+updates run as ``torch._foreach_*`` ops over the whole parameter list, so a
+step launches the same few kernels however many tensors the model has (JAX
+has no kernel here either: XLA fuses the update).
 """
 
 from __future__ import annotations
@@ -19,9 +25,10 @@ from typing import Callable, Mapping, NamedTuple
 import numpy as np
 import torch
 
-from ..ops.lamb import Transform
+from ..ops.lamb import Transform, norms
 
-__all__ = ["AdamState", "adam", "lr_poly_warmup", "partition", "sgd"]
+__all__ = ["AdamState", "adam", "adamw", "bert_adam", "lr_poly_warmup",
+           "partition", "sgd"]
 
 _F = np.float32
 
@@ -77,35 +84,121 @@ class AdamState(NamedTuple):
     nu: dict[str, torch.Tensor]
 
 
+def _adam_init(params: Mapping[str, torch.Tensor]) -> AdamState:
+    """Count 0 and fp32 moments of zeros, one pair per tensor."""
+    return AdamState(0, {n: torch.zeros_like(p) for n, p in params.items()},
+                     {n: torch.zeros_like(p) for n, p in params.items()})
+
+
 def adam(learning_rate: LearningRate, b1: float = 0.9, b2: float = 0.999,
          eps: float = 1e-8) -> Transform:
     """``optax.adam``: fp32 moments, bias-corrected, ``-lr * m_hat /
     (sqrt(v_hat) + eps)``."""
+    return adamw(learning_rate, b1, b2, eps, weight_decay=0.0)
 
-    def init(params: Mapping[str, torch.Tensor]) -> AdamState:
-        return AdamState(0, {n: torch.zeros_like(p) for n, p in params.items()},
-                         {n: torch.zeros_like(p) for n, p in params.items()})
+
+def adamw(learning_rate: LearningRate, b1: float = 0.9, b2: float = 0.999,
+          eps: float = 1e-8, weight_decay: float = 1e-4) -> Transform:
+    """``optax.adamw`` without a mask: ``optax.adam``'s step plus
+    ``weight_decay * p`` on every parameter (LayerNorm and biases too), both
+    scaled by the scheduled ``-lr``. The moments are updated in place."""
 
     def update(grads, state: AdamState, params=None):
         names = list(grads)
         if not names:
             return {}, state._replace(count=state.count + 1)
         g = [grads[n] for n in names]
-        mu = torch._foreach_add(torch._foreach_mul(g, 1 - b1),
-                                torch._foreach_mul([state.mu[n] for n in names], b1))
-        nu = torch._foreach_add(torch._foreach_mul(torch._foreach_mul(g, g), 1 - b2),
-                                torch._foreach_mul([state.nu[n] for n in names], b2))
+        mu = [state.mu[n] for n in names]
+        nu = [state.nu[n] for n in names]
+        # mu * b1 + g * (1 - b1), nu * b2 + g^2 * (1 - b2), as optax rounds
+        torch._foreach_mul_(mu, b1)
+        torch._foreach_add_(mu, torch._foreach_mul(g, 1 - b1))
+        torch._foreach_mul_(nu, b2)
+        torch._foreach_add_(nu, torch._foreach_mul(torch._foreach_mul(g, g),
+                                                   1 - b2))
         count = state.count + 1
         c1 = float(_F(1) - _F(b1) ** _F(count))
         c2 = float(_F(1) - _F(b2) ** _F(count))
         u = torch._foreach_div(
             torch._foreach_div(mu, c1),
             torch._foreach_add(torch._foreach_sqrt(torch._foreach_div(nu, c2)), eps))
+        if weight_decay:
+            torch._foreach_add_(u, torch._foreach_mul(
+                [params[n] for n in names], weight_decay))
         upd = torch._foreach_mul(u, -_lr(learning_rate, state.count))
-        return dict(zip(names, upd)), AdamState(count, dict(zip(names, mu)),
-                                                dict(zip(names, nu)))
+        return dict(zip(names, upd)), state._replace(count=count)
 
-    return Transform(init, update)
+    return Transform(_adam_init, update)
+
+
+_BERT_SCHEDULES = ("warmup_linear", "warmup_constant", "warmup_poly",
+                   "warmup_cosine")
+
+
+def _bert_schedule_mult(schedule: str, warmup: float, x: np.float32) -> np.float32:
+    """``BertAdam``'s schedules at the fraction ``x`` of ``t_total``, in
+    fp32 as JAX evaluates them."""
+    if schedule == "warmup_linear":
+        w = max((x - _F(1.0)) / _F(warmup - 1.0), _F(0.0))
+    elif schedule == "warmup_constant":
+        w = _F(1.0)
+    elif schedule == "warmup_poly":
+        w = (_F(1.0) - x) ** _F(0.5)
+    else:  # warmup_cosine
+        w = _F(0.5) * (_F(1.0) + np.cos(_F(np.pi) * x))
+    return x / _F(warmup) if x < _F(warmup) else _F(w)
+
+
+def bert_adam(lr: float, warmup: float = -1.0, t_total: int = -1,
+              schedule: str = "warmup_linear", b1: float = 0.9,
+              b2: float = 0.999, eps: float = 1e-6, weight_decay: float = 0.01,
+              max_grad_norm: float = 1.0,
+              mask: Mapping[str, bool] | None = None) -> Transform:
+    """``BertAdam`` (reference ``BERT/optimization.py:64-176``; JAX
+    ``core/optimizers.py`` ``bert_adam``) with its quirks:
+
+    - no bias correction: ``u = m / (sqrt(v) + eps)``;
+    - each tensor's gradient clipped on its own norm, as ``clip_grad_norm_``
+      inside the parameter loop: ``g * min(max_grad_norm / (|g| + 1e-6),
+      1)``;
+    - decoupled weight decay ``u + weight_decay * p`` where ``mask`` (name ->
+      bool) is true, on every tensor without a mask;
+    - the schedule read at the count before the increment, so under
+      ``warmup_linear`` the first update is exactly zero.
+
+    The per-tensor clip factors are copied to the host once a step (one
+    sync), because a foreach op takes per-tensor factors only as numbers."""
+    if schedule not in _BERT_SCHEDULES:
+        raise ValueError(f"unknown schedule {schedule}")
+
+    def update(grads, state: AdamState, params):
+        names = list(grads)
+        g = [grads[n].float() for n in names]
+        if max_grad_norm > 0:
+            coef = max_grad_norm / (torch.stack(norms(g)) + 1e-6)
+            g = torch._foreach_mul(g, coef.clamp(max=1.0).tolist())
+        mu = [state.mu[n] for n in names]
+        nu = [state.nu[n] for n in names]
+        # b1 * m + (1 - b1) * g, b2 * v + (1 - b2) * g * g, as JAX rounds
+        torch._foreach_mul_(mu, b1)
+        torch._foreach_add_(mu, torch._foreach_mul(g, 1 - b1))
+        torch._foreach_mul_(nu, b2)
+        torch._foreach_add_(nu, torch._foreach_mul(torch._foreach_mul(g, 1 - b2), g))
+        u = torch._foreach_div(mu, torch._foreach_add(torch._foreach_sqrt(nu), eps))
+        if weight_decay > 0:
+            dec = [i for i, n in enumerate(names) if mask is None or mask[n]]
+            if dec:
+                torch._foreach_add_([u[i] for i in dec], torch._foreach_mul(
+                    [params[names[i]].float() for i in dec], weight_decay))
+        lr_t = _F(lr)
+        if t_total != -1:
+            lr_t = lr_t * _bert_schedule_mult(
+                schedule, warmup, _F(state.count) / _F(t_total))
+        upd = torch._foreach_mul(u, -float(lr_t))
+        return ({n: x.to(params[n].dtype) for n, x in zip(names, upd)},
+                AdamState(state.count + 1, state.mu, state.nu))
+
+    return Transform(_adam_init, update)
 
 
 def partition(transforms: Mapping[str, Transform],

@@ -118,7 +118,8 @@ def make_train_step(
                               "loss": loss.detach()})
         metrics = {k: torch.stack([m[k].detach().float() for m in per_micro]).mean()
                    for k in per_micro[0]} if accum_steps > 1 else per_micro[0]
-        with torch.no_grad():
+        # the span the profiling tools read as the optimizer's part of a step
+        with torch.no_grad(), torch.profiler.record_function("optimizer"):
             grads = _grads(params)
             if accum_steps > 1:
                 torch._foreach_div_(_leaves(grads), float(accum_steps))

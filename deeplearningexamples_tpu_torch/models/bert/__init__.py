@@ -1,9 +1,11 @@
 from .modeling import (
     BERT_CONFIGS,
     BertConfig,
+    BertForMultipleChoice,
     BertForPreTraining,
     BertForQuestionAnswering,
+    BertForSequenceClassification,
     BertModel,
 )
-from .predict import predict_squad, write_predictions
+from .predict import predict_squad, read_squad_references, write_predictions
 from .task import BertPretrainTask, BertSquadTask

@@ -1,10 +1,12 @@
-"""BERT encoder, question-answering head and pretraining heads in PyTorch.
+"""BERT encoder, pretraining heads and fine-tuning heads in PyTorch.
 
 Port of ``deeplearningexamples_tpu/models/bert/modeling.py``: embeddings,
 flash self-attention in the (B,S,H,D) layout, post-LN encoder layers with tanh
-GELU, pooler, the span head, and the MLM + NSP pretraining heads. Module names
-follow the NVIDIA/HF ``state_dict`` (``bert.encoder.layer.{i}.attention.self.
-query``, ``cls.predictions.transform.dense`` ...), so
+GELU, pooler, the MLM + NSP pretraining heads, and the fine-tuning heads: the
+span head (SQuAD), sequence classification (GLUE) and multiple choice
+(SWAG). Module names follow the NVIDIA/HF ``state_dict``
+(``bert.encoder.layer.{i}.attention.self.query``,
+``cls.predictions.transform.dense`` ...), so
 ``utils/torch_import.convert_bert`` in the JAX package maps these weights back
 into the JAX tree.
 
@@ -13,9 +15,9 @@ Precision follows the JAX model's ``dtype``: parameters keep their own dtype
 is computed in the compute dtype, as flax ``Dense(dtype=bf16)`` does;
 LayerNorm statistics are fp32. With ``dtype=None`` the compute dtype is the
 parameters' own (``BertSquadTask`` casts the encoder to bf16 for serving).
-The word table keeps ``padded_vocab`` rows. The QA and NSP heads run in fp32
-on fp32 weights, and the MLM decoder, tied to the word table, gives fp32
-logits.
+The word table keeps ``padded_vocab`` rows. The QA, NSP and classifier heads
+run in fp32 on fp32 weights, and the MLM decoder, tied to the word table,
+gives fp32 logits.
 
 Dropout is on when a forward is given a ``torch.Generator`` (JAX
 ``deterministic=False``): hidden dropout at the JAX sites (embeddings,
@@ -42,8 +44,10 @@ __all__ = [
     "BertSelfAttention",
     "BertLayer",
     "BertModel",
+    "BertForMultipleChoice",
     "BertForPreTraining",
     "BertForQuestionAnswering",
+    "BertForSequenceClassification",
     "Dense",
     "LayerNorm",
 ]
@@ -324,15 +328,62 @@ class BertForPreTraining(nn.Module):
 
 
 class BertForQuestionAnswering(nn.Module):
-    """Span start/end head; returns (start_logits, end_logits), fp32."""
+    """Span start/end head; returns (start_logits, end_logits), fp32. The
+    head runs in fp32 and takes no dropout. ``dtype`` is the encoder's
+    compute dtype: bf16 over fp32 weights for training; ``None`` for
+    serving, whose encoder ``BertSquadTask.place`` casts to bf16."""
 
-    def __init__(self, cfg: BertConfig):
+    def __init__(self, cfg: BertConfig, dtype: torch.dtype | None = None):
         super().__init__()
         self.cfg = cfg
-        self.bert = BertModel(cfg)
+        self.bert = BertModel(cfg, dtype)
         self.qa_outputs = nn.Linear(cfg.hidden_size, 2)
 
-    def forward(self, input_ids, attention_mask=None, token_type_ids=None):
-        seq, _ = self.bert(input_ids, attention_mask, token_type_ids)
+    def forward(self, input_ids, attention_mask=None, token_type_ids=None,
+                generator: torch.Generator | None = None):
+        seq, _ = self.bert(input_ids, attention_mask, token_type_ids, generator)
         logits = self.qa_outputs(seq.to(self.qa_outputs.weight.dtype))
         return logits[..., 0], logits[..., 1]
+
+
+class BertForSequenceClassification(nn.Module):
+    """GLUE head (JAX ``BertForSequenceClassification``): dropout on the
+    pooled output, then an fp32 classifier; returns (B, num_labels) fp32."""
+
+    def __init__(self, cfg: BertConfig, num_labels: int = 2,
+                 dtype: torch.dtype | None = None):
+        super().__init__()
+        self.cfg = cfg
+        self.bert = BertModel(cfg, dtype)
+        self.dropout = RegenDropout(cfg.hidden_dropout)
+        self.classifier = nn.Linear(cfg.hidden_size, num_labels)
+
+    def forward(self, input_ids, attention_mask=None, token_type_ids=None,
+                generator: torch.Generator | None = None):
+        _, pooled = self.bert(input_ids, attention_mask, token_type_ids,
+                              generator)
+        pooled = self.dropout(pooled, generator)
+        return self.classifier(pooled.to(self.classifier.weight.dtype))
+
+
+class BertForMultipleChoice(nn.Module):
+    """SWAG head (JAX ``BertForMultipleChoice``): inputs (B, C, S) folded to
+    (B*C, S), one fp32 score per (context, choice) pair from the pooled
+    output, reshaped to (B, C) logits."""
+
+    def __init__(self, cfg: BertConfig, dtype: torch.dtype | None = None):
+        super().__init__()
+        self.cfg = cfg
+        self.bert = BertModel(cfg, dtype)
+        self.dropout = RegenDropout(cfg.hidden_dropout)
+        self.classifier = nn.Linear(cfg.hidden_size, 1)
+
+    def forward(self, input_ids, attention_mask, token_type_ids,
+                generator: torch.Generator | None = None):
+        b, c, s = input_ids.shape
+        _, pooled = self.bert(input_ids.reshape(b * c, s),
+                              attention_mask.reshape(b * c, s),
+                              token_type_ids.reshape(b * c, s), generator)
+        pooled = self.dropout(pooled, generator)
+        scores = self.classifier(pooled.to(self.classifier.weight.dtype))
+        return scores.reshape(b, c)

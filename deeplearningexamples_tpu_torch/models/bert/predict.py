@@ -3,8 +3,9 @@
 Port of ``deeplearningexamples_tpu/models/bert/predict.py``: ``jax.jit``
 becomes ``torch.inference_mode`` (in ``BertSquadTask.predict_fn``); the last
 batch is padded to ``batch_size`` by repeating its last feature, as the JAX
-version pads to its compiled shape. ``aggregate_predictions`` and
-``write_predictions`` are the JAX package's numpy code.
+version pads to its compiled shape. ``read_squad_references``,
+``aggregate_predictions`` and ``write_predictions`` are the JAX package's
+numpy code.
 """
 
 from __future__ import annotations
@@ -18,7 +19,21 @@ import torch
 from ...data.squad import SquadFeature
 from .squad_eval import decode_span
 
-__all__ = ["predict_squad", "aggregate_predictions", "write_predictions"]
+__all__ = ["predict_squad", "aggregate_predictions", "read_squad_references",
+           "write_predictions"]
+
+
+def read_squad_references(dev_json_path: str) -> dict[str, list[str]]:
+    """{qid: [gold answer texts]} from a SQuAD v1.1/v2 dev json (an
+    unanswerable question's list is ``[""]``)."""
+    with open(dev_json_path, encoding="utf-8") as f:
+        data = json.load(f)["data"]
+    refs: dict[str, list[str]] = {}
+    for article in data:
+        for para in article["paragraphs"]:
+            for qa in para["qas"]:
+                refs[qa["id"]] = [a["text"] for a in qa["answers"]] or [""]
+    return refs
 
 
 def aggregate_predictions(
@@ -92,8 +107,9 @@ def predict_squad(
     return_null_odds: bool = False,
     device: torch.device | str | None = None,
 ):
-    """Best answer text per question across its doc-stride features.
-    ``device`` defaults to the device of the model's parameters."""
+    """Best answer text per question across its doc-stride features, from a
+    serving model or a training model (in its training dtype), without
+    dropout. ``device`` defaults to the device of the model's parameters."""
     if device is None:
         device = next(model.parameters()).device
     all_start, all_end = [], []

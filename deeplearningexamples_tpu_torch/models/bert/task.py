@@ -1,9 +1,10 @@
-"""BERT tasks of the port: pretraining (MLM + NSP) and SQuAD prediction.
+"""BERT tasks of the port: pretraining (MLM + NSP) and SQuAD.
 
 Port of ``BertPretrainTask`` and ``BertSquadTask`` in
-``deeplearningexamples_tpu/models/bert/task.py``. The pretraining loss is the
-reference's criterion: cross-entropy over the masked positions plus the NSP
-cross-entropy. SQuAD fine-tuning's loss is not ported yet.
+``deeplearningexamples_tpu/models/bert/task.py``. The losses are the
+reference's: for pretraining, cross-entropy over the masked positions plus
+the NSP cross-entropy; for SQuAD fine-tuning, the mean of the start and end
+cross-entropies with the positions clipped to the sequence.
 """
 
 from __future__ import annotations
@@ -43,11 +44,20 @@ class BertSquadTask:
 
     def init(self, generator: torch.Generator,
              device: torch.device | str = "cuda") -> BertForQuestionAnswering:
-        """A model with fresh weights drawn on the CPU from ``generator``,
-        then placed on ``device``."""
+        """A serving model with fresh weights drawn on the CPU from
+        ``generator``, then placed on ``device``."""
         model = BertForQuestionAnswering(self.cfg)
         init_bert_weights_(model, generator, self.cfg.initializer_range)
         return self.place(model, device)
+
+    def init_train(self, generator: torch.Generator,
+                   device: torch.device | str = "cuda") -> BertForQuestionAnswering:
+        """A model to fine-tune: fresh fp32 weights drawn on the CPU from
+        ``generator`` (the JAX initialisers), computing in ``dtype``, placed
+        on ``device`` in training mode."""
+        model = BertForQuestionAnswering(self.cfg, self.dtype)
+        init_bert_weights_(model, generator, self.cfg.initializer_range)
+        return model.to(device).train()
 
     def place(self, model: BertForQuestionAnswering,
               device: torch.device | str) -> BertForQuestionAnswering:
@@ -57,10 +67,25 @@ class BertSquadTask:
         model.qa_outputs.to(device=device, dtype=torch.float32)
         return model.eval()
 
+    def loss_fn(self, model: BertForQuestionAnswering, model_state,
+                batch: dict, generator: torch.Generator):
+        """``(loss, (model_state, {}))``: ``0.5 * (CE(start) + CE(end))`` on
+        the fp32 logits, positions clipped to [0, S - 1], with dropout drawn
+        from ``generator``."""
+        start_logits, end_logits = model(
+            batch["input_ids"], batch["attention_mask"],
+            batch["token_type_ids"], generator=generator)
+        last = start_logits.shape[-1] - 1
+        start = batch["start_positions"].long().clamp(0, last)
+        end = batch["end_positions"].long().clamp(0, last)
+        loss = 0.5 * (F.cross_entropy(start_logits, start)
+                      + F.cross_entropy(end_logits, end))
+        return loss, (model_state, {})
+
     @torch.inference_mode()
     def predict_fn(self, model: BertForQuestionAnswering, batch: dict):
-        """(start_logits, end_logits), fp32, for a batch of tensors on the
-        model's device."""
+        """(start_logits, end_logits), fp32, without dropout, for a batch of
+        tensors on the model's device (a serving or a training model)."""
         return model(batch["input_ids"], batch["attention_mask"],
                      batch["token_type_ids"])
 

@@ -30,7 +30,7 @@ import torch
 
 from ..cli.main import DlrmCliConfig, build_dlrm, to_device
 from ..data.synthetic import SyntheticDlrmLoader
-from .profile_pretrain import _union_us
+from .profile_pretrain import _union_us, device_kernels
 
 # (part, test on the kernel's name and the names of the ops above it), in
 # the order they are tried
@@ -89,11 +89,10 @@ def profile(skew: str, steps: int = 10, traced: int = 3) -> dict:
         window_us = (time.perf_counter() - t0) * 1e6
     events = prof.events()
     intervals, by_name = [], {}
-    for e in events:
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            intervals.append((e.time_range.start, e.time_range.end))
-            dur = e.time_range.end - e.time_range.start
-            by_name[e.name] = by_name.get(e.name, 0.0) + dur
+    for e in device_kernels(events):
+        intervals.append((e.time_range.start, e.time_range.end))
+        dur = e.time_range.end - e.time_range.start
+        by_name[e.name] = by_name.get(e.name, 0.0) + dur
     busy_us = _union_us(intervals)
     by_part: dict[str, float] = {}
     by_op: dict[tuple[str, str, str], float] = {}  # (part, op, kernel)

@@ -1,15 +1,20 @@
-"""Where one BERT-Large pretraining step spends the card's time.
+"""Where one BERT-Large training step spends the card's time.
 
-``python -m deeplearningexamples_tpu_torch.tools.profile_pretrain [--out F]``
+``python -m deeplearningexamples_tpu_torch.tools.profile_pretrain [--task
+pretrain|squad] [--out F]``. With ``--task pretrain`` (the default) it
 builds ``bert-pretrain`` as the CLI does (BERT-Large, bf16, B=64, S=128, 20
 predictions, dropout 0.1, LAMB with bf16 moments), once with the tree LAMB
-and once with ``--flat-lamb``, and for each:
+and once with ``--flat-lamb``; with ``--task squad`` it builds
+``bert-squad`` (BERT-Large, bf16, B=32, S=384, dropout 0.1, lr 3e-5), once
+with ``--optimizer bert_adam`` and once with ``adamw``. For each:
 
 - times 10 steps on the host clock, each ending in ``synchronize()``;
 - traces 3 steps with ``torch.profiler`` and sums device kernel time by
   kind: the flash forward (K1), the flash backward's two kernels (K2), the
-  flat LAMB passes (K3), GEMMs, and the rest; the device idle share is the
-  part of the unprofiled step time that the traced kernels do not cover;
+  flat LAMB passes (K3), GEMMs, the optimizer (the other kernels launched
+  inside the train step's ``optimizer`` span: gradient norms, the update
+  and its addition to the weights), and the rest; the device idle share is
+  the part of the unprofiled step time that the traced kernels do not cover;
 - times the optimizer update alone (``tx.update``) with CUDA events.
 
 It needs a CUDA card and prints one JSON object per mode, with the card's
@@ -27,7 +32,13 @@ import time
 
 import torch
 
-from ..cli.main import BertCliConfig, build_bert_pretrain, to_device
+from ..cli.main import (
+    BertCliConfig,
+    SquadCliConfig,
+    build_bert_pretrain,
+    build_bert_squad,
+    to_device,
+)
 
 KINDS = [
     # the bf16 instances are the *_mma_kernel ones, the fp32 the others
@@ -44,6 +55,23 @@ def _kind(name: str) -> str:
         if pat.search(name):
             return kind
     return "other"
+
+
+def device_kernels(events) -> list:
+    """The traced events that ran on the card, without the card-side copies
+    of ``record_function`` spans (the train step's ``optimizer``), which
+    the profiler also places on the device timeline."""
+    return [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)
+            and e.name != "optimizer"]
+
+
+def _in_span(event, name: str) -> bool:
+    while event is not None:
+        if event.name == name:
+            return True
+        event = event.cpu_parent
+    return False
 
 
 def _union_us(intervals: list[tuple[float, float]]) -> float:
@@ -84,13 +112,19 @@ def trace_steps(step, steps: int, traced: int, warmup: int = 2) -> dict:
     by_kind: dict[str, float] = {}
     by_name: dict[str, float] = {}
     intervals = []
-    for e in prof.events():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            continue
+    for e in device_kernels(prof.events()):
         dur = e.time_range.end - e.time_range.start
         intervals.append((e.time_range.start, e.time_range.end))
         by_kind[_kind(e.name)] = by_kind.get(_kind(e.name), 0.0) + dur
         by_name[e.name] = by_name.get(e.name, 0.0) + dur
+    # kernels the name does not place, launched inside the optimizer span
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CPU and e.kernels \
+                and _in_span(e, "optimizer"):
+            for k in e.kernels:
+                if _kind(k.name) == "other":
+                    by_kind["other"] -= k.duration
+                    by_kind["optimizer"] = by_kind.get("optimizer", 0.0) + k.duration
     busy_us = _union_us(intervals)
     median = statistics.median(step_ms)
     per_step = {k: v / traced / 1e3 for k, v in sorted(by_kind.items())}
@@ -98,6 +132,7 @@ def trace_steps(step, steps: int, traced: int, warmup: int = 2) -> dict:
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
     return {
         "step_ms_median": median,
+        "step_ms_least": min(step_ms),
         "step_ms": step_ms,
         "traced_steps": traced,
         "kernel_ms_per_step": per_step,
@@ -111,16 +146,14 @@ def trace_steps(step, steps: int, traced: int, warmup: int = 2) -> dict:
     }
 
 
-def profile(flat: bool, steps: int = 10, traced: int = 3) -> dict:
-    cfg = BertCliConfig(bert_model="large", batch_size=64, seq_len=128,
-                        max_predictions=20, steps_per_epoch=steps,
-                        flat_lamb=flat)
-    run = build_bert_pretrain(cfg)
-    batch = next(to_device(run.loader, cfg.device))
-    last = {"state": run.state}
+def _profile_run(mode: str, tx, state, train_step, batch, steps: int,
+                 traced: int) -> dict:
+    """``trace_steps`` over ``train_step`` on one batch, then the optimizer
+    update alone on CUDA events."""
+    last = {"state": state}
 
     def step():
-        last["state"], last["metrics"] = run.train_step(last["state"], batch)
+        last["state"], last["metrics"] = train_step(last["state"], batch)
 
     res = trace_steps(step, steps, traced)
 
@@ -129,8 +162,8 @@ def profile(flat: bool, steps: int = 10, traced: int = 3) -> dict:
     opt_ms = []
     params = state.params
     grads = params.grad if isinstance(params, torch.Tensor) else \
-        {n: p.grad for n, p in params.items()}
-    tx = run.tx
+        {n: p.grad if p.grad is not None else torch.zeros_like(p)
+         for n, p in params.items()}
     for _ in range(5):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
@@ -142,7 +175,7 @@ def profile(flat: bool, steps: int = 10, traced: int = 3) -> dict:
         opt_ms.append(start.elapsed_time(end))
 
     return {
-        "mode": "flat" if flat else "tree",
+        "mode": mode,
         "loss_last": float(last["metrics"]["loss"]),
         **res,
         "optimizer_update_ms": statistics.median(opt_ms),
@@ -150,13 +183,37 @@ def profile(flat: bool, steps: int = 10, traced: int = 3) -> dict:
     }
 
 
-def run_main(doc: str, profiles) -> None:
-    """The profiling tools' command line: ``--out F``. Iterates
-    ``profiles()`` (a generator of result dicts) on the card, prints each
-    result as one JSON object with the card's name and power limit, and
+def profile(flat: bool, steps: int = 10, traced: int = 3) -> dict:
+    cfg = BertCliConfig(bert_model="large", batch_size=64, seq_len=128,
+                        max_predictions=20, steps_per_epoch=steps,
+                        flat_lamb=flat)
+    run = build_bert_pretrain(cfg)
+    batch = next(to_device(run.loader, cfg.device))
+    return _profile_run("flat" if flat else "tree", run.tx, run.state,
+                        run.train_step, batch, steps, traced)
+
+
+def profile_squad(optimizer: str, steps: int = 10, traced: int = 3) -> dict:
+    cfg = SquadCliConfig(bert_model="large", batch_size=32,
+                         max_seq_length=384, steps_per_epoch=steps, lr=3e-5,
+                         optimizer=optimizer)
+    _, run = build_bert_squad(cfg)
+    batch = next(to_device(run.loader, cfg.device))
+    return _profile_run(f"squad {optimizer}", run.tx, run.state,
+                        run.train_step, batch, steps, traced)
+
+
+def run_main(doc: str, profiles, tasks: tuple[str, ...] = ()) -> None:
+    """The profiling tools' command line: ``--out F``, and ``--task T`` when
+    ``tasks`` names some (the first is the default). Iterates ``profiles()``
+    or ``profiles(task)`` (a generator of result dicts) on the card, prints
+    each result as one JSON object with the card's name and power limit, and
     writes them all to ``--out`` when given."""
     parser = argparse.ArgumentParser(doc.splitlines()[0])
     parser.add_argument("--out", default=None, help="a JSON file for the results")
+    if tasks:
+        parser.add_argument("--task", choices=tasks, default=tasks[0],
+                            help="the training step to profile")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA card")
@@ -164,7 +221,7 @@ def run_main(doc: str, profiles) -> None:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
     results = []
-    for res in profiles():
+    for res in (profiles(args.task) if tasks else profiles()):
         res = {"card": card, **res}
         print(json.dumps(res), flush=True)
         results.append(res)
@@ -173,15 +230,16 @@ def run_main(doc: str, profiles) -> None:
             json.dump(results, f, indent=1)
 
 
-def _profiles():
-    for flat in (False, True):
+def _profiles(task: str):
+    modes = [False, True] if task == "pretrain" else ["bert_adam", "adamw"]
+    for mode in modes:
         torch.cuda.reset_peak_memory_stats()
-        yield profile(flat)
+        yield profile(mode) if task == "pretrain" else profile_squad(mode)
         torch.cuda.empty_cache()
 
 
 def main() -> None:
-    run_main(__doc__, _profiles)
+    run_main(__doc__, _profiles, tasks=("pretrain", "squad"))
 
 
 if __name__ == "__main__":

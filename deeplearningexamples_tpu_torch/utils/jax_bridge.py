@@ -3,8 +3,8 @@
 The JAX package keeps flax parameter trees; the port keeps the NVIDIA/HF
 ``state_dict`` names. This is the inverse of the JAX package's
 ``utils/torch_import.convert_bert`` (which maps HF names onto the JAX tree),
-extended to the QA head and the pretraining heads, and of DLRM's tree into
-the port's ``Dlrm`` names. The word table keeps its ``padded_vocab`` rows,
+extended to the QA head, the pretraining heads and the classifier of the
+GLUE and SWAG heads, and of DLRM's tree into the port's ``Dlrm`` names. The word table keeps its ``padded_vocab`` rows,
 and the MLM decoder, tied to it, has no entry of its own. The mapping is
 structural, so it carries any tree of that shape across:
 parameters, or the gradients ``jax.grad`` returns for them.
@@ -17,6 +17,7 @@ from typing import Any, Mapping
 import numpy as np
 
 __all__ = [
+    "bert_classifier_state_dict_from_jax",
     "bert_pretrain_jax_order",
     "bert_pretrain_state_dict_from_jax",
     "bert_qa_state_dict_from_jax",
@@ -88,6 +89,14 @@ def bert_qa_state_dict_from_jax(params: Mapping[str, Any]) -> dict[str, np.ndarr
     ...}``, leaves as arrays) -> the port's ``state_dict`` as numpy arrays."""
     return _convert(params, _encoder_entries(_num_layers(params))
                     + _dense(("qa_outputs",), "qa_outputs"))
+
+
+def bert_classifier_state_dict_from_jax(tree: Mapping[str, Any]) -> dict[str, np.ndarray]:
+    """JAX ``BertForSequenceClassification`` or ``BertForMultipleChoice``
+    params, or their gradients (``{"bert": ..., "classifier": ...}``) -> the
+    port's ``state_dict`` of the same head, as numpy arrays."""
+    return _convert(tree, _encoder_entries(_num_layers(tree))
+                    + _dense(("classifier",), "classifier"))
 
 
 def bert_pretrain_state_dict_from_jax(tree: Mapping[str, Any]) -> dict[str, np.ndarray]:

@@ -22,7 +22,7 @@ for name in ("core.train", "core.flat", "core.loop", "core.checkpoint",
              "models.dlrm", "models.dlrm.model", "models.dlrm.task",
              "ops.embedding", "ops.dot_interaction", "core.metrics",
              "ops.quantization", "ops.fused_lamb", "tools.dlrm_hotrow",
-             "tools.kernel_report"):
+             "tools.kernel_report", "models.bert.glue", "utils.torch_import"):
     assert f"deeplearningexamples_tpu_torch.{name}" in names, name
 import chip_smoke
 print(len(names))
@@ -36,8 +36,9 @@ def test_port_imports_with_jax_blocked():
     # every module of the package: serving, the BERT and DLRM models and
     # tasks, the training harness (core/), the CLI (cli/), the data loaders
     # (data/), the profiling tools and the hot-row probe (tools/), and the
-    # int8 quantization and fused LAMB ops
-    assert int(res.stdout.strip()) >= 46
+    # int8 quantization and fused LAMB ops, the GLUE task and the BERT
+    # checkpoint reader
+    assert int(res.stdout.strip()) >= 48
 
 
 def test_chip_smoke_fails_without_a_card():
