@@ -25,8 +25,10 @@ and it imports nothing of JAX. Phases, one line each:
 11. kernel: gather_rows (K4) against its plain version at DLRM's shape (a
     2.6M x 128 joint table, 1,703,936 uniform and zipf indices, fp32 and
     bf16), a ragged N with negative and out-of-range indices, and D=32
-12. DLRM parity: one fp32 training step of full-width DLRM (26 x 100,000
-    rows) at B=4096 on the card against the CPU, then the same step in bf16
+12. DLRM parity: the embedding backward twice on one full-width batch
+    (B=65,536, uniform and zipf ids, both modes), equal bit for bit; one
+    fp32 training step of full-width DLRM (26 x 100,000 rows) at B=4096 on
+    the card against the CPU, then the same step in bf16
 13. DLRM training: ``dlrm`` through the CLI's runner, B=65,536, 20 steps
     and the 5-batch eval, at configs.yml's lr 24 (its curve recorded: it
     diverges without the reference's warmup) and at the CLI's default 0.1
@@ -54,11 +56,30 @@ and it imports nothing of JAX. Phases, one line each:
     then 2 steps on a SQuAD file the script writes with ``--predict-file``
     (EM/F1), then ``bert-glue`` and ``bert-swag`` at their defaults for 5
     synthetic steps each, with their dev and validation accuracy
+19. ConvNets parity: one fp32 training step of full-width ResNet-50 at B=8
+    (224x224) on the card, TF32 off, against the same step on the CPU in
+    float64 (and the CPU's fp32 step beside it), under bench.py's SGD
+    recipe (gradients, BN running statistics, updates), and the same step
+    with BN on its running statistics, each gradient against its own
+    largest entry and the largest of all; the same step in bf16 (the
+    control, which must miss the limits); a QAT forward card against CPU,
+    each QATConv on the CPU's input to it (a plain convolution the
+    control), and whole; and one EfficientNet-B0 step at B=4 (no
+    stochastic depth or dropout) the same way
+20. ConvNets: ``resnet50`` through the CLI's runner at B=256 bf16 with
+    bench.py's recipe, 20 steps and the 10-batch eval, then 5 steps with
+    ``--mixup 0.2``; ``resnext101-32x4d`` and ``se-resnext101-32x4d`` at
+    B=64, ``efficientnet-b0`` at B=256 and ``efficientnet-b4`` at B=32 with
+    ``--ema 0.9999``, 5 steps each; each of the five also 5 steps with
+    ``--quant-policy qat``; then
+    ResNet-50's bf16 eval forward at B=256 and B=1 on CUDA events and on
+    the host clock
 
 Each main path (serving: phases 5-6; BERT training: phase 10; DLRM
 training: phase 13; ``int8_matmul``: phase 14; ``fused_lamb``: phase 15;
-``hot_gather``: phase 16; BERT fine-tuning: phase 18) runs with the launch
-counts set to 0 just before it and read just after. Then one JSON
+``hot_gather``: phase 16; BERT fine-tuning: phase 18; each ConvNets run of
+phase 20) runs with the launch counts set to 0 just before it and read just
+after; on the ConvNets paths every count must stay 0. Then one JSON
 line with each kernel's launches on those paths, its error against the plain
 version, its time, the plain version's, its bound on this card and the time
 of the PyTorch call that computes the same function (where there is one),
@@ -97,9 +118,11 @@ from deeplearningexamples_tpu_torch.core.train import (
     create_train_state,
     make_train_step,
 )
+from deeplearningexamples_tpu_torch.core.optimizers import no_decay_mask, sgd
 from deeplearningexamples_tpu_torch.data.synthetic import (
     SyntheticBertLoader,
     SyntheticDlrmLoader,
+    SyntheticImageLoader,
 )
 from deeplearningexamples_tpu_torch.models.bert import (
     BERT_CONFIGS,
@@ -110,6 +133,14 @@ from deeplearningexamples_tpu_torch.models.bert import (
     predict_squad,
 )
 from deeplearningexamples_tpu_torch.models.bert.task import init_bert_weights_
+from deeplearningexamples_tpu_torch.models.convnets import (
+    EFFNET_ARCHS,
+    ClassificationTask,
+    EfficientNet,
+    build_model,
+)
+from deeplearningexamples_tpu_torch.models.convnets.layers import BatchNorm2d
+from deeplearningexamples_tpu_torch.models.convnets.quant import QATConv
 from deeplearningexamples_tpu_torch.models.dlrm import (
     Dlrm,
     DlrmConfig,
@@ -203,11 +234,10 @@ DLRM_LR_STABLE = "0.1"
 DLRM_CFG = DlrmConfig(categorical_cardinalities=(DLRM_CARD,) * DLRM_TABLES)
 # One fp32 DLRM step, card against CPU (TF32 off), at B=4096: the loss to the
 # sums' order; each gradient tensor to 1e-4 of its own largest entry (the
-# MLPs' GEMMs sum 4096 rows in another order; the table's gradient adds its
-# rows with fp32 atomics in no fixed order on the card, and where a row is
-# hit by more than one lookup the sum's last bits change from run to run,
-# about 1e-7 of the largest entry); the parameters after the SGD step to
-# 1e-4 of each tensor's largest update (SGD's update is -lr * g).
+# MLPs' GEMMs sum 4096 rows in another order; the table's gradient sums each
+# row's lookups in their batch order on both sides); the parameters after the
+# SGD step to 1e-4 of each tensor's largest update (SGD's update is -lr * g).
+# The table's gradient alone must repeat bit for bit on the card.
 TOL_DLRM = {"loss": 1e-5, "grad": 1e-4, "update": 1e-4}
 
 
@@ -244,14 +274,18 @@ def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
 # -- phase 1 -----------------------------------------------------------------
 
 
-def phase_device() -> str:
-    if not torch.cuda.is_available():
-        raise RuntimeError("no CUDA card: torch.cuda.is_available() is false")
-    smi = subprocess.run(
+def card() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
-    print(smi, flush=True)
+
+
+def phase_device() -> str:
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA card: torch.cuda.is_available() is false")
+    print(card(), flush=True)
     # the fp32 checks compare full fp32 arithmetic
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1199,8 +1233,36 @@ def _dlrm_step(model, batch, device):
             {n: p.detach() - before[n] for n, p in params.items()})
 
 
+def _embedding_repeats() -> str:
+    """The embedding backward twice on one full-width batch (B=65,536 x 26
+    lookups into the 2.6M x 128 fp32 table, uniform and zipf ids), in both
+    modes: the two gradients must be equal bit for bit."""
+    g = torch.Generator(device=DEV).manual_seed(SEED)
+    table = torch.randn(DLRM_CFG.total_rows, 128, generator=g,
+                        device=DEV).requires_grad_()
+    cot = torch.randn(DLRM_B * DLRM_TABLES, 128, generator=g, device=DEV)
+    out = []
+    for skew in ("uniform", "zipf"):
+        idx = _dlrm_flat_idx(skew)
+        for mode in ("scatter", "sorted"):
+            grads, ms = [], []
+            for _ in range(2):
+                table.grad = None
+                t0 = time.perf_counter()
+                emb.embedding_lookup(table, idx, grad=mode).backward(cot)
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+                grads.append(table.grad)
+            check(torch.equal(grads[0], grads[1]),
+                  f"embedding backward {mode} {skew}: two runs differ by "
+                  f"{max_err(grads[0], grads[1]):.3e}")
+            out.append(f"{mode} {skew} equal ({min(ms):.2f} ms)")
+    return ", ".join(out)
+
+
 def phase_dlrm_parity() -> None:
     t0 = time.perf_counter()
+    repeats = _embedding_repeats()
     init = DlrmTask(DLRM_CFG, torch.float32).init(
         torch.Generator().manual_seed(SEED), device="cpu")
     batch = _dlrm_batch(4096)
@@ -1240,7 +1302,8 @@ def phase_dlrm_parity() -> None:
         + ", ".join(f"{n} {r:.2e}" for r, n in d_rel[:2])
         + f"; bf16 card step: loss {l16:.6f}, gradient cosine vs fp32 CPU "
         f"{cos:.6f}, worst gradient {g16_rel[1]} {g16_rel[0]:.2e} (the "
-        f"control); {time.perf_counter() - t0:.1f} s")
+        f"control); embedding backward twice, bit for bit: {repeats}; "
+        f"{time.perf_counter() - t0:.1f} s")
     check(rel_loss <= TOL_DLRM["loss"], f"fp32 DLRM loss: card {l_gpu} vs "
           f"CPU {l_cpu}")
     check(g_rel[0][0] <= TOL_DLRM["grad"],
@@ -1991,6 +2054,380 @@ def phase_finetune() -> dict[str, int]:
     return total
 
 
+# -- phase 19 ----------------------------------------------------------------
+
+CN_B, CN_EFF_B = 8, 4
+# bench.py's ResNet-50 recipe (bench.py:72-94), the CLI's flags for it
+CN_LR, CN_MOM, CN_WD, CN_LS = 0.256, 0.875, 3.0517578125e-05, 0.1
+CN_FLAGS = ["--lr", str(CN_LR), "--momentum", str(CN_MOM), "--weight-decay",
+            str(CN_WD), "--label-smoothing", str(CN_LS)]
+# One fp32 ConvNets step on the card (TF32 off, cuDNN's algorithms fixed)
+# against the same step on the CPU in float64: the loss to 1e-5 relative;
+# each BN running statistic after the step to 1e-4 of its own largest entry;
+# each gradient and SGD update to a limit of its own largest entry (or of
+# FLOOR times the largest entry of all, where that is more: EfficientNet's
+# shift-invariant proj.bn biases are 0 but for rounding) and to another of
+# the largest entry of all, fixed per step below. The training-mode
+# ResNet-50 step is badly conditioned: its gradient through the batch
+# statistics subtracts two means from dy that nearly cancel it, stage after
+# stage, and fp32 loses up to 2e-2 of a tensor's largest entry there and
+# 1.4e-3 of the largest entry of all, on the card (2.06e-2, 1.38e-3) and on
+# the CPU alike (3.11e-2, 1.49e-3), where the bf16 step (the control, which
+# must miss) reads 4.43e-1 and 2.22e-1 (NVIDIA H100 80GB HBM3, PERF.md). Its
+# limits lie between the two; the same step with BN on its running
+# statistics (2.97e-4, 2.93e-5) is held to 1e-3 and 1e-4, and
+# EfficientNet-B0's steps (4.41e-5, 3.24e-6 in training mode) to 1e-4.
+FLOOR = 1e-3
+TOL_CONV = {"loss": 1e-5, "stats": 1e-4,
+            # (of each tensor's largest entry, of the largest entry of all)
+            "resnet50": (1e-1, 1e-2), "resnet50 eval": (1e-3, 1e-4),
+            "efficientnet-b0": (1e-4, 1e-4),
+            "efficientnet-b0 eval": (1e-4, 1e-4)}
+# QAT forward of ResNet-50, card against CPU. Each QATConv runs on the card
+# on the CPU model's own input to it: the int8 grid of that input and of the
+# kernel entry by entry (a value on a rounding edge may land one step apart:
+# at most this share of entries), and the layer's output to 1e-4 of its
+# largest entry, where a plain convolution of the same input (the control)
+# must miss. The logits, where the layers' small differences add up, to
+# TOL_QAT_LOGITS of the largest (2.01e-3 on the H100; the plain model's 8.56e-3
+# must miss).
+TOL_QAT_EDGES = 1e-4
+TOL_QAT_LAYER = 1e-4
+TOL_QAT_LOGITS = 5e-3
+
+
+def _convnet(arch: str, dtype, quantized: bool = False, exact: bool = False):
+    """A full-width model on the CPU from SEED with every BN scale and bias
+    redrawn, so that each branch carries gradient: scales 1 + 0.2 N(0, 1),
+    but 0.1 N(0, 1) on each residual branch's last BN, which JAX starts at 0
+    (a state early in training; with those scales near 1 too, the fp32
+    forward itself drifts further from float64 at each stage). ``exact``: an
+    EfficientNet without stochastic depth and dropout."""
+    if exact and arch in EFFNET_ARCHS:
+        model = EfficientNet(dataclasses.replace(
+            EFFNET_ARCHS[arch], survival_prob=1.0, dropout=0.0), 1000, dtype,
+            quantized=quantized)
+    else:
+        model = build_model(arch, 1000, dtype, quantized)
+    gen = torch.Generator().manual_seed(SEED)
+    model.init_weights_(gen)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, BatchNorm2d):
+                z = torch.randn(m.weight.shape, generator=gen)
+                m.weight.copy_(0.1 * z if m.zero_init else 1.0 + 0.2 * z)
+                m.bias.copy_(0.1 * torch.randn(m.bias.shape, generator=gen))
+    return model
+
+
+def _float64(model):
+    """The model computing in float64 (its layers' compute dtype too)."""
+    model = model.double()
+    for m in model.modules():
+        if hasattr(m, "dtype"):
+            m.dtype = torch.float64
+    return model
+
+
+def _convnet_batch(b: int, size: int) -> dict:
+    return next(iter(SyntheticImageLoader(b, size, 1000, steps=1)))
+
+
+def _convnet_step(model, batch, device):
+    """One SGD step (bench.py's recipe) in the model's compute dtype and
+    mode (eval: BN on its running statistics), the images in the
+    parameters' dtype: (loss, grads, param deltas, BN buffers after), on
+    the CPU."""
+    task = ClassificationTask("resnet50", model.dtype, label_smoothing=CN_LS)
+    params = dict(model.named_parameters())
+    tx = sgd(CN_LR, CN_MOM, CN_WD, mask=no_decay_mask(params))
+    state = create_train_state(model, tx, SEED, params=params,
+                               model_state=task.model_state(model))
+    step = make_train_step(task.loss_fn, tx)
+    before = {n: p.detach().clone() for n, p in params.items()}
+    t = {"image": torch.from_numpy(batch["image"]).to(
+        device, next(model.parameters()).dtype),
+         "label": torch.from_numpy(batch["label"]).to(device)}
+    _, metrics = step(state, t)
+    return (float(metrics["loss"]),
+            {n: p.grad.detach().cpu() for n, p in params.items()},
+            {n: (p.detach() - before[n]).cpu() for n, p in params.items()},
+            {n: b.detach().cpu() for n, b in model.named_buffers()})
+
+
+def _worst(got: dict, want: dict) -> tuple[tuple, tuple]:
+    """The worst (error, name) over each tensor's largest entry (or FLOOR
+    times the largest of all, where that is more) and over the largest
+    entry of all."""
+    top = max(float(w.abs().max()) for w in want.values())
+    errs = {n: float((got[n].double() - want[n].double()).abs().max())
+            for n in want}
+    return (max((e / max(float(want[n].abs().max()), FLOOR * top), n)
+                for n, e in errs.items()),
+            max((e / top, n) for n, e in errs.items()))
+
+
+def _fmt(worst: tuple[tuple, tuple]) -> str:
+    (r, n), (q, m) = worst
+    return f"{n} {r:.2e} of its own, {m} {q:.2e} of the largest of all"
+
+
+def _within(worst: tuple[tuple, tuple], limits: tuple[float, float]) -> bool:
+    return worst[0][0] <= limits[0] and worst[1][0] <= limits[1]
+
+
+def _convnet_parity(arch: str, b: int, size: int) -> str:
+    init = _convnet(arch, torch.float32, exact=True)
+    batch = _convnet_batch(b, size)
+    l_gpu, g_gpu, d_gpu, s_gpu = _convnet_step(copy.deepcopy(init).to(DEV),
+                                               batch, DEV)
+    l64, g64, d64, s64 = _convnet_step(_float64(copy.deepcopy(init)), batch,
+                                       "cpu")
+    l32, g32, _, _ = _convnet_step(copy.deepcopy(init), batch, "cpu")
+    g_rel, d_rel, g_cpu = _worst(g_gpu, g64), _worst(d_gpu, d64), _worst(g32, g64)
+    st_rel = max((max_err(s_gpu[n], s64[n]) / max(
+        float(s64[n].abs().max()), 1e-30), n) for n in s64)
+    rel_loss = abs(l_gpu - l64) / abs(l64)
+    # the same step with BN on its running statistics
+    _, e_gpu, _, _ = _convnet_step(copy.deepcopy(init).to(DEV).eval(), batch,
+                                   DEV)
+    _, e64, _, _ = _convnet_step(_float64(copy.deepcopy(init)).eval(), batch,
+                                 "cpu")
+    e_rel = _worst(e_gpu, e64)
+    lim, lim_eval = TOL_CONV[arch], TOL_CONV[f"{arch} eval"]
+    rm = s_gpu[next(n for n in s_gpu if n.endswith("running_mean"))]
+    rv = s_gpu[next(n for n in s_gpu if n.endswith("running_var"))]
+    line = (f"{arch} b{b}, one step, card fp32 vs CPU float64: loss "
+            f"{l_gpu:.7f} vs {l64:.7f} ({rel_loss:.2e}); worst gradients: "
+            f"{_fmt(g_rel)} (limits {lim[0]:.0e}, {lim[1]:.0e}; the CPU's own "
+            f"fp32 step: {_fmt(g_cpu)}, loss {l32:.7f}); with BN on its "
+            f"running statistics: {_fmt(e_rel)} (limits {lim_eval[0]:.0e}, "
+            f"{lim_eval[1]:.0e}); BN statistics worst {st_rel[1]} "
+            f"{st_rel[0]:.2e} (the first BN: running mean in "
+            f"[{float(rm.min()):.4f}, {float(rm.max()):.4f}], running var in "
+            f"[{float(rv.min()):.4f}, {float(rv.max()):.4f}]); worst updates: "
+            f"{_fmt(d_rel)}")
+    if arch == "resnet50":  # the bf16 control, which must miss
+        gpu16 = _convnet(arch, torch.bfloat16)
+        gpu16.load_state_dict(init.state_dict())
+        l16, g16, _, _ = _convnet_step(gpu16.to(DEV), batch, DEV)
+        a = torch.cat([g16[n].double().flatten() for n in g64])
+        c = torch.cat([g64[n].flatten() for n in g64])
+        cos = float(a @ c / (a.norm() * c.norm()))
+        w16 = _worst(g16, g64)
+        check(math.isfinite(l16), f"bf16 {arch} step: loss {l16}")
+        line += (f"; bf16 card step (the control): loss {l16:.6f}, gradient "
+                 f"cosine vs float64 {cos:.6f}, worst gradients {_fmt(w16)}")
+        check(w16[0][0] > lim[0] and w16[1][0] > lim[1],
+              f"the bf16 control meets the fp32 limits: {w16}")
+    say("19 ConvNets parity", line)
+    check(rel_loss <= TOL_CONV["loss"], f"{arch} fp32 loss: card {l_gpu} vs "
+          f"CPU float64 {l64}")
+    check(_within(g_rel, lim), f"{arch} fp32 gradients: {g_rel}")
+    check(_within(d_rel, lim), f"{arch} fp32 updates: {d_rel}")
+    check(st_rel[0] <= TOL_CONV["stats"], f"{arch} BN statistics: {st_rel}")
+    check(_within(e_rel, lim_eval),
+          f"{arch} fp32 gradients, BN on running statistics: {e_rel}")
+    return line
+
+
+def _qat_parity() -> str:
+    """A QAT forward of full-width ResNet-50 (fp32, eval mode: BN on its
+    running statistics) on the card against the CPU, layer by layer on the
+    CPU's inputs (with a plain convolution as the control) and whole."""
+    cpu = _convnet("resnet50", torch.float32, quantized=True).eval()
+    gpu = copy.deepcopy(cpu).to(DEV)
+    plain = _convnet("resnet50", torch.float32).eval()
+    plain.load_state_dict(cpu.state_dict())
+    plain = plain.to(DEV)
+    x = torch.from_numpy(_convnet_batch(CN_B, 224)["image"]).permute(0, 3, 1, 2)
+    seen = {}
+    hooks = [m.register_forward_hook(
+        lambda m, a, out, n=n: seen.__setitem__(n, (a[0], out)))
+        for n, m in cpu.named_modules() if isinstance(m, QATConv)]
+    with torch.no_grad():
+        want = cpu(x)
+        for h in hooks:
+            h.remove()
+        got, got_plain = gpu(x.to(DEV)).cpu(), plain(x.to(DEV)).cpu()
+        card, host = dict(gpu.named_modules()), dict(cpu.named_modules())
+        k_diff = x_diff = x_all = 0
+        layer, control = (0.0, ""), (math.inf, "")
+        for n, (a, out) in seen.items():
+            m, a_dev = card[n], a.to(DEV)
+            k_diff += int((m.kernel().cpu() != host[n].kernel()).sum())
+            x_diff += int((quant.fake_quantize_per_tensor(a_dev).cpu()
+                           != quant.fake_quantize_per_tensor(a)).sum())
+            x_all += a.numel()
+            top = float(out.abs().max())
+            layer = max(layer, (max_err(m(a_dev), out) / top, n))
+            control = min(control, (max_err(torch.nn.functional.conv2d(
+                a_dev, m.weight, None, m.stride, m.padding, 1, m.groups),
+                out) / top, n))
+    k_all = sum(m.weight.numel() for m in card.values()
+                if isinstance(m, QATConv))
+    top = float(want.abs().max())
+    rel, rel_plain = max_err(got, want) / top, max_err(got_plain, want) / top
+    line = (f"QAT resnet50 b{CN_B} fp32 eval forward, card vs CPU, "
+            f"{len(seen)} QATConv layers each on the CPU's input to it: int8 "
+            f"kernel entries that differ {k_diff} of {k_all}, input entries "
+            f"{x_diff} of {x_all}; worst layer output {layer[1]} "
+            f"{layer[0]:.2e} of its largest entry (limit {TOL_QAT_LAYER:.0e}; "
+            f"a plain convolution, the control, at least {control[0]:.2e} "
+            f"at {control[1]}); logits {rel:.2e} of the largest apart (limit "
+            f"{TOL_QAT_LOGITS:.0e}; the plain model on the card, the control, "
+            f"{rel_plain:.2e})")
+    say("19 ConvNets parity", line)
+    check(bool(torch.isfinite(got).all()) and k_diff <= TOL_QAT_EDGES * k_all
+          and x_diff <= TOL_QAT_EDGES * x_all and layer[0] <= TOL_QAT_LAYER
+          and control[0] > TOL_QAT_LAYER and rel <= TOL_QAT_LOGITS
+          and rel_plain > TOL_QAT_LOGITS, f"QAT forward: {line}")
+    return line
+
+
+def phase_convnet_parity() -> None:
+    t0 = time.perf_counter()
+    flags = (torch.backends.cudnn.benchmark, torch.backends.cudnn.deterministic)
+    torch.backends.cudnn.benchmark, torch.backends.cudnn.deterministic = \
+        False, True
+    try:
+        lines = [_convnet_parity("resnet50", CN_B, 224), _qat_parity(),
+                 _convnet_parity("efficientnet-b0", CN_EFF_B, 224)]
+    finally:
+        torch.backends.cudnn.benchmark, torch.backends.cudnn.deterministic = \
+            flags
+    say("19 ConvNets parity", f"TF32 off, SGD lr {CN_LR} momentum {CN_MOM} "
+        f"weight decay {CN_WD}, label smoothing {CN_LS}: {len(lines)} "
+        f"checks passed; {time.perf_counter() - t0:.1f} s")
+
+
+# -- phase 20 ----------------------------------------------------------------
+
+# (arch, batch size, steps, extra flags) through the CLI's runner
+QAT = ["--quant-policy", "qat"]
+CN_RUNS = [
+    ("resnet50", 256, 20, []),
+    ("resnet50", 256, 5, ["--mixup", "0.2"]),
+    ("resnet50", 256, 5, QAT),
+    ("resnext101-32x4d", 64, 5, []),
+    ("resnext101-32x4d", 64, 5, QAT),
+    ("se-resnext101-32x4d", 64, 5, []),
+    ("se-resnext101-32x4d", 64, 5, QAT),
+    ("efficientnet-b0", 256, 5, ["--ema", "0.9999"]),
+    ("efficientnet-b0", 256, 5, QAT),
+    ("efficientnet-b4", 32, 5, ["--ema", "0.9999"]),
+    ("efficientnet-b4", 32, 5, QAT),
+]
+# NVIDIA's A100 80GB figures for the reference (bench.py BASELINES; another
+# card): ResNet-50 training img/s at B=256, inference img/s at B=256, ms at
+# B=1
+A100 = {"train": 2470.0, "infer_bs256": 1261.0, "infer_bs1_ms": 10.37}
+
+
+def _convnet_run(arch: str, b: int, steps: int, extra: list[str],
+                 work: Path) -> tuple[str, float]:
+    """One CLI run with the launch counts set to 0 just before it: every
+    loss finite, the first near ln 1000, eval's top1/top5/val_loss; K1-K6
+    launched 0 times. Returns its line and its median step (ms)."""
+    ws = work / f"{arch}_{len(extra)}"
+    shutil.rmtree(ws, ignore_errors=True)
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()  # the ConvNets path starts here
+    t0 = time.perf_counter()
+    state, best = cli([arch, "--batch-size", str(b), "--steps-per-epoch",
+                       str(steps), "--workspace", str(ws), *CN_FLAGS, *extra])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launched = _counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    check(state.step == steps, f"{arch} {extra}: {state.step} steps")
+    del state
+    raport = ws / f"{arch}_raport.json"
+    losses, times = _raport_losses_and_times(raport)
+    val = [d for d in _raport_data(raport) if "val.top1" in d]
+    shutil.rmtree(ws, ignore_errors=True)
+    check(len(losses) == steps and all(math.isfinite(x) for x in losses)
+          and abs(losses[0] - math.log(1000)) < 0.5,
+          f"{arch} {extra}: losses {losses}")
+    check(len(val) == 1 and all(math.isfinite(val[0][k]) for k in
+                                ("val.top1", "val.top5", "val.val_loss"))
+          and val[0]["val.top1"] == best, f"{arch} {extra}: eval {val}")
+    check(launched == dict.fromkeys(launched, 0),
+          f"{arch} {extra}: K1-K6 launched {launched} on the ConvNets path")
+    median = statistics.median(times[1:]) * 1e3
+    return (f"{arch} {' '.join(extra) or 'fp'} B={b}: loss "
+            + " ".join(f"{x:.4f}" for x in losses)
+            + f"; val top1 {val[0]['val.top1']:.4f} top5 "
+            f"{val[0]['val.top5']:.4f} val_loss {val[0]['val.val_loss']:.4f}; "
+            f"median step {median:.2f} ms ({b / median * 1e3:.1f} img/s); "
+            f"peak device memory {peak_gb:.2f} GB; run {wall:.1f} s"), median
+
+
+def _infer_times(model, b: int, iters: int) -> tuple[float, float]:
+    """ResNet-50's eval forward at batch ``b``: ms per forward on CUDA
+    events over ``iters`` back-to-back calls, and the median host clock of
+    ``iters`` calls each ending in ``synchronize()``."""
+    x = torch.randn(b, 224, 224, 3, device=DEV).permute(0, 3, 1, 2)
+    with torch.inference_mode():
+        ev = _event_ms(lambda: model(x), iters)
+        host = []
+        for _ in range(iters):
+            t0 = time.perf_counter()
+            model(x)
+            torch.cuda.synchronize()
+            host.append((time.perf_counter() - t0) * 1e3)
+    return ev, statistics.median(host)
+
+
+def phase_convnets() -> dict[str, int]:
+    """The five ConvNets commands through the CLI's runner on the card,
+    then ResNet-50's bf16 eval forward at B=256 and B=1; returns the
+    kernels' launches on these paths (all 0: no kernel of the port lies on
+    them)."""
+    t0 = time.perf_counter()
+    work = ROOT / "workspace" / "chip_smoke"
+    lines, rn50 = [], None
+    for arch, b, steps, extra in CN_RUNS:
+        line, median = _convnet_run(arch, b, steps, extra, work)
+        lines.append(line)
+        if arch == "resnet50" and not extra:
+            rn50 = b / median * 1e3
+    shutil.rmtree(work, ignore_errors=True)
+    benchmark = torch.backends.cudnn.benchmark
+    torch.backends.cudnn.benchmark = True
+    try:
+        _reset_counts()
+        model = ClassificationTask("resnet50", torch.bfloat16).init(
+            torch.Generator().manual_seed(SEED), DEV).eval()
+        with torch.inference_mode():
+            pooled = model(torch.randn(2, 224, 224, 3, device=DEV).permute(
+                0, 3, 1, 2), return_features=True)[-1]
+        check(pooled.is_contiguous(memory_format=torch.channels_last)
+              and pooled.dtype == torch.bfloat16,
+              f"the pool's input: {pooled.dtype} {pooled.stride()}")
+        ev256, host256 = _infer_times(model, 256, 20)
+        ev1, host1 = _infer_times(model, 1, 50)
+        check(_counts() == dict.fromkeys(_counts(), 0),
+              f"inference launched {_counts()}")
+        del model
+    finally:
+        torch.backends.cudnn.benchmark = benchmark
+    say("20 ConvNets", f"through the CLI, bench.py's recipe (lr {CN_LR}, "
+        f"momentum {CN_MOM}, weight decay {CN_WD}, label smoothing {CN_LS}, "
+        "cosine), bf16, channels_last, then the 10-batch eval: "
+        + "; ".join(lines)
+        + f". On {card()}: resnet50 training {rn50:.1f} img/s at B="
+        f"{CN_RUNS[0][1]} (the loop's median step, host clock); eval forward bf16 "
+        f"B=256 {ev256:.3f} ms on CUDA events ({256 / ev256 * 1e3:.1f} "
+        f"img/s), {host256:.3f} ms on the host clock; B=1 {ev1:.3f} ms on "
+        f"CUDA events back to back, {host1:.3f} ms on the host clock per "
+        f"call. NVIDIA's A100 80GB figures for the reference (another card): "
+        f"{A100['train']:.0f} img/s training, {A100['infer_bs256']:.0f} img/s "
+        f"at B=256, {A100['infer_bs1_ms']} ms at B=1. K1-K6 launched 0 times "
+        f"on these paths; {time.perf_counter() - t0:.1f} s")
+    return dict.fromkeys(_counts(), 0)
+
+
 def main() -> None:
     name = phase_device()
     phase_build()
@@ -2032,6 +2469,9 @@ def main() -> None:
     for k in ("flash_bwd_dq", "flash_bwd_dkv"):
         results[k]["max_abs_err"] = max(results[k]["max_abs_err"], ft_bwd)
     for k, v in phase_finetune().items():  # counts set to 0 there
+        launched[k] += v
+    phase_convnet_parity()
+    for k, v in phase_convnets().items():  # counts set to 0 there
         launched[k] += v
     check(set(launched) == set(results), f"{sorted(launched)} vs {sorted(results)}")
     for k, v in launched.items():

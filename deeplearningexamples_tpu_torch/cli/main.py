@@ -1,18 +1,22 @@
 """The port's training CLI: ``python -m deeplearningexamples_tpu_torch.cli
-<model> [flags]`` for ``bert-pretrain``, ``bert-squad``, ``bert-glue``,
-``bert-swag`` and ``dlrm``.
+<model> [flags]`` for ``resnet50``, ``resnext101-32x4d``,
+``se-resnext101-32x4d``, ``efficientnet-b0``, ``efficientnet-b4``,
+``bert-pretrain``, ``bert-squad``, ``bert-glue``, ``bert-swag`` and
+``dlrm``.
 
 Port of ``deeplearningexamples_tpu/cli/main.py`` for the models the port
-trains so far, BERT pretraining (``run_bert_pretrain``), BERT fine-tuning on
-SQuAD, GLUE and SWAG (``run_bert_squad``, ``run_bert_glue``,
-``run_bert_swag``) and DLRM (``run_dlrm``), with the flag names and defaults
-of ``dlx-train``. The run is on the card unless ``--device cpu`` is given.
-Flags whose machinery is not ported yet exit with a message that says so,
-rather than being ignored: for ``bert-pretrain`` ``--zero``, ``--remat``,
-``--attention-impl xla|ring``, ``--binned``, ``--mesh-*`` and
-``--data-backend corpus``; for the fine-tuning commands ``--mesh-*`` and an
-``--init-checkpoint`` in TF format; for ``dlrm`` ``--data-backend binary``
-and ``--mesh-model`` above 1. ``--config-file``, ``--platform`` and
+trains so far, the ConvNets (``run_convnet``), BERT pretraining
+(``run_bert_pretrain``), BERT fine-tuning on SQuAD, GLUE and SWAG
+(``run_bert_squad``, ``run_bert_glue``, ``run_bert_swag``) and DLRM
+(``run_dlrm``), with the flag names and defaults of ``dlx-train``. The run is
+on the card unless ``--device cpu`` is given. Flags whose machinery is not
+ported yet exit with a message that says so, rather than being ignored: for
+the ConvNets ``--data-backend`` other than synthetic and ``--mesh-*``; for
+``bert-pretrain`` ``--zero``, ``--remat``, ``--attention-impl xla|ring``,
+``--binned``, ``--mesh-*`` and ``--data-backend corpus``; for the
+fine-tuning commands ``--mesh-*`` and an ``--init-checkpoint`` in TF
+format; for ``dlrm`` ``--data-backend binary`` and ``--mesh-model`` above
+1. ``--config-file``, ``--platform`` and
 ``--precision`` (the YAML layers) are not flags here yet, so argparse refuses
 them, as it refuses ``--zero`` for the fine-tuning commands, which
 ``dlx-train`` does not give them either.
@@ -35,15 +39,18 @@ from ..core import config as cfgmod
 from ..core.checkpoint import CheckpointManager
 from ..core.logging import JSONStreamBackend, Logger, StdOutBackend
 from ..core.loop import LoopConfig, train_loop
+from ..core import optimizers as opt
 from ..core.optimizers import adamw, bert_adam, lr_poly_warmup
 from ..core.train import create_train_state, make_eval_step, make_train_step
 
-__all__ = ["BertCliConfig", "BertPretrainRun", "CommonConfig", "DlrmCliConfig",
+__all__ = ["BertCliConfig", "BertPretrainRun", "CommonConfig",
+           "ConvNetCliConfig", "ConvNetRun", "DlrmCliConfig",
            "DlrmRun", "FinetuneRun", "GlueCliConfig", "MODELS",
            "SquadCliConfig", "SwagCliConfig", "build_bert_pretrain",
-           "build_bert_squad", "build_dlrm", "cli", "featurize_swag",
+           "build_bert_squad", "build_convnet", "build_dlrm", "cli", "featurize_swag",
            "read_swag", "run_bert_glue", "run_bert_pretrain",
-           "run_bert_squad", "run_bert_swag", "run_dlrm", "to_device"]
+           "run_bert_squad", "run_bert_swag", "run_convnet", "run_dlrm",
+           "to_device"]
 
 INPUTS = ("input_ids", "attention_mask", "token_type_ids")
 
@@ -69,6 +76,21 @@ class CommonConfig:
     amp: bool = True  # bf16 compute (reference AMP flag; bf16 needs no scaler)
     early_stopping_patience: int = -1
     device: str = "cuda"  # "cpu" runs the plain versions of the kernels
+
+
+@dataclass
+class ConvNetCliConfig(CommonConfig):
+    """The fields of JAX's ``CommonConfig`` that ``run_convnet`` reads
+    beyond the port's ``CommonConfig``, with JAX's defaults."""
+
+    momentum: float = 0.9
+    warmup_epochs: int = 0
+    lr_schedule: str = "cosine"  # cosine | step | linear | constant
+    label_smoothing: float = 0.0
+    mixup: float = 0.0
+    ema: float = 0.0  # 0 disables; reference EMA decay e.g. 0.9999
+    # "" (fp) or "qat": int8 fake-quant convs during training
+    quant_policy: str = ""
 
 
 @dataclass
@@ -161,6 +183,92 @@ def _maybe_resume(cfg: CommonConfig, ckpt: CheckpointManager, state,
         state = ckpt.restore(state)
         start_epoch = int(state.step) // max(steps_per_epoch, 1)
     return state, start_epoch
+
+
+def _make_schedule(cfg: ConvNetCliConfig, steps_per_epoch: int):
+    """The LR policy ``--lr-schedule`` names (JAX ``_make_schedule``)."""
+    if cfg.lr_schedule == "cosine":
+        return opt.lr_cosine_policy(cfg.lr, cfg.warmup_epochs, cfg.epochs,
+                                    steps_per_epoch)
+    if cfg.lr_schedule == "linear":
+        return opt.lr_linear_policy(cfg.lr, cfg.warmup_epochs, cfg.epochs,
+                                    steps_per_epoch)
+    if cfg.lr_schedule == "step":
+        return opt.lr_step_policy(cfg.lr, [30, 60, 80], 0.1, cfg.warmup_epochs,
+                                  steps_per_epoch)
+    return lambda step: cfg.lr
+
+
+@dataclass
+class ConvNetRun:
+    """What ``run_convnet`` trains with, built by ``build_convnet``."""
+
+    task: Any
+    tx: Any
+    state: Any
+    train_step: Any
+    loader: Any
+    val_loader: Any
+
+
+def build_convnet(arch: str, cfg: ConvNetCliConfig) -> ConvNetRun:
+    """The model, SGD, state, step and loaders of a ConvNets command: the
+    arch's own image size (224, or an EfficientNet's resolution), 1000
+    classes, one synthetic batch repeated ``steps_per_epoch`` times and a
+    10-batch eval loader, as JAX's ``run_convnet``."""
+    from ..data.synthetic import SyntheticImageLoader
+    from ..models.convnets import EFFNET_ARCHS, ClassificationTask
+
+    _unported(arch, [
+        (cfg.data_backend != "synthetic",
+         f"--data-backend {cfg.data_backend} (the ImageNet reader and its "
+         "native dataplane; only synthetic is ported)"),
+        (cfg.mesh_data not in (-1, 1) or cfg.mesh_model != 1
+         or cfg.mesh_sequence != 1, "--mesh-* (one card only so far)"),
+    ])
+    image_size = EFFNET_ARCHS[arch].resolution if arch in EFFNET_ARCHS else 224
+    task = ClassificationTask(arch, _dtype(cfg),
+                              quantized=cfg.quant_policy == "qat",
+                              label_smoothing=cfg.label_smoothing,
+                              mixup_alpha=cfg.mixup)
+    model = task.init(torch.Generator().manual_seed(cfg.seed), device=cfg.device)
+    loader = SyntheticImageLoader(cfg.batch_size, image_size, 1000,
+                                  steps=cfg.steps_per_epoch)
+    val_loader = SyntheticImageLoader(cfg.batch_size, image_size, 1000, steps=10)
+    params = dict(model.named_parameters())
+    tx = opt.sgd(_make_schedule(cfg, len(loader)), cfg.momentum,
+                 cfg.weight_decay, mask=opt.no_decay_mask(params))
+    state = create_train_state(model, tx, cfg.seed + 1, params=params,
+                               model_state=task.model_state(model),
+                               ema=cfg.ema > 0)
+    train_step = make_train_step(task.loss_fn, tx, accum_steps=cfg.accum_steps,
+                                 ema_decay=cfg.ema if cfg.ema > 0 else None)
+    return ConvNetRun(task, tx, state, train_step, loader, val_loader)
+
+
+def run_convnet(arch: str, cfg: ConvNetCliConfig):
+    """Train a ConvNets model with (smoothed) CE, mixup and SGD on synthetic
+    images, with top1, top5 and ``val_loss`` each epoch; returns ``(state,
+    best top1)``. cuDNN picks its algorithms by timing them
+    (``cudnn.benchmark``) for the run, as the reference's ``main.py``
+    does."""
+    logger = _common_setup(cfg, arch)
+    run = build_convnet(arch, cfg)
+    ckpt = CheckpointManager(f"{cfg.workspace}/{arch}_ckpt")
+    state, start_epoch = _maybe_resume(cfg, ckpt, run.state, len(run.loader))
+    benchmark = torch.backends.cudnn.benchmark
+    torch.backends.cudnn.benchmark = True
+    try:
+        return train_loop(
+            state, run.train_step, lambda: to_device(run.loader, cfg.device),
+            cfg=_loop_cfg(cfg, watch="top1", mode="max"), logger=logger,
+            eval_step=make_eval_step(run.task.metric_fn),
+            eval_iter_fn=lambda: to_device(run.val_loader, cfg.device),
+            checkpoints=ckpt, batch_size=cfg.batch_size,
+            start_epoch=start_epoch,
+        )
+    finally:
+        torch.backends.cudnn.benchmark = benchmark
 
 
 @dataclass
@@ -684,10 +792,14 @@ def run_dlrm(cfg: DlrmCliConfig):
     )
 
 
-MODELS = {"bert-pretrain": run_bert_pretrain, "bert-squad": run_bert_squad,
+CONVNETS = ("resnet50", "resnext101-32x4d", "se-resnext101-32x4d",
+            "efficientnet-b0", "efficientnet-b4")
+MODELS = {**{a: (lambda cfg, a=a: run_convnet(a, cfg)) for a in CONVNETS},
+          "bert-pretrain": run_bert_pretrain, "bert-squad": run_bert_squad,
           "bert-glue": run_bert_glue, "bert-swag": run_bert_swag,
           "dlrm": run_dlrm}
-_CONFIG_CLS = {"bert-pretrain": BertCliConfig, "bert-squad": SquadCliConfig,
+_CONFIG_CLS = {**dict.fromkeys(CONVNETS, ConvNetCliConfig),
+               "bert-pretrain": BertCliConfig, "bert-squad": SquadCliConfig,
                "bert-glue": GlueCliConfig, "bert-swag": SwagCliConfig,
                "dlrm": DlrmCliConfig}
 

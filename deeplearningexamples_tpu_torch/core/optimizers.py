@@ -3,11 +3,15 @@
 Port of the pieces of ``deeplearningexamples_tpu/core/optimizers.py`` and of
 optax that the ported recipes use:
 
-- ``_warmup`` and ``lr_poly_warmup`` (BERT pretraining). JAX evaluates them
-  in fp32 on an int32 step; so does this port, in numpy fp32 on the host,
-  and returns the fp32 value as a Python float.
-- ``sgd`` (``optax.sgd(lr)``, no momentum), ``adam`` (``optax.adam``) and
-  ``partition`` (``optax.multi_transform``), for DLRM's dual optimizer.
+- ``_warmup`` and the LR policies: ``lr_poly_warmup`` (BERT pretraining),
+  ``lr_step_policy``, ``lr_linear_policy``, ``lr_cosine_policy`` and
+  ``lr_exponential_policy`` (ConvNets). JAX evaluates them in fp32 on an
+  int32 step; so does this port, in numpy fp32 on the host, and returns the
+  fp32 value as a Python float.
+- ``sgd``: without momentum ``optax.sgd(lr)`` (DLRM's dual optimizer, with
+  ``adam`` and ``partition``, ``optax.multi_transform``); with momentum,
+  nesterov and weight decay JAX's ConvNets ``sgd`` (``add_decayed_weights``
+  under ``no_decay_mask``, then ``trace``, then ``-lr(count)``).
 - ``bert_adam`` (the reference's ``BertAdam``) and ``adamw``
   (``optax.adamw``), the two optimizers of BERT fine-tuning.
 
@@ -27,8 +31,10 @@ import torch
 
 from ..ops.lamb import Transform, norms
 
-__all__ = ["AdamState", "adam", "adamw", "bert_adam", "lr_poly_warmup",
-           "partition", "sgd"]
+__all__ = ["AdamState", "SgdState", "adam", "adamw", "bert_adam",
+           "lr_cosine_policy", "lr_exponential_policy", "lr_linear_policy",
+           "lr_poly_warmup", "lr_step_policy", "no_decay_mask", "partition",
+           "sgd"]
 
 _F = np.float32
 
@@ -56,24 +62,132 @@ def lr_poly_warmup(base_lr: float, warmup_steps: int, total_steps: int,
     return sched
 
 
+def _after_warmup(base_lr: float, step: int, warmup_steps: int,
+                  lr: np.float32) -> float:
+    return float(_warmup(base_lr, step, warmup_steps) if step < warmup_steps
+                 else lr)
+
+
+def lr_step_policy(base_lr: float, steps: list[int], decay_factor: float,
+                   warmup_epochs: int, steps_per_epoch: int
+                   ) -> Callable[[int], float]:
+    """Decay by ``decay_factor`` at each epoch of ``steps`` (reference
+    ``optimizers.py:94-105``), after a linear warmup."""
+    boundaries = [s * steps_per_epoch for s in steps]
+    warmup_steps = warmup_epochs * steps_per_epoch
+
+    def sched(step: int) -> float:
+        n = sum(step >= b for b in boundaries)
+        return _after_warmup(base_lr, step, warmup_steps,
+                             _F(base_lr) * _F(decay_factor) ** _F(n))
+
+    return sched
+
+
+def _frac(step: int, warmup_steps: int, total: int) -> np.float32:
+    return _F(step - warmup_steps) / _F(max(total - warmup_steps, 1))
+
+
+def lr_linear_policy(base_lr: float, warmup_epochs: int, epochs: int,
+                     steps_per_epoch: int) -> Callable[[int], float]:
+    """Linear decay to 0 at the last step, after a linear warmup."""
+    warmup_steps = warmup_epochs * steps_per_epoch
+    total = epochs * steps_per_epoch
+
+    def sched(step: int) -> float:
+        frac = _frac(step, warmup_steps, total)
+        lr = _F(base_lr) * np.clip(_F(1.0) - frac, _F(0.0), _F(1.0))
+        return _after_warmup(base_lr, step, warmup_steps, lr)
+
+    return sched
+
+
+def lr_cosine_policy(base_lr: float, warmup_epochs: int, epochs: int,
+                     steps_per_epoch: int) -> Callable[[int], float]:
+    """Cosine anneal from ``base_lr`` to 0 after a linear warmup (reference
+    ``optimizers.py:120-130``)."""
+    warmup_steps = warmup_epochs * steps_per_epoch
+    total = epochs * steps_per_epoch
+
+    def sched(step: int) -> float:
+        frac = np.clip(_frac(step, warmup_steps, total), _F(0.0), _F(1.0))
+        lr = _F(base_lr) * _F(0.5) * (_F(1.0) + np.cos(_F(np.pi) * frac))
+        return _after_warmup(base_lr, step, warmup_steps, lr)
+
+    return sched
+
+
+def lr_exponential_policy(base_lr: float, warmup_epochs: int, epochs: int,
+                          steps_per_epoch: int) -> Callable[[int], float]:
+    """Decay once an epoch after a linear warmup, by the factor that reaches
+    0.001 of ``base_lr`` at the last epoch (reference
+    ``optimizers.py:133-154`` at its defaults)."""
+    warmup_steps = warmup_epochs * steps_per_epoch
+    decay_factor = float(np.exp(np.log(0.001)
+                                / max(epochs - warmup_epochs, 1)))
+
+    def sched(step: int) -> float:
+        e = (step - warmup_steps) // steps_per_epoch
+        lr = _F(base_lr) * _F(decay_factor) ** _F(max(e, 0))
+        return _after_warmup(base_lr, step, warmup_steps, lr)
+
+    return sched
+
+
+def no_decay_mask(params: Mapping[str, torch.Tensor]) -> dict[str, bool]:
+    """Name -> True where weight decay applies: not on 1-D tensors (biases,
+    norm scales) nor on a name holding batchnorm, layernorm, groupnorm or
+    embedding (any case)."""
+    skip = ("batchnorm", "layernorm", "groupnorm", "embedding")
+    return {n: p.dim() > 1 and not any(s in n.lower() for s in skip)
+            for n, p in params.items()}
+
+
 def _lr(learning_rate: LearningRate, count: int) -> float:
     return learning_rate(count) if callable(learning_rate) else learning_rate
 
 
-def sgd(learning_rate: LearningRate) -> Transform:
-    """``optax.sgd(lr)`` without momentum: updates are ``-lr * g``; the
-    state is the update count."""
+class SgdState(NamedTuple):
+    count: int
+    trace: dict[str, torch.Tensor]
 
-    def init(params: Mapping[str, torch.Tensor]) -> int:
-        return 0
 
-    def update(grads, count: int, params=None):
+def sgd(learning_rate: LearningRate, momentum: float = 0.0,
+        weight_decay: float = 0.0, nesterov: bool = False,
+        mask: Mapping[str, bool] | None = None) -> Transform:
+    """SGD as JAX builds it. Without momentum ``optax.sgd(lr)``: updates
+    ``-lr * g``, the state the update count. With momentum, JAX's ConvNets
+    ``sgd``: ``g + weight_decay * p`` where ``mask`` (name -> bool, every
+    tensor without one) says so, then ``optax.trace``'s buffer ``t = g +
+    momentum * t`` (zeros at first, so the first is ``g``), the update ``t``,
+    or ``g + momentum * t`` with nesterov, times ``-lr(count)``; the state
+    is ``SgdState``, its buffers updated in place."""
+
+    def init(params: Mapping[str, torch.Tensor]):
+        if not momentum:
+            return 0
+        return SgdState(0, {n: torch.zeros_like(p) for n, p in params.items()})
+
+    def update(grads, state, params=None):
+        count = state.count if momentum else state
         names = list(grads)
         if not names:
-            return {}, count + 1
-        upd = torch._foreach_mul([grads[n] for n in names],
-                                 -_lr(learning_rate, count))
-        return dict(zip(names, upd)), count + 1
+            return {}, (state._replace(count=count + 1) if momentum
+                        else count + 1)
+        g = [grads[n] for n in names]
+        if weight_decay:
+            g = [gi + params[n] * weight_decay
+                 if mask is None or mask[n] else gi
+                 for gi, n in zip(g, names)]
+        if momentum:
+            t = [state.trace[n] for n in names]
+            torch._foreach_mul_(t, momentum)
+            torch._foreach_add_(t, g)
+            g = torch._foreach_add(g, torch._foreach_mul(t, momentum)) \
+                if nesterov else t
+        upd = torch._foreach_mul(g, -_lr(learning_rate, count))
+        return dict(zip(names, upd)), (SgdState(count + 1, state.trace)
+                                       if momentum else count + 1)
 
     return Transform(init, update)
 

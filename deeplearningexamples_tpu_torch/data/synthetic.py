@@ -1,5 +1,6 @@
 """Copy of ``deeplearningexamples_tpu/data/synthetic.py`` (``_Synthetic``,
-``SyntheticBertLoader`` and ``SyntheticDlrmLoader``), numpy only.
+``SyntheticImageLoader``, ``SyntheticBertLoader`` and
+``SyntheticDlrmLoader``), numpy only.
 
 Each loader emits numpy batches shaped exactly like the real pipeline's
 output, at zero host cost: one batch generated once, yielded repeatedly,
@@ -12,7 +13,7 @@ from typing import Iterator
 
 import numpy as np
 
-__all__ = ["SyntheticBertLoader", "SyntheticDlrmLoader"]
+__all__ = ["SyntheticBertLoader", "SyntheticDlrmLoader", "SyntheticImageLoader"]
 
 
 class _Synthetic:
@@ -33,6 +34,41 @@ class _Synthetic:
             self._batch = self._make()
         for _ in range(self.steps):
             yield self._batch
+
+
+class SyntheticImageLoader(_Synthetic):
+    """Images NHWC float32 (pre-normalized) + int labels, JAX's draws in
+    JAX's order: the images, then the labels (int32, or one-hot float32).
+
+    NHWC is the layout the port's ConvNets take too: on the card a batch
+    becomes ``x.permute(0, 3, 1, 2)``, an NCHW view whose memory is already
+    ``channels_last``.
+    """
+
+    def __init__(
+        self,
+        batch_size: int,
+        image_size: int = 224,
+        num_classes: int = 1000,
+        steps: int = 100,
+        one_hot: bool = False,
+        seed: int = 0,
+    ):
+        super().__init__(steps)
+        self.batch_size, self.image_size = batch_size, image_size
+        self.num_classes, self.one_hot = num_classes, one_hot
+        self.rng = np.random.default_rng(seed)
+
+    def _make(self):
+        images = self.rng.normal(
+            size=(self.batch_size, self.image_size, self.image_size, 3)
+        ).astype(np.float32)
+        labels = self.rng.integers(0, self.num_classes, size=(self.batch_size,))
+        if self.one_hot:
+            labels = np.eye(self.num_classes, dtype=np.float32)[labels]
+        else:
+            labels = labels.astype(np.int32)
+        return {"image": images, "label": labels}
 
 
 class SyntheticBertLoader(_Synthetic):

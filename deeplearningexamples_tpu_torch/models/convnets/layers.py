@@ -1,0 +1,148 @@
+"""The ConvNets' building blocks with flax's semantics: convolution, dense
+layer, BatchNorm and the squeeze-and-excitation block.
+
+Port of the flax layers the JAX models build from (``nn.Conv``,
+``nn.Dense``, ``nn.BatchNorm``; ``SqueezeExcite`` of
+``deeplearningexamples_tpu/models/convnets/resnet.py:47-67``). The port's
+tensors are NCHW with ``channels_last`` memory, which is the JAX package's
+NHWC in memory; kernels are OIHW (``in / groups`` for grouped and depthwise
+convolutions), dense weights (out, in). Parameters are fp32; a layer casts
+its weight to its compute dtype at each call, as flax does.
+
+``BatchNorm2d`` differs from ``nn.BatchNorm2d`` where flax does: the running
+statistics take ``momentum * ra + (1 - momentum) * batch`` with
+``momentum=0.9`` and the **biased** batch variance (torch's module takes the
+unbiased one, n / (n - 1) larger). The batch statistics and the
+normalisation come from ``aten.native_batch_norm`` without running buffers
+(fp32 statistics for bf16 activations, fp32 parameters, the output in the
+activations' dtype); the buffers are then updated from its mean and
+``1 / sqrt(var + eps)``.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Callable
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+__all__ = ["BatchNorm2d", "Conv2d", "Dense", "MOMENTUM", "SqueezeExcite",
+           "init_weights_"]
+
+# flax's BatchNorm momentum in every ConvNets model: ra = 0.9 ra + 0.1 batch
+MOMENTUM = 0.9
+
+# flax's truncated normal: std / this keeps the variance after truncation
+_TRUNC_STD = 0.87962566103423978
+
+
+class Conv2d(nn.Module):
+    """``nn.Conv`` without bias: a (out, in / groups, k, k) fp32 kernel in
+    ``channels_last``, symmetric zero padding ``padding``, computed in
+    ``dtype``."""
+
+    def __init__(self, cin: int, cout: int, k: int, stride: int = 1,
+                 padding: int = 0, groups: int = 1,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.stride, self.padding, self.groups, self.dtype = \
+            stride, padding, groups, dtype
+        self.weight = nn.Parameter(torch.zeros(cout, cin // groups, k, k)
+                                   .contiguous(memory_format=torch.channels_last))
+
+    def kernel(self) -> torch.Tensor:
+        return self.weight.to(self.dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.conv2d(x.to(self.dtype), self.kernel(), None, self.stride,
+                        self.padding, 1, self.groups)
+
+    def init_(self, generator: torch.Generator) -> None:
+        """``variance_scaling(2.0, "fan_out", "normal")``: std sqrt(2 /
+        (out * k * k))."""
+        cout, _, kh, kw = self.weight.shape
+        w = torch.empty(self.weight.shape).normal_(
+            0.0, math.sqrt(2.0 / (cout * kh * kw)), generator=generator)
+        self.weight.copy_(w)
+
+
+class Dense(nn.Linear):
+    """``nn.Dense``: input, weight and bias cast to ``dtype``; lecun normal
+    (truncated) weight, zero bias."""
+
+    def __init__(self, cin: int, cout: int, dtype: torch.dtype = torch.float32):
+        super().__init__(cin, cout)
+        self.dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.linear(x.to(self.dtype), self.weight.to(self.dtype),
+                        self.bias.to(self.dtype))
+
+    def init_(self, generator: torch.Generator) -> None:
+        std = math.sqrt(1.0 / self.in_features) / _TRUNC_STD
+        w = torch.empty(self.weight.shape)
+        nn.init.trunc_normal_(w, 0.0, std, -2.0 * std, 2.0 * std,
+                              generator=generator)
+        self.weight.copy_(w)
+        self.bias.zero_()
+
+
+class BatchNorm2d(nn.Module):
+    """``nn.BatchNorm(momentum=0.9, epsilon=eps)`` over the channels of an
+    NCHW tensor. Training normalises with the batch statistics and updates
+    the running ones in place; eval normalises with the running ones.
+    ``zero_init`` starts the scale at 0 (a residual branch's last BN)."""
+
+    def __init__(self, c: int, eps: float = 1e-5, zero_init: bool = False):
+        super().__init__()
+        self.eps, self.zero_init = eps, zero_init
+        self.weight = nn.Parameter(torch.zeros(c) if zero_init else torch.ones(c))
+        self.bias = nn.Parameter(torch.zeros(c))
+        self.register_buffer("running_mean", torch.zeros(c))
+        self.register_buffer("running_var", torch.ones(c))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return F.batch_norm(x, self.running_mean, self.running_var,
+                                self.weight, self.bias, False, 0.0, self.eps)
+        y, mean, invstd = torch.ops.aten.native_batch_norm(
+            x, self.weight, self.bias, None, None, True, 0.0, self.eps)
+        with torch.no_grad():
+            var = invstd.double().pow(-2).sub(self.eps).clamp_min(0.0).float()
+            self.running_mean.mul_(MOMENTUM).add_(mean * (1.0 - MOMENTUM))
+            self.running_var.mul_(MOMENTUM).add_(var * (1.0 - MOMENTUM))
+        return y
+
+    def init_(self, generator: torch.Generator) -> None:
+        self.weight.fill_(0.0 if self.zero_init else 1.0)
+        self.bias.zero_()
+        self.running_mean.zero_()
+        self.running_var.fill_(1.0)
+
+
+class SqueezeExcite(nn.Module):
+    """Channel squeeze-and-excitation: ``x * sigmoid(expand(act(squeeze(
+    mean(x)))))``, the mean over H, W taken in fp32 and cast to ``dtype``
+    (ReLU for SE-ResNeXt, SiLU for EfficientNet)."""
+
+    def __init__(self, c: int, hidden: int, act: Callable, dtype: torch.dtype):
+        super().__init__()
+        self.act, self.dtype = act, dtype
+        self.squeeze = Dense(c, hidden, dtype)
+        self.expand = Dense(hidden, c, dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        s = x.mean((2, 3), dtype=torch.float32).to(self.dtype)
+        s = torch.sigmoid(self.expand(self.act(self.squeeze(s))))
+        return x * s[:, :, None, None]
+
+
+@torch.no_grad()
+def init_weights_(model: nn.Module, generator: torch.Generator) -> None:
+    """flax's initialisers, drawn from ``generator`` (a CPU generator) in
+    the modules' order."""
+    for m in model.modules():
+        if isinstance(m, (Conv2d, Dense, BatchNorm2d)):
+            m.init_(generator)

@@ -14,16 +14,18 @@ gather. Its backward is plain PyTorch in either mode, as neither was a Pallas
 kernel in JAX:
 
 - ``"scatter"`` (``DlrmConfig.embedding_grad``'s default): the gradient of
-  ``jnp.take``, a dense (V, D) table filled by ``index_add_`` at the wrapped
-  indices, out-of-range rows dropped: what XLA's scatter-add computes;
-- ``"sorted"``: JAX ``embedding_lookup``'s custom VJP, an argsort of the
-  indices, the cotangent rows reordered, then their segment sum. As JAX's
+  ``jnp.take``, a dense (V, D) table summed at the wrapped indices,
+  out-of-range rows dropped: what XLA's scatter-add computes;
+- ``"sorted"``: JAX ``embedding_lookup``'s custom VJP, the segment sum of
+  the cotangent rows at the indices as they are. As JAX's
   ``segment_sum``, it drops every index outside [0, V), negative ones
   included, so a wrapped index gets no gradient there.
 
-Both sum in fp32 and cast once to the table's dtype. On the card
-``index_add_`` adds with fp32 atomics in no fixed order, so two runs may
-differ in the last bits of a row that several lookups hit.
+Both sum in fp32 and cast once to the table's dtype, through one segment
+sum in a fixed order (``_segment_sum``): the indices are sorted (stable),
+and each row's run of equal indices is added up in its order in the batch
+and written once. No atomics, so two runs on the card give the same bits,
+as JAX's scatter-add and segment sum do.
 
 ``hot_gather`` (the CUDA kernel K6, also in ``csrc/gather_rows.cu``) is the
 row gather of ``perf/dlrm_hotrow.py``'s probe, which replaces its TPU kernel
@@ -208,13 +210,22 @@ def hot_gather(table: torch.Tensor, hot: torch.Tensor, ids: torch.Tensor,
     return out
 
 
-def _scatter_grad(g: torch.Tensor, idx: torch.Tensor, v: int) -> torch.Tensor:
-    """Dense (V, D) fp32: row i gets the sum of g's rows whose index is i.
-    Rows of indices outside [0, V) add 0 (no host sync to drop them)."""
-    valid = ((idx >= 0) & (idx < v))[:, None]
-    out = torch.zeros((v, g.shape[1]), dtype=torch.float32, device=g.device)
-    return out.index_add_(0, torch.where(valid[:, 0], idx, 0),
-                          torch.where(valid, g.float(), 0.0))
+def _segment_sum(g: torch.Tensor, idx: torch.Tensor, v: int) -> torch.Tensor:
+    """Dense (V, D) fp32: row i holds the sum of g's rows whose index is i,
+    added in their order in g; rows of indices outside [0, V) are dropped.
+
+    A stable sort brings equal indices together in their order (the dropped
+    ones, keyed V, last); ``searchsorted`` gives each row i its run [off[i],
+    off[i + 1]) of the sorted rows, empty where no lookup hit it; and
+    ``segment_reduce`` adds each run in order (one thread per row and
+    column) and writes every row of the result once, 0 for an empty run.
+    No atomics and no host sync: two runs give the same bits."""
+    valid = (idx >= 0) & (idx < v)
+    key, order = torch.sort(torch.where(valid, idx, v), stable=True)
+    offsets = torch.searchsorted(
+        key, torch.arange(v + 1, device=g.device, dtype=key.dtype))
+    return torch.segment_reduce(g[order].float(), "sum", offsets=offsets,
+                                axis=0, unsafe=True)
 
 
 class _EmbeddingLookup(torch.autograd.Function):
@@ -233,12 +244,9 @@ class _EmbeddingLookup(torch.autograd.Function):
         v, d = ctx.shape
         g = g.reshape(-1, d)
         idx = idx.long()
-        if ctx.grad == "sorted":
-            order = torch.argsort(idx, stable=True)
-            d_table = _scatter_grad(g[order], idx[order], v)
-        else:
-            d_table = _scatter_grad(g, torch.where(idx < 0, idx + v, idx), v)
-        return d_table.to(ctx.dtype), None, None
+        if ctx.grad == "scatter":  # jnp.take's gradient: [-V, 0) wraps
+            idx = torch.where(idx < 0, idx + v, idx)
+        return _segment_sum(g, idx, v).to(ctx.dtype), None, None
 
 
 def embedding_lookup(table: torch.Tensor, flat_idx: torch.Tensor,

@@ -1,0 +1,91 @@
+"""Where one ResNet-50 training step spends the card's time.
+
+``python -m deeplearningexamples_tpu_torch.tools.profile_convnet [--out F]``
+builds ``resnet50`` as the CLI does (ResNet-50 v1.5, bf16, B=256, 224x224,
+``channels_last``) with ``bench.py``'s recipe (SGD at lr 0.256, momentum
+0.875, weight decay 3.0517578125e-05 off the 1-D tensors, label smoothing
+0.1), cuDNN picking its algorithms by timing them, and:
+
+- times 10 steps on the host clock, each ending in ``synchronize()``;
+- traces 3 steps with ``torch.profiler`` and sums device kernel time by
+  kind: the convolutions (cuDNN's forward, data-gradient and
+  weight-gradient kernels), layout transposes between NCHW and NHWC (none
+  should run: every tensor is ``channels_last``), BN (the statistics,
+  normalisation and backward kernels), the ``fc`` GEMMs, the optimizer (the
+  other kernels inside the train step's ``optimizer`` span), and the rest
+  (ReLU, residual adds, casts, pooling, the loss); the device idle share is
+  the part of the unprofiled step time that the traced kernels do not
+  cover.
+
+It needs a CUDA card and prints one JSON object, with the card's name and
+power limit, and also writes it to ``--out`` when given.
+"""
+
+from __future__ import annotations
+
+import re
+
+import torch
+
+from ..cli.main import ConvNetCliConfig, build_convnet, to_device
+from .profile_pretrain import run_main, trace_steps
+
+KINDS = [
+    ("layout transposes", re.compile(r"nchwToNhwc|nhwcToNchw", re.I)),
+    ("BN", re.compile(r"batch_norm|\bbn_", re.I)),
+    ("conv", re.compile(r"conv|fprop|dgrad|wgrad|implicit|cudnn", re.I)),
+    ("fc GEMM", re.compile(r"gemm|nvjet|cublas|cutlass", re.I)),
+]
+
+
+def _kind(name: str) -> str:
+    for kind, pat in KINDS:
+        if pat.search(name):
+            return kind
+    return "other"
+
+
+STEPS, TRACED = 10, 3  # timed on the host clock; traced by the profiler
+
+
+def profile() -> dict:
+    cfg = ConvNetCliConfig(batch_size=256, lr=0.256, momentum=0.875,
+                           weight_decay=3.0517578125e-05, label_smoothing=0.1,
+                           steps_per_epoch=STEPS)
+    run = build_convnet("resnet50", cfg)
+    batch = next(to_device(run.loader, cfg.device))
+    last = {"state": run.state}
+
+    def step():
+        last["state"], last["metrics"] = run.train_step(last["state"], batch)
+
+    benchmark = torch.backends.cudnn.benchmark
+    torch.backends.cudnn.benchmark = True
+    try:
+        res = trace_steps(step, STEPS, TRACED, warmup=3, kind=_kind)
+    finally:
+        torch.backends.cudnn.benchmark = benchmark
+    res["kernel_ms_per_step"]["elementwise and other"] = \
+        res["kernel_ms_per_step"].pop("other", 0.0)
+    res["kernel_share"]["elementwise and other"] = \
+        res["kernel_share"].pop("other", 0.0)
+    return {
+        "mode": "resnet50 bf16 B=256",
+        "loss_last": float(last["metrics"]["loss"]),
+        "images_per_s_at_median": cfg.batch_size / res["step_ms_median"] * 1e3,
+        **res,
+        "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+    }
+
+
+def _profiles():
+    torch.cuda.reset_peak_memory_stats()
+    yield profile()
+
+
+def main() -> None:
+    run_main(__doc__, _profiles)
+
+
+if __name__ == "__main__":
+    main()

@@ -9,7 +9,8 @@ uniform and with zipf(1.15) indices, and for each:
 - traces 3 steps with ``torch.profiler`` and sums device kernel time by the
   part of the step that launched it: the row gather (K4), the MLPs' GEMMs,
   the dot interaction's batched products, the embedding's scatter backward
-  (everything under its autograd node: the zero fill and ``index_add_``),
+  (everything under its autograd node: the sort, the gather in sorted
+  order, the run bounds and the segment sum),
   ``grad_norm``, the SGD update, and the rest (casts, ReLU, BCE, concats);
   the device idle share is the part of the unprofiled step time that the
   traced kernels do not cover.

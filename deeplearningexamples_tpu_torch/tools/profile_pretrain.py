@@ -84,13 +84,15 @@ def _union_us(intervals: list[tuple[float, float]]) -> float:
     return busy
 
 
-def trace_steps(step, steps: int, traced: int, warmup: int = 2) -> dict:
+def trace_steps(step, steps: int, traced: int, warmup: int = 2,
+                kind=_kind) -> dict:
     """Runs ``step()`` ``warmup`` times, then ``steps`` times on the host
     clock (each ending in ``synchronize()``), then ``traced`` times under
-    ``torch.profiler``; sums the traced device kernel time by kind and by
-    name per step. The profiler slows the host, so the traced window is
-    longer than a step: the device idle share is taken against the
-    unprofiled step time."""
+    ``torch.profiler``; sums the traced device kernel time by ``kind(name)``
+    and by name per step (kernels of the ``optimizer`` span that ``kind``
+    calls "other" count as "optimizer"). The profiler slows the host, so the
+    traced window is longer than a step: the device idle share is taken
+    against the unprofiled step time."""
     for _ in range(warmup):  # kernel loads, allocator
         step()
     torch.cuda.synchronize()
@@ -115,14 +117,14 @@ def trace_steps(step, steps: int, traced: int, warmup: int = 2) -> dict:
     for e in device_kernels(prof.events()):
         dur = e.time_range.end - e.time_range.start
         intervals.append((e.time_range.start, e.time_range.end))
-        by_kind[_kind(e.name)] = by_kind.get(_kind(e.name), 0.0) + dur
+        by_kind[kind(e.name)] = by_kind.get(kind(e.name), 0.0) + dur
         by_name[e.name] = by_name.get(e.name, 0.0) + dur
     # kernels the name does not place, launched inside the optimizer span
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CPU and e.kernels \
                 and _in_span(e, "optimizer"):
             for k in e.kernels:
-                if _kind(k.name) == "other":
+                if kind(k.name) == "other":
                     by_kind["other"] -= k.duration
                     by_kind["optimizer"] = by_kind.get("optimizer", 0.0) + k.duration
     busy_us = _union_us(intervals)

@@ -4,7 +4,9 @@ The JAX package keeps flax parameter trees; the port keeps the NVIDIA/HF
 ``state_dict`` names. This is the inverse of the JAX package's
 ``utils/torch_import.convert_bert`` (which maps HF names onto the JAX tree),
 extended to the QA head, the pretraining heads and the classifier of the
-GLUE and SWAG heads, and of DLRM's tree into the port's ``Dlrm`` names. The word table keeps its ``padded_vocab`` rows,
+GLUE and SWAG heads, of DLRM's tree into the port's ``Dlrm`` names, and of
+``convert_resnet50`` and ``convert_efficientnet`` for the ConvNets (their
+``batch_stats`` too). The word table keeps its ``padded_vocab`` rows,
 and the MLM decoder, tied to it, has no entry of its own. The mapping is
 structural, so it carries any tree of that shape across:
 parameters, or the gradients ``jax.grad`` returns for them.
@@ -22,6 +24,8 @@ __all__ = [
     "bert_pretrain_state_dict_from_jax",
     "bert_qa_state_dict_from_jax",
     "dlrm_state_dict_from_jax",
+    "efficientnet_state_dict_from_jax",
+    "resnet_state_dict_from_jax",
 ]
 
 # (JAX path, port name, transpose): flax Dense kernels are (in, out), torch
@@ -124,3 +128,78 @@ def dlrm_state_dict_from_jax(tree: Mapping[str, Any]) -> dict[str, np.ndarray]:
         stack, _, i = key.rpartition("_")
         entries += _dense((key,), f"{stack}.{i}")
     return _convert(tree, entries)
+
+
+# flax leaf -> the port's buffer or parameter name under the same module
+_LEAF = {"kernel": "weight", "scale": "weight", "bias": "bias",
+         "mean": "running_mean", "var": "running_var"}
+
+
+def _leaf(value: Any) -> np.ndarray:
+    """Conv kernels HWIO -> OIHW (a grouped kernel's I is in / groups), dense
+    kernels (in, out) -> (out, in); anything else as it is."""
+    x = np.asarray(value)
+    if x.ndim == 4:
+        return np.ascontiguousarray(x.transpose(3, 2, 0, 1))
+    if x.ndim == 2:
+        return np.ascontiguousarray(x.T)
+    return x
+
+
+def _walk(tree: Mapping[str, Any], rename, prefix: str,
+          sd: dict[str, np.ndarray]) -> None:
+    for key, value in tree.items():
+        if isinstance(value, Mapping):
+            _walk(value, rename, f"{prefix}{rename(key)}.", sd)
+        else:
+            sd[f"{prefix}{_LEAF[key]}"] = _leaf(value)
+
+
+def _convnet(params, batch_stats, rename) -> dict[str, np.ndarray]:
+    sd: dict[str, np.ndarray] = {}
+    _walk(params, rename, "", sd)
+    if batch_stats is not None:
+        _walk(batch_stats, rename, "", sd)
+    return sd
+
+
+def _resnet_name(key: str) -> str:
+    if key.startswith("layer"):  # layer{i}_{j} -> layer{i}.{j}
+        return key.replace("_", ".")
+    return {"downsample_conv": "downsample.0",
+            "downsample_bn": "downsample.1"}.get(key, key)
+
+
+_EFFNET_NAMES = {
+    "stem_conv": "stem.conv", "stem_bn": "stem.bn",
+    "expand_conv": "expand.conv", "expand_bn": "expand.bn",
+    "depthwise_conv": "depsep.conv", "depthwise_bn": "depsep.bn",
+    "project_conv": "proj.conv", "project_bn": "proj.bn",
+    "head_conv": "features.conv", "head_bn": "features.bn",
+    "fc": "classifier.fc",
+}
+
+
+def _effnet_name(key: str) -> str:
+    if key.startswith("stage"):  # stage{s}_{j} -> layers.{s}.block{j}
+        s, j = key[len("stage"):].split("_")
+        return f"layers.{s}.block{j}"
+    return _EFFNET_NAMES.get(key, key)
+
+
+def resnet_state_dict_from_jax(params: Mapping[str, Any],
+                               batch_stats: Mapping[str, Any] | None = None
+                               ) -> dict[str, np.ndarray]:
+    """JAX ``ResNet`` params (any arch of ``ARCHS``), or their gradients,
+    and optionally its ``batch_stats`` -> the port's ``ResNet``
+    ``state_dict`` (the reference's names), as numpy arrays."""
+    return _convnet(params, batch_stats, _resnet_name)
+
+
+def efficientnet_state_dict_from_jax(params: Mapping[str, Any],
+                                     batch_stats: Mapping[str, Any] | None = None
+                                     ) -> dict[str, np.ndarray]:
+    """JAX ``EfficientNet`` params, or their gradients, and optionally its
+    ``batch_stats`` -> the port's ``EfficientNet`` ``state_dict`` (the
+    reference's names), as numpy arrays."""
+    return _convnet(params, batch_stats, _effnet_name)

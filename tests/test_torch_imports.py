@@ -22,7 +22,11 @@ for name in ("core.train", "core.flat", "core.loop", "core.checkpoint",
              "models.dlrm", "models.dlrm.model", "models.dlrm.task",
              "ops.embedding", "ops.dot_interaction", "core.metrics",
              "ops.quantization", "ops.fused_lamb", "tools.dlrm_hotrow",
-             "tools.kernel_report", "models.bert.glue", "utils.torch_import"):
+             "tools.kernel_report", "models.bert.glue", "utils.torch_import",
+             "core.losses", "models.convnets", "models.convnets.layers",
+             "models.convnets.resnet", "models.convnets.efficientnet",
+             "models.convnets.quant", "models.convnets.task",
+             "tools.profile_convnet"):
     assert f"deeplearningexamples_tpu_torch.{name}" in names, name
 import chip_smoke
 print(len(names))
@@ -37,8 +41,8 @@ def test_port_imports_with_jax_blocked():
     # tasks, the training harness (core/), the CLI (cli/), the data loaders
     # (data/), the profiling tools and the hot-row probe (tools/), and the
     # int8 quantization and fused LAMB ops, the GLUE task and the BERT
-    # checkpoint reader
-    assert int(res.stdout.strip()) >= 48
+    # checkpoint reader, the ConvNets models, task and losses
+    assert int(res.stdout.strip()) >= 56
 
 
 def test_chip_smoke_fails_without_a_card():
