@@ -74,12 +74,22 @@ and it imports nothing of JAX. Phases, one line each:
     ``--quant-policy qat``; then
     ResNet-50's bf16 eval forward at B=256 and B=1 on CUDA events and on
     the host clock
+21. SSD300: one fp32 training step at B=4 (81 classes, images twisted at
+    fixed parameters) on the card, TF32 off, against the same step on the
+    CPU in float64 (the CPU's fp32 step beside it) with phase 19's limits,
+    the bf16 step the control; the color twist card against CPU;
+    ``predict_fn`` card against the CPU in float64, then ``evaluate_ssd`` on
+    the card over two batches with ground truth (mAP, detections); ``ssd300`` through the
+    CLI's runner at B=128 bf16 with bench.py's optimizer, 20 steps, then 2
+    with ``--resume``; the bf16 eval forward at B=128 and B=1 on CUDA events
+    and on the host clock
 
 Each main path (serving: phases 5-6; BERT training: phase 10; DLRM
 training: phase 13; ``int8_matmul``: phase 14; ``fused_lamb``: phase 15;
 ``hot_gather``: phase 16; BERT fine-tuning: phase 18; each ConvNets run of
-phase 20) runs with the launch counts set to 0 just before it and read just
-after; on the ConvNets paths every count must stay 0. Then one JSON
+phase 20; SSD300's training, resume and inference in phase 21) runs with
+the launch counts set to 0 just before it and read just after; on the
+ConvNets and SSD300 paths every count must stay 0. Then one JSON
 line with each kernel's launches on those paths, its error against the plain
 version, its time, the plain version's, its bound on this card and the time
 of the PyTorch call that computes the same function (where there is one),
@@ -141,6 +151,16 @@ from deeplearningexamples_tpu_torch.models.convnets import (
 )
 from deeplearningexamples_tpu_torch.models.convnets.layers import BatchNorm2d
 from deeplearningexamples_tpu_torch.models.convnets.quant import QATConv
+from deeplearningexamples_tpu_torch.data.ssd_synthetic import SyntheticSSDLoader
+from deeplearningexamples_tpu_torch.models.ssd import (
+    SSD300,
+    SSDTask,
+    dboxes300_coco,
+    encode,
+    nms_single,
+)
+from deeplearningexamples_tpu_torch.models.ssd import evaluate as ssd_evaluate
+from deeplearningexamples_tpu_torch.models.ssd.task import color_twist
 from deeplearningexamples_tpu_torch.models.dlrm import (
     Dlrm,
     DlrmConfig,
@@ -2111,13 +2131,19 @@ def _convnet(arch: str, dtype, quantized: bool = False, exact: bool = False):
         model = build_model(arch, 1000, dtype, quantized)
     gen = torch.Generator().manual_seed(SEED)
     model.init_weights_(gen)
-    with torch.no_grad():
-        for m in model.modules():
-            if isinstance(m, BatchNorm2d):
-                z = torch.randn(m.weight.shape, generator=gen)
-                m.weight.copy_(0.1 * z if m.zero_init else 1.0 + 0.2 * z)
-                m.bias.copy_(0.1 * torch.randn(m.bias.shape, generator=gen))
+    _redraw_bn(model, gen)
     return model
+
+
+@torch.no_grad()
+def _redraw_bn(model, gen: torch.Generator) -> None:
+    """Every BN scale 1 + 0.2 N(0, 1), but 0.1 N(0, 1) on each residual
+    branch's last BN (JAX starts it at 0); every BN bias 0.1 N(0, 1)."""
+    for m in model.modules():
+        if isinstance(m, BatchNorm2d):
+            z = torch.randn(m.weight.shape, generator=gen)
+            m.weight.copy_(0.1 * z if m.zero_init else 1.0 + 0.2 * z)
+            m.bias.copy_(0.1 * torch.randn(m.bias.shape, generator=gen))
 
 
 def _float64(model):
@@ -2363,11 +2389,13 @@ def _convnet_run(arch: str, b: int, steps: int, extra: list[str],
             f"peak device memory {peak_gb:.2f} GB; run {wall:.1f} s"), median
 
 
-def _infer_times(model, b: int, iters: int) -> tuple[float, float]:
-    """ResNet-50's eval forward at batch ``b``: ms per forward on CUDA
-    events over ``iters`` back-to-back calls, and the median host clock of
-    ``iters`` calls each ending in ``synchronize()``."""
-    x = torch.randn(b, 224, 224, 3, device=DEV).permute(0, 3, 1, 2)
+def _infer_times(model, b: int, iters: int,
+                 size: int = 224) -> tuple[float, float]:
+    """An image model's eval forward at batch ``b`` on ``size`` x ``size``
+    images: ms per forward on CUDA events over ``iters`` back-to-back calls,
+    and the median host clock of ``iters`` calls each ending in
+    ``synchronize()``."""
+    x = torch.randn(b, size, size, 3, device=DEV).permute(0, 3, 1, 2)
     with torch.inference_mode():
         ev = _event_ms(lambda: model(x), iters)
         host = []
@@ -2428,6 +2456,229 @@ def phase_convnets() -> dict[str, int]:
     return dict.fromkeys(_counts(), 0)
 
 
+# -- phase 21 ----------------------------------------------------------------
+
+SSD_B, SSD_PARITY_B, SSD_STEPS, SSD_SIZE = 128, 4, 20, 300
+# bench.py's SSD300 optimizer (bench.py:108: optax.sgd(2.6e-3,
+# momentum=0.9)), the CLI's flags for it
+SSD_FLAGS = ["--lr", "2.6e-3", "--momentum", "0.9", "--weight-decay", "0",
+             "--lr-schedule", "constant"]
+# fixed color-twist parameters for the parity step, inside the reference's
+# ranges
+SSD_TWIST = dict(hue_deg=[0.3, -0.4, 0.1, -0.2], saturation=[0.7, 1.3, 1.0, 0.5],
+                 brightness=[0.9, 1.1, 1.0, 0.875],
+                 contrast=[0.6, 1.4, 1.0, 1.5])
+# One fp32 SSD300 step on the card against the CPU in float64 is held to
+# phase 19's ResNet-50 limits (TOL_CONV["resnet50"]): the loss to 1e-5
+# relative, the BN running statistics to 1e-4 of each tensor's largest entry,
+# each gradient to 1e-1 of its own largest entry and 1e-2 of the largest of
+# all; the bf16 step (the control) must miss them. predict_fn's boxes and
+# probabilities on the card to 5e-5 of their largest entry from the CPU's
+# in float64, where the bf16 model (the control) must miss: the card's fp32
+# read 9.42e-6 and the CPU's 4.33e-6, and card fp32 against CPU fp32 read
+# 1.02e-5 (NVIDIA H100 80GB HBM3, 700 W, PERF.md §6).
+TOL_SSD_PREDICT = 5e-5
+# NVIDIA's A100 figures for the reference (bench.py BASELINES; another
+# card): SSD300 training img/s (AMP, B=64), inference img/s at B=1 (TF32)
+A100_SSD = {"train": 662.91, "infer_bs1": 158.83}
+
+
+def _ssd():
+    """Full-width fp32 SSD300 (81 classes) on the CPU from SEED, its BN
+    redrawn as phase 19's models."""
+    gen = torch.Generator().manual_seed(SEED)
+    model = SSD300(81, torch.float32)
+    model.init_weights_(gen)
+    _redraw_bn(model, gen)
+    return model.train()
+
+
+def _ssd_step(model, batch, device):
+    """One SGD step (bench.py's optimizer) in the model's compute dtype:
+    (loss, grads, BN buffers after), on the CPU."""
+    task = SSDTask(dtype=model.dtype, color_jitter=False)
+    params = dict(model.named_parameters())
+    tx = sgd(2.6e-3, 0.9)
+    state = create_train_state(model, tx, SEED, params=params,
+                               model_state=task.model_state(model))
+    dtype = next(model.parameters()).dtype
+    t = {k: torch.from_numpy(v).to(device, dtype if v.dtype == np.float32
+                                   else None)
+         for k, v in batch.items()}
+    _, metrics = make_train_step(task.loss_fn, tx)(state, t)
+    return (float(metrics["loss"]),
+            {n: p.grad.detach().cpu() for n, p in params.items()},
+            {n: b.detach().cpu() for n, b in model.named_buffers()})
+
+
+def phase_ssd_parity() -> None:
+    """21 a-b: one fp32 SSD300 training step on the card against the CPU in
+    float64 (and the CPU's fp32 step beside it), the bf16 control; the
+    color twist on the card against the CPU; ``predict_fn`` card against
+    the CPU in float64, then ``evaluate_ssd`` on the card over two batches
+    with ground truth."""
+    t0 = time.perf_counter()
+    flags = (torch.backends.cudnn.benchmark, torch.backends.cudnn.deterministic)
+    torch.backends.cudnn.benchmark, torch.backends.cudnn.deterministic = \
+        False, True
+    try:
+        init = _ssd()
+        batch = next(iter(SyntheticSSDLoader(SSD_PARITY_B, dboxes300_coco(),
+                                             steps=1)))
+        twist = {k: torch.tensor(v) for k, v in SSD_TWIST.items()}
+        x = torch.from_numpy(batch["image"])
+        twisted = color_twist(x, **twist)
+        twist_err = max_err(color_twist(x.to(DEV), **{
+            k: v.to(DEV) for k, v in twist.items()}), twisted)
+        batch["image"] = twisted.numpy()  # the same images on both devices
+        l_gpu, g_gpu, s_gpu = _ssd_step(copy.deepcopy(init).to(DEV), batch, DEV)
+        l64, g64, s64 = _ssd_step(_float64(copy.deepcopy(init)), batch, "cpu")
+        l32, g32, _ = _ssd_step(copy.deepcopy(init), batch, "cpu")
+        gpu16 = SSD300(81, torch.bfloat16)
+        gpu16.load_state_dict(init.state_dict())
+        l16, g16, _ = _ssd_step(gpu16.train().to(DEV), batch, DEV)
+    finally:
+        torch.backends.cudnn.benchmark, torch.backends.cudnn.deterministic = \
+            flags
+    lim = TOL_CONV["resnet50"]
+    g_rel, g_cpu, w16 = _worst(g_gpu, g64), _worst(g32, g64), _worst(g16, g64)
+    st_rel = max((max_err(s_gpu[n], s64[n]) / max(
+        float(s64[n].abs().max()), 1e-30), n) for n in s64)
+    rel_loss = abs(l_gpu - l64) / abs(l64)
+    say("21 SSD300", f"parity: ssd300 b{SSD_PARITY_B} (81 classes, 8732 "
+        f"anchors, images twisted at fixed parameters: card vs CPU "
+        f"{twist_err:.2e}), one fp32 step, card vs CPU float64: loss "
+        f"{l_gpu:.7f} vs {l64:.7f} ({rel_loss:.2e}); worst gradients: "
+        f"{_fmt(g_rel)} (limits {lim[0]:.0e}, {lim[1]:.0e}; the CPU's own fp32 "
+        f"step: {_fmt(g_cpu)}, loss {l32:.7f}); BN statistics worst "
+        f"{st_rel[1]} {st_rel[0]:.2e}; bf16 card step (the control): loss "
+        f"{l16:.6f}, worst gradients {_fmt(w16)}")
+    check(twist_err <= 1e-6, f"color twist, card vs CPU: {twist_err}")
+    check(rel_loss <= TOL_CONV["loss"], f"ssd300 fp32 loss: card {l_gpu} vs "
+          f"CPU float64 {l64}")
+    check(_within(g_rel, lim), f"ssd300 fp32 gradients: {g_rel}")
+    check(st_rel[0] <= TOL_CONV["stats"], f"ssd300 BN statistics: {st_rel}")
+    check(math.isfinite(l16) and w16[0][0] > lim[0] and w16[1][0] > lim[1],
+          f"the bf16 control meets the fp32 limits: {l16} {w16}")
+
+    # b: predict_fn card vs CPU float64 (and the CPU's fp32 beside it),
+    # then evaluate_ssd on the card
+    task, cpu = SSDTask(), init
+    gpu = copy.deepcopy(cpu).to(DEV)
+    images = torch.from_numpy(batch["image"])
+    want = task.predict_fn(_float64(copy.deepcopy(cpu)), None, images)
+
+    def predict_err(model, x) -> tuple[float, ...]:
+        """(boxes, probabilities), each's error over its largest entry."""
+        return tuple(max_err(g, w) / float(w.abs().max())
+                     for g, w in zip(task.predict_fn(model, None, x), want))
+
+    gpu16 = SSD300(81, torch.bfloat16)
+    gpu16.load_state_dict(cpu.state_dict())
+    p_err, p_cpu = predict_err(gpu, images.to(DEV)), predict_err(cpu, images)
+    p16 = predict_err(gpu16.train().to(DEV), images.to(DEV))
+    del gpu16
+    rng = np.random.default_rng(SEED)
+    val = []
+    for _ in range(2):
+        gt = []
+        for i in range(SSD_PARITY_B):
+            lt = rng.uniform(0.0, 0.7, (6, 2))
+            boxes_i = np.concatenate([lt, lt + rng.uniform(0.1, 0.3, (6, 2))],
+                                     1).astype(np.float32)
+            labels = rng.integers(1, 81, 6).astype(np.int32)
+            check(bool((encode(task.dboxes, boxes_i, labels)[1] > 0).any()),
+                  "encode matched no anchor")
+            gt.append((i, boxes_i, labels))
+        val.append({"image": rng.normal(size=(SSD_PARITY_B, SSD_SIZE, SSD_SIZE,
+                                              3)).astype(np.float32),
+                    "gt": gt})
+    detections = [0]
+
+    def counting_nms(*args, **kwargs):
+        out = nms_single(*args, **kwargs)
+        detections[0] += len(out[0])
+        return out
+
+    with mock.patch.object(ssd_evaluate, "nms_single", counting_nms):
+        scores = ssd_evaluate.evaluate_ssd(task, gpu, val)
+    check(gpu.training, "evaluate_ssd left the model in eval mode")
+    fmt = lambda e: f"boxes {e[0]:.2e}, probabilities {e[1]:.2e}"  # noqa: E731
+    say("21 SSD300", f"predict_fn vs CPU float64, of each output's largest "
+        f"entry: card fp32 {fmt(p_err)} (limit {TOL_SSD_PREDICT:.0e}); the "
+        f"CPU's fp32 {fmt(p_cpu)}; card bf16 (the control) {fmt(p16)}; "
+        f"evaluate_ssd on the "
+        f"card, 2 batches of {SSD_PARITY_B} with ground truth from encode's "
+        f"boxes: mAP {scores['mAP']:.6f}, mAP50 {scores['mAP50']:.6f}, "
+        f"{detections[0]} detections after NMS (random weights); "
+        f"{time.perf_counter() - t0:.1f} s")
+    check(max(p_err) <= TOL_SSD_PREDICT < min(p16),
+          f"predict_fn card vs CPU float64: fp32 {p_err}, bf16 {p16}")
+    check(all(math.isfinite(v) and 0.0 <= v <= 1.0 for v in scores.values()),
+          f"evaluate_ssd: {scores}")
+
+
+def phase_ssd() -> dict[str, int]:
+    """21 c-d: ``ssd300`` through the CLI's runner at B=128 bf16 with
+    bench.py's optimizer, then 2 steps with ``--resume``, then the bf16 eval
+    forward at B=1 and B=128; returns the kernels' launches on these paths
+    (all 0: no kernel of the port lies on them)."""
+    t0 = time.perf_counter()
+    ws = ROOT / "workspace" / "chip_smoke" / "ssd300"
+    shutil.rmtree(ws, ignore_errors=True)
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()  # the SSD300 path starts here
+    state, _ = cli(["ssd300", "--batch-size", str(SSD_B), "--steps-per-epoch",
+                    str(SSD_STEPS), "--workspace", str(ws), *SSD_FLAGS])
+    torch.cuda.synchronize()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    check(state.step == SSD_STEPS, f"ssd300: {state.step} steps")
+    del state
+    losses, times = _raport_losses_and_times(ws / "ssd300_raport.json")
+    check(len(losses) == SSD_STEPS and all(math.isfinite(x) for x in losses)
+          and losses[-1] < losses[0], f"ssd300: losses {losses}")
+    median = statistics.median(times[4:]) * 1e3  # steps 5-20
+    # two more steps from the checkpoint at step 20, as a second epoch
+    state, _ = cli(["ssd300", "--batch-size", str(SSD_B), "--steps-per-epoch",
+                    str(SSD_STEPS), "--workspace", str(ws), "--resume",
+                    "--epochs", "2", "--prof", "2", *SSD_FLAGS])
+    resumed, _ = _raport_losses_and_times(ws / "ssd300_raport.json")
+    check(state.step == SSD_STEPS + 2 and len(resumed) == 2
+          and all(math.isfinite(x) for x in resumed),
+          f"ssd300 --resume: step {state.step}, losses {resumed}")
+    del state
+    shutil.rmtree(ws, ignore_errors=True)
+    benchmark = torch.backends.cudnn.benchmark
+    torch.backends.cudnn.benchmark = True
+    try:
+        model = SSDTask().init(torch.Generator().manual_seed(SEED), DEV).eval()
+        ev128, host128 = _infer_times(model, SSD_B, 20, SSD_SIZE)
+        ev1, host1 = _infer_times(model, 1, 50, SSD_SIZE)
+        del model
+    finally:
+        torch.backends.cudnn.benchmark = benchmark
+    launched = _counts()
+    check(launched == dict.fromkeys(launched, 0),
+          f"K1-K6 launched {launched} on the SSD300 path")
+    say("21 SSD300", f"through the CLI, bench.py's optimizer (SGD lr 2.6e-3, "
+        f"momentum 0.9, constant), bf16, B={SSD_B}, {SSD_STEPS} steps on one "
+        f"repeated batch with the color twist: loss "
+        + " ".join(f"{x:.4f}" for x in losses)
+        + f"; median step over steps 5-{SSD_STEPS} {median:.2f} ms "
+        f"({SSD_B / median * 1e3:.1f} img/s, host clock); peak device memory "
+        f"{peak_gb:.2f} GB; --resume: step {SSD_STEPS + 2}, loss "
+        + " ".join(f"{x:.4f}" for x in resumed)
+        + f". On {card()}: eval forward bf16 B={SSD_B} {ev128:.3f} ms on CUDA "
+        f"events ({SSD_B / ev128 * 1e3:.1f} img/s), {host128:.3f} ms on the "
+        f"host clock; B=1 {ev1:.3f} ms on CUDA events back to back "
+        f"({1e3 / ev1:.1f} img/s), {host1:.3f} ms on the host clock per call. "
+        f"NVIDIA's A100 figures for the reference (another card): "
+        f"{A100_SSD['train']} img/s training, {A100_SSD['infer_bs1']} img/s "
+        f"at B=1. K1-K6 launched 0 times on these paths; "
+        f"{time.perf_counter() - t0:.1f} s")
+    return launched
+
+
 def main() -> None:
     name = phase_device()
     phase_build()
@@ -2472,6 +2723,9 @@ def main() -> None:
         launched[k] += v
     phase_convnet_parity()
     for k, v in phase_convnets().items():  # counts set to 0 there
+        launched[k] += v
+    phase_ssd_parity()
+    for k, v in phase_ssd().items():  # counts set to 0 there
         launched[k] += v
     check(set(launched) == set(results), f"{sorted(launched)} vs {sorted(results)}")
     for k, v in launched.items():

@@ -1,17 +1,18 @@
 """The port's training CLI: ``python -m deeplearningexamples_tpu_torch.cli
 <model> [flags]`` for ``resnet50``, ``resnext101-32x4d``,
 ``se-resnext101-32x4d``, ``efficientnet-b0``, ``efficientnet-b4``,
-``bert-pretrain``, ``bert-squad``, ``bert-glue``, ``bert-swag`` and
-``dlrm``.
+``ssd300``, ``bert-pretrain``, ``bert-squad``, ``bert-glue``, ``bert-swag``
+and ``dlrm``.
 
 Port of ``deeplearningexamples_tpu/cli/main.py`` for the models the port
-trains so far, the ConvNets (``run_convnet``), BERT pretraining
-(``run_bert_pretrain``), BERT fine-tuning on SQuAD, GLUE and SWAG
+trains so far, the ConvNets (``run_convnet``), SSD300 (``run_ssd``), BERT
+pretraining (``run_bert_pretrain``), BERT fine-tuning on SQuAD, GLUE and SWAG
 (``run_bert_squad``, ``run_bert_glue``, ``run_bert_swag``) and DLRM
 (``run_dlrm``), with the flag names and defaults of ``dlx-train``. The run is
 on the card unless ``--device cpu`` is given. Flags whose machinery is not
 ported yet exit with a message that says so, rather than being ignored: for
-the ConvNets ``--data-backend`` other than synthetic and ``--mesh-*``; for
+the ConvNets and ``ssd300`` ``--data-backend`` other than synthetic and
+``--mesh-*``; for
 ``bert-pretrain`` ``--zero``, ``--remat``, ``--attention-impl xla|ring``,
 ``--binned``, ``--mesh-*`` and ``--data-backend corpus``; for the
 fine-tuning commands ``--mesh-*`` and an ``--init-checkpoint`` in TF
@@ -46,10 +47,11 @@ from ..core.train import create_train_state, make_eval_step, make_train_step
 __all__ = ["BertCliConfig", "BertPretrainRun", "CommonConfig",
            "ConvNetCliConfig", "ConvNetRun", "DlrmCliConfig",
            "DlrmRun", "FinetuneRun", "GlueCliConfig", "MODELS",
-           "SquadCliConfig", "SwagCliConfig", "build_bert_pretrain",
-           "build_bert_squad", "build_convnet", "build_dlrm", "cli", "featurize_swag",
-           "read_swag", "run_bert_glue", "run_bert_pretrain",
-           "run_bert_squad", "run_bert_swag", "run_convnet", "run_dlrm",
+           "SgdCliConfig", "SquadCliConfig", "SsdRun", "SwagCliConfig",
+           "build_bert_pretrain", "build_bert_squad", "build_convnet",
+           "build_dlrm", "build_ssd", "cli", "featurize_swag", "read_swag",
+           "run_bert_glue", "run_bert_pretrain", "run_bert_squad",
+           "run_bert_swag", "run_convnet", "run_dlrm", "run_ssd",
            "to_device"]
 
 INPUTS = ("input_ids", "attention_mask", "token_type_ids")
@@ -79,13 +81,21 @@ class CommonConfig:
 
 
 @dataclass
-class ConvNetCliConfig(CommonConfig):
-    """The fields of JAX's ``CommonConfig`` that ``run_convnet`` reads
-    beyond the port's ``CommonConfig``, with JAX's defaults."""
+class SgdCliConfig(CommonConfig):
+    """The fields of JAX's ``CommonConfig`` that ``run_ssd`` reads beyond
+    the port's ``CommonConfig`` (SGD's momentum and the LR policy), with
+    JAX's defaults."""
 
     momentum: float = 0.9
     warmup_epochs: int = 0
     lr_schedule: str = "cosine"  # cosine | step | linear | constant
+
+
+@dataclass
+class ConvNetCliConfig(SgdCliConfig):
+    """The fields of JAX's ``CommonConfig`` that ``run_convnet`` reads
+    beyond ``SgdCliConfig``'s, with JAX's defaults."""
+
     label_smoothing: float = 0.0
     mixup: float = 0.0
     ema: float = 0.0  # 0 disables; reference EMA decay e.g. 0.9999
@@ -139,6 +149,17 @@ def _unported_bert(cfg: BertCliConfig) -> None:
     ])
 
 
+def _unported_synthetic(model: str, cfg: CommonConfig, reader: str) -> None:
+    """Refuse a ``--data-backend`` other than synthetic, or ``--mesh-*``."""
+    _unported(model, [
+        (cfg.data_backend != "synthetic",
+         f"--data-backend {cfg.data_backend} ({reader}; only synthetic is "
+         "ported)"),
+        (cfg.mesh_data not in (-1, 1) or cfg.mesh_model != 1
+         or cfg.mesh_sequence != 1, "--mesh-* (one card only so far)"),
+    ])
+
+
 def _dtype(cfg: CommonConfig) -> torch.dtype:
     """The compute dtype: bf16 under ``--amp`` (the default), else fp32."""
     return torch.bfloat16 if cfg.amp else torch.float32
@@ -185,7 +206,7 @@ def _maybe_resume(cfg: CommonConfig, ckpt: CheckpointManager, state,
     return state, start_epoch
 
 
-def _make_schedule(cfg: ConvNetCliConfig, steps_per_epoch: int):
+def _make_schedule(cfg: SgdCliConfig, steps_per_epoch: int):
     """The LR policy ``--lr-schedule`` names (JAX ``_make_schedule``)."""
     if cfg.lr_schedule == "cosine":
         return opt.lr_cosine_policy(cfg.lr, cfg.warmup_epochs, cfg.epochs,
@@ -219,13 +240,8 @@ def build_convnet(arch: str, cfg: ConvNetCliConfig) -> ConvNetRun:
     from ..data.synthetic import SyntheticImageLoader
     from ..models.convnets import EFFNET_ARCHS, ClassificationTask
 
-    _unported(arch, [
-        (cfg.data_backend != "synthetic",
-         f"--data-backend {cfg.data_backend} (the ImageNet reader and its "
-         "native dataplane; only synthetic is ported)"),
-        (cfg.mesh_data not in (-1, 1) or cfg.mesh_model != 1
-         or cfg.mesh_sequence != 1, "--mesh-* (one card only so far)"),
-    ])
+    _unported_synthetic(arch, cfg, "the ImageNet reader and its native "
+                        "dataplane")
     image_size = EFFNET_ARCHS[arch].resolution if arch in EFFNET_ARCHS else 224
     task = ClassificationTask(arch, _dtype(cfg),
                               quantized=cfg.quant_policy == "qat",
@@ -266,6 +282,59 @@ def run_convnet(arch: str, cfg: ConvNetCliConfig):
             eval_iter_fn=lambda: to_device(run.val_loader, cfg.device),
             checkpoints=ckpt, batch_size=cfg.batch_size,
             start_epoch=start_epoch,
+        )
+    finally:
+        torch.backends.cudnn.benchmark = benchmark
+
+
+@dataclass
+class SsdRun:
+    """What ``run_ssd`` trains with, built by ``build_ssd``."""
+
+    state: Any
+    train_step: Any
+    loader: Any
+
+
+def build_ssd(cfg: SgdCliConfig) -> SsdRun:
+    """SSD300 (81 classes, 300x300, ``SSDTask``'s color twist), SGD with the
+    reference's "tencent trick" (no weight decay on biases and BN), the
+    state, step and one synthetic batch repeated ``steps_per_epoch`` times,
+    as JAX's ``run_ssd`` on its synthetic path."""
+    from ..data.ssd_synthetic import SyntheticSSDLoader
+    from ..models.ssd import SSDTask
+
+    _unported_synthetic("ssd300", cfg, "the COCO reader and its native "
+                        "dataplane")
+    task = SSDTask(dtype=_dtype(cfg))
+    model = task.init(torch.Generator().manual_seed(cfg.seed), device=cfg.device)
+    loader = SyntheticSSDLoader(cfg.batch_size, task.dboxes,
+                                steps=cfg.steps_per_epoch)
+    params = dict(model.named_parameters())
+    tx = opt.sgd(_make_schedule(cfg, len(loader)), cfg.momentum,
+                 cfg.weight_decay, mask=opt.no_decay_mask(params))
+    state = create_train_state(model, tx, cfg.seed + 1, params=params,
+                               model_state=task.model_state(model))
+    train_step = make_train_step(task.loss_fn, tx, accum_steps=cfg.accum_steps)
+    return SsdRun(state, train_step, loader)
+
+
+def run_ssd(cfg: SgdCliConfig):
+    """Train SSD300 with the MultiBox loss and SGD on synthetic images, with
+    checkpoints in ``{workspace}/ssd300_ckpt``; no evaluation (JAX's
+    synthetic path has none). cuDNN picks its algorithms by timing them, as
+    the reference's ``main.py`` does. Returns ``(state, best)``."""
+    logger = _common_setup(cfg, "ssd300")
+    run = build_ssd(cfg)
+    ckpt = CheckpointManager(f"{cfg.workspace}/ssd300_ckpt")
+    state, start_epoch = _maybe_resume(cfg, ckpt, run.state, len(run.loader))
+    benchmark = torch.backends.cudnn.benchmark
+    torch.backends.cudnn.benchmark = True
+    try:
+        return train_loop(
+            state, run.train_step, lambda: to_device(run.loader, cfg.device),
+            cfg=_loop_cfg(cfg), logger=logger, checkpoints=ckpt,
+            batch_size=cfg.batch_size, start_epoch=start_epoch,
         )
     finally:
         torch.backends.cudnn.benchmark = benchmark
@@ -795,11 +864,13 @@ def run_dlrm(cfg: DlrmCliConfig):
 CONVNETS = ("resnet50", "resnext101-32x4d", "se-resnext101-32x4d",
             "efficientnet-b0", "efficientnet-b4")
 MODELS = {**{a: (lambda cfg, a=a: run_convnet(a, cfg)) for a in CONVNETS},
-          "bert-pretrain": run_bert_pretrain, "bert-squad": run_bert_squad,
+          "ssd300": run_ssd, "bert-pretrain": run_bert_pretrain,
+          "bert-squad": run_bert_squad,
           "bert-glue": run_bert_glue, "bert-swag": run_bert_swag,
           "dlrm": run_dlrm}
 _CONFIG_CLS = {**dict.fromkeys(CONVNETS, ConvNetCliConfig),
-               "bert-pretrain": BertCliConfig, "bert-squad": SquadCliConfig,
+               "ssd300": SgdCliConfig, "bert-pretrain": BertCliConfig,
+               "bert-squad": SquadCliConfig,
                "bert-glue": GlueCliConfig, "bert-swag": SwagCliConfig,
                "dlrm": DlrmCliConfig}
 

@@ -205,16 +205,18 @@ def profile_squad(optimizer: str, steps: int = 10, traced: int = 3) -> dict:
                         run.train_step, batch, steps, traced)
 
 
-def run_main(doc: str, profiles, tasks: tuple[str, ...] = ()) -> None:
-    """The profiling tools' command line: ``--out F``, and ``--task T`` when
-    ``tasks`` names some (the first is the default). Iterates ``profiles()``
-    or ``profiles(task)`` (a generator of result dicts) on the card, prints
-    each result as one JSON object with the card's name and power limit, and
-    writes them all to ``--out`` when given."""
+def run_main(doc: str, profiles, tasks: tuple[str, ...] = (),
+             flag: str = "--task") -> None:
+    """The profiling tools' command line: ``--out F``, and ``flag`` (``--task
+    T`` by default) when ``tasks`` names some (the first is the default).
+    Iterates ``profiles()`` or ``profiles(task)`` (a generator of result
+    dicts) on the card, prints each result as one JSON object with the
+    card's name and power limit, and writes them all to ``--out`` when
+    given."""
     parser = argparse.ArgumentParser(doc.splitlines()[0])
     parser.add_argument("--out", default=None, help="a JSON file for the results")
     if tasks:
-        parser.add_argument("--task", choices=tasks, default=tasks[0],
+        parser.add_argument(flag, dest="task", choices=tasks, default=tasks[0],
                             help="the training step to profile")
     args = parser.parse_args()
     if not torch.cuda.is_available():

@@ -5,8 +5,8 @@ The JAX package keeps flax parameter trees; the port keeps the NVIDIA/HF
 ``utils/torch_import.convert_bert`` (which maps HF names onto the JAX tree),
 extended to the QA head, the pretraining heads and the classifier of the
 GLUE and SWAG heads, of DLRM's tree into the port's ``Dlrm`` names, and of
-``convert_resnet50`` and ``convert_efficientnet`` for the ConvNets (their
-``batch_stats`` too). The word table keeps its ``padded_vocab`` rows,
+``convert_resnet50`` and ``convert_efficientnet`` for the ConvNets and of
+``convert_ssd300`` for SSD300 (their ``batch_stats`` too). The word table keeps its ``padded_vocab`` rows,
 and the MLM decoder, tied to it, has no entry of its own. The mapping is
 structural, so it carries any tree of that shape across:
 parameters, or the gradients ``jax.grad`` returns for them.
@@ -26,6 +26,7 @@ __all__ = [
     "dlrm_state_dict_from_jax",
     "efficientnet_state_dict_from_jax",
     "resnet_state_dict_from_jax",
+    "ssd300_state_dict_from_jax",
 ]
 
 # (JAX path, port name, transpose): flax Dense kernels are (in, out), torch
@@ -203,3 +204,63 @@ def efficientnet_state_dict_from_jax(params: Mapping[str, Any],
     ``batch_stats`` -> the port's ``EfficientNet`` ``state_dict`` (the
     reference's names), as numpy arrays."""
     return _convnet(params, batch_stats, _effnet_name)
+
+
+
+# anchors per location of SSD300's six feature maps (``models/ssd/model.py``)
+_SSD_ANCHORS = (4, 6, 6, 6, 4, 4)
+_SSD_EXTRA = {"conv1": "0", "bn1": "1", "conv2": "3", "bn2": "4"}
+
+
+def _ssd_module(path: tuple[str, ...]) -> str:
+    """A module's path in JAX's SSD300 tree -> the reference's name: the
+    backbone's ``conv1``, ``bn1`` and ``layer{l}_{j}`` are
+    ``feature_extractor.feature_extractor.{0, 1, l + 3}`` (a block's own
+    names as in ResNet), ``extra{i}_{conv1,bn1,conv2,bn2}`` are
+    ``additional_blocks.{i}.{0,1,3,4}``, ``loc{i}`` and ``conf{i}`` are
+    ``loc.{i}`` and ``conf.{i}``."""
+    top, rest = path[0], path[1:]
+    if top == "backbone":
+        fe, stage = "feature_extractor.feature_extractor", rest[0]
+        if stage in ("conv1", "bn1"):
+            return f"{fe}.{_SSD_EXTRA[stage]}"
+        layer, j = stage[len("layer"):].split("_")
+        return ".".join([fe, str(int(layer) + 3), j,
+                         *map(_resnet_name, rest[1:])])
+    if top.startswith("extra"):
+        i, part = top[len("extra"):].split("_", 1)
+        return f"additional_blocks.{i}.{_SSD_EXTRA[part]}"
+    head = top.rstrip("0123456789")
+    return f"{head}.{top[len(head):]}"
+
+
+def _ssd_walk(tree: Mapping[str, Any], path: tuple[str, ...],
+              sd: dict[str, np.ndarray]) -> None:
+    for key, value in tree.items():
+        if isinstance(value, Mapping):
+            _ssd_walk(value, path + (key,), sd)
+        else:
+            sd[f"{_ssd_module(path)}.{_LEAF[key]}"] = _leaf(value)
+
+
+def ssd300_state_dict_from_jax(params: Mapping[str, Any],
+                               batch_stats: Mapping[str, Any] | None = None
+                               ) -> dict[str, np.ndarray]:
+    """JAX ``SSD300`` params, or their gradients, and optionally its
+    ``batch_stats`` -> the port's ``SSD300`` ``state_dict`` (the reference's
+    names), as numpy arrays. JAX's head kernels hold coordinate (or class)
+    ``k`` of anchor ``a`` in output channel ``a * K + k``, the reference's
+    in ``k * A + a``: each head's channels are permuted back, the inverse of
+    ``convert_ssd300``'s permutation."""
+    sd: dict[str, np.ndarray] = {}
+    _ssd_walk(params, (), sd)
+    if batch_stats is not None:
+        _ssd_walk(batch_stats, (), sd)
+    for head in ("loc", "conf"):
+        for i, na in enumerate(_SSD_ANCHORS):
+            w = sd[f"{head}.{i}.weight"]
+            k = w.shape[0] // na
+            perm = np.array([a * k + c for c in range(k) for a in range(na)])
+            sd[f"{head}.{i}.weight"] = np.ascontiguousarray(w[perm])
+            sd[f"{head}.{i}.bias"] = sd[f"{head}.{i}.bias"][perm]
+    return sd

@@ -26,7 +26,9 @@ for name in ("core.train", "core.flat", "core.loop", "core.checkpoint",
              "core.losses", "models.convnets", "models.convnets.layers",
              "models.convnets.resnet", "models.convnets.efficientnet",
              "models.convnets.quant", "models.convnets.task",
-             "tools.profile_convnet"):
+             "tools.profile_convnet", "models.ssd", "models.ssd.boxes",
+             "models.ssd.model", "models.ssd.task", "models.ssd.coco_eval",
+             "models.ssd.evaluate", "data.ssd_synthetic"):
     assert f"deeplearningexamples_tpu_torch.{name}" in names, name
 import chip_smoke
 print(len(names))
@@ -41,8 +43,9 @@ def test_port_imports_with_jax_blocked():
     # tasks, the training harness (core/), the CLI (cli/), the data loaders
     # (data/), the profiling tools and the hot-row probe (tools/), and the
     # int8 quantization and fused LAMB ops, the GLUE task and the BERT
-    # checkpoint reader, the ConvNets models, task and losses
-    assert int(res.stdout.strip()) >= 56
+    # checkpoint reader, the ConvNets models, task and losses, and SSD300
+    # (model, boxes, task, COCO mAP, evaluation, the synthetic loader)
+    assert int(res.stdout.strip()) >= 63
 
 
 def test_chip_smoke_fails_without_a_card():
