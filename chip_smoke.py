@@ -83,13 +83,24 @@ and it imports nothing of JAX. Phases, one line each:
     CLI's runner at B=128 bf16 with bench.py's optimizer, 20 steps, then 2
     with ``--resume``; the bf16 eval forward at B=128 and B=1 on CUDA events
     and on the host clock
+22. Tacotron2 + WaveGlow: one fp32 Tacotron2 step (full width, B=4, text
+    64, mel 96) and one fp32 WaveGlow step (full width, B=2, segment 8000,
+    every WN ``end`` randomised) on the card, TF32 off, every dropout at 0,
+    under clip + Adam, against the same steps on the CPU in float64 (the
+    CPU's fp32 steps beside them), the bf16 steps the controls; WaveGlow's
+    ``infer`` at sigma 0 card against CPU float64; ``tacotron2`` (B=128,
+    text 128, mel 600) and ``waveglow`` (B=10, segment 8000) through the
+    CLI's runner, bf16 at bench.py's rates, with frames/s and samples/s;
+    ``TTSPipeline`` from three sentences to wavs (800 decoder steps, the
+    denoiser at 0.01), timed by part
 
 Each main path (serving: phases 5-6; BERT training: phase 10; DLRM
 training: phase 13; ``int8_matmul``: phase 14; ``fused_lamb``: phase 15;
 ``hot_gather``: phase 16; BERT fine-tuning: phase 18; each ConvNets run of
-phase 20; SSD300's training, resume and inference in phase 21) runs with
-the launch counts set to 0 just before it and read just after; on the
-ConvNets and SSD300 paths every count must stay 0. Then one JSON
+phase 20; SSD300's training, resume and inference in phase 21; Tacotron2's
+and WaveGlow's training and the TTS pipeline in phase 22) runs with the
+launch counts set to 0 just before it and read just after; on the
+ConvNets, SSD300 and TTS paths every count must stay 0. Then one JSON
 line with each kernel's launches on those paths, its error against the plain
 version, its time, the plain version's, its bound on this card and the time
 of the PyTorch call that computes the same function (where there is one),
@@ -128,7 +139,13 @@ from deeplearningexamples_tpu_torch.core.train import (
     create_train_state,
     make_train_step,
 )
-from deeplearningexamples_tpu_torch.core.optimizers import no_decay_mask, sgd
+from deeplearningexamples_tpu_torch.core.optimizers import (
+    adam,
+    chain,
+    clip_by_global_norm,
+    no_decay_mask,
+    sgd,
+)
 from deeplearningexamples_tpu_torch.data.synthetic import (
     SyntheticBertLoader,
     SyntheticDlrmLoader,
@@ -161,6 +178,19 @@ from deeplearningexamples_tpu_torch.models.ssd import (
 )
 from deeplearningexamples_tpu_torch.models.ssd import evaluate as ssd_evaluate
 from deeplearningexamples_tpu_torch.models.ssd.task import color_twist
+from deeplearningexamples_tpu_torch.data.tts_synthetic import (
+    SyntheticTacotronLoader,
+    SyntheticWaveGlowLoader,
+)
+from deeplearningexamples_tpu_torch.models.tts import (
+    Tacotron2,
+    Tacotron2Task,
+    TTSPipeline,
+    WaveGlowTask,
+)
+from deeplearningexamples_tpu_torch.models.tts.layers import (
+    Dropout as TtsDropout,
+)
 from deeplearningexamples_tpu_torch.models.dlrm import (
     Dlrm,
     DlrmConfig,
@@ -2679,6 +2709,335 @@ def phase_ssd() -> dict[str, int]:
     return launched
 
 
+# -- phase 22 ----------------------------------------------------------------
+
+# bench.py's shapes (bench.py:326-363): Tacotron2 B=128 (text 128, mel 600),
+# WaveGlow B=10 (segment 8000), bf16, and their rates (the CLI's own default
+# is CommonConfig's 0.1, ROADMAP quirk 8h)
+T2_B, T2_STEPS, T2_LR = 128, 10, "1e-3"
+WG_B, WG_STEPS, WG_LR = 10, 20, "1e-4"
+# the fp32 parity steps: Tacotron2 at B=4, text length 64, mel length 96;
+# WaveGlow at B=2, segment 8000
+T2_PARITY, WG_PARITY_B = (4, 64, 96), 2
+# One fp32 step of each on the card (TF32 off) against the CPU in float64,
+# every dropout at 0, under clip + Adam: the loss to 1e-5 relative, the BN
+# running statistics to 1e-4 of each tensor's largest entry, each gradient
+# to TOL_TTS of its own largest entry (or FLOOR times the largest of all,
+# where that is more) and of the largest entry of all; the bf16 step (the
+# control) must miss them. WaveGlow's infer at sigma 0 on the card to
+# TOL_WG_INFER of its largest sample from the CPU's float64, where the bf16
+# model (the control) must miss. The limits lie between the readings of an
+# H100 run (fp32 step, of its own / of all: Tacotron2 2.3e-4 / 8.1e-7,
+# WaveGlow 2.5e-6 / 2.0e-7; the bf16 control: 2.2 / 1.1e-2 and 1.3e-2 /
+# 3.0e-3; infer at sigma 0: 1.1e-6, the bf16 control 1.2e-2).
+TOL_TTS = {"tacotron2": (1e-2, 1e-4), "waveglow": (1e-3, 1e-4)}
+TOL_WG_INFER = 1e-4
+# The card's clip + Adam update (each parameter's delta and Adam's first
+# moment) against the same update in float64 on the card's own gradients,
+# for the fp32 and the bf16 step: of each tensor's largest entry (or FLOOR
+# times the largest of all) and of the largest entry of all. Adam's first
+# step is about -lr * sign(g) whatever the clip, so the deltas cannot show
+# it: the moments (0.1 times the clipped gradient) do, and the same update
+# with the clip's other branch (the control) must miss. Two devices' whole
+# steps are not compared entry by entry: an entry whose gradient is
+# rounding noise steps -lr or +lr. The limits lie between the readings of
+# an H100 run (deltas 6.6e-5, the fp32 rounding of a parameter near 1;
+# moments at most 1.9e-7; global norms 4.15 and 1.66, so the clip scaled
+# both steps) and the control's (7.6e-1 and 4.0e-1).
+TOL_TTS_UPDATE = (1e-3, 1e-3)
+TTS_TEXTS = ["Printing, in the only sense with which we are at present "
+             "concerned, differs from most if not from all the arts.",
+             "The quick brown fox jumps over the lazy dog.",
+             "Dr. Smith paid $3.50 for it in 1905."]
+# NVIDIA's A100 figures for the reference (bench.py:47-48; another card, the
+# reference's own widths): Tacotron2 frames/s and WaveGlow samples/s training
+A100_TTS = {"tacotron2": 26484.0, "waveglow": 149479.0}
+
+
+def _no_dropout(model):
+    for m in model.modules():
+        if isinstance(m, TtsDropout):
+            m.p = 0.0
+    return model
+
+
+@torch.no_grad()
+def _randomise_end(model, gen: torch.Generator):
+    """Every WN ``end`` (zeros at init, which makes each coupling the
+    identity) redrawn at 0.01 N(0, 1)."""
+    for wn in model.WN:
+        wn.end.weight.copy_(0.01 * torch.randn(wn.end.weight.shape,
+                                               generator=gen))
+        wn.end.bias.copy_(0.01 * torch.randn(wn.end.bias.shape, generator=gen))
+    return model
+
+
+def _tts_init(name: str):
+    """Full-width fp32 Tacotron2 (BN redrawn as phase 19's models) or
+    WaveGlow (every ``end`` randomised) on the CPU from SEED, every dropout
+    at 0."""
+    gen = torch.Generator().manual_seed(SEED)
+    if name == "tacotron2":
+        model = Tacotron2Task(dtype=torch.float32).init(gen, "cpu")
+        _redraw_bn(model, gen)
+    else:
+        model = _randomise_end(WaveGlowTask(dtype=torch.float32).init(gen, "cpu"),
+                               gen)
+    return _no_dropout(model)
+
+
+def _tts_copy(model, dtype):
+    """``model``'s weights in a new model computing in ``dtype``."""
+    cls = type(model)
+    out = _no_dropout(cls(model.cfg, dtype))
+    out.load_state_dict(model.state_dict())
+    return out.train()
+
+
+def _tts_step(model, batch: dict, device) -> dict:
+    """One clip + Adam step (JAX's run_tts optimizer at lr 1e-3) in the
+    model's compute dtype and training mode, the float inputs in the
+    parameters' dtype, on the CPU: the loss, the global norm of the
+    gradients (above 1 the clip scales them), the gradients, the parameter
+    deltas, Adam's first moments and the BN running statistics after."""
+    task = (Tacotron2Task if isinstance(model, Tacotron2) else WaveGlowTask)(
+        cfg=model.cfg, dtype=model.dtype)
+    model = model.to(device)
+    params = dict(model.named_parameters())
+    tx = chain(clip_by_global_norm(1.0), adam(1e-3))
+    state = create_train_state(model, tx, SEED, params=params,
+                               model_state=task.model_state(model))
+    before = {n: p.detach().clone() for n, p in params.items()}
+    dtype = next(model.parameters()).dtype
+    t = {k: torch.from_numpy(v).to(device, dtype if v.dtype == np.float32
+                                   else None)
+         for k, v in batch.items()}
+    state, metrics = make_train_step(task.loss_fn, tx)(state, t)
+    cpu = lambda d: {n: x.detach().cpu() for n, x in d.items()}  # noqa: E731
+    return {"loss": float(metrics["loss"]),
+            "norm": float(metrics["grad_norm"]),
+            "grads": cpu({n: p.grad for n, p in params.items()}),
+            "deltas": cpu({n: p.detach() - before[n]
+                           for n, p in params.items()}),
+            "mu": cpu(state.opt_state[-1].mu),
+            "stats": cpu({n: b for n, b in model.named_buffers()
+                          if ".running_" in n})}
+
+
+def _update64(step: dict, other_branch: bool = False) -> tuple[dict, dict]:
+    """The first update of optax's clip at 1 and Adam at lr 1e-3 on
+    ``step``'s own gradients, written out in float64 on the CPU: (deltas,
+    Adam's first moments). ``other_branch``: the clip takes the branch its
+    norm does not call for (the control)."""
+    g = {n: x.double() for n, x in step["grads"].items()}
+    norm = math.sqrt(sum(float((x * x).sum()) for x in g.values()))
+    scale = 1.0 / norm if (norm >= 1.0) != other_branch else 1.0
+    # m_hat = g, sqrt(v_hat) = |g| at the first step
+    return ({n: -1e-3 * x * scale / ((x * scale).abs() + 1e-8)
+             for n, x in g.items()},
+            {n: 0.1 * x * scale for n, x in g.items()})
+
+
+def _tts_parity(name: str, batch: dict) -> tuple[str, dict]:
+    """22 a-b: one fp32 step card vs CPU float64 (the CPU's fp32 step
+    beside it), the bf16 card step the control."""
+    init = _tts_init(name)
+    gpu = _tts_step(copy.deepcopy(init), batch, DEV)
+    f64 = _tts_step(_float64(copy.deepcopy(init)), batch, "cpu")
+    f32 = _tts_step(copy.deepcopy(init), batch, "cpu")
+    b16 = _tts_step(_tts_copy(init, torch.bfloat16), batch, DEV)
+    lim = TOL_TTS[name]
+    g64 = f64["grads"]
+    g_rel, g_cpu, w16 = (_worst(s["grads"], g64) for s in (gpu, f32, b16))
+    s_gpu, s64 = gpu["stats"], f64["stats"]
+    st_rel = max(((max_err(s_gpu[n], s64[n]) / max(
+        float(s64[n].abs().max()), 1e-30), n) for n in s64),
+        default=(0.0, "none"))
+    l_gpu, l64 = gpu["loss"], f64["loss"]
+    rel_loss = abs(l_gpu - l64) / abs(l64)
+    # the card's clip + Adam update against float64 on the card's own
+    # gradients, for the fp32 and the bf16 step; the control takes the
+    # clip's other branch
+    upd = {}
+    for what, s in (("fp32", gpu), ("bf16", b16)):
+        d64, mu64 = _update64(s)
+        upd[what] = (_worst(s["deltas"], d64), _worst(s["mu"], mu64))
+    other = _worst(gpu["mu"], _update64(gpu, other_branch=True)[1])
+    line = (f"{name}: one fp32 step, card vs CPU float64: loss {l_gpu:.7f} vs "
+            f"{l64:.7f} ({rel_loss:.2e}); worst gradients: {_fmt(g_rel)} "
+            f"(limits {lim[0]:.0e}, {lim[1]:.0e}; the CPU's own fp32 step: "
+            f"{_fmt(g_cpu)}, loss {f32['loss']:.7f}); BN statistics worst "
+            f"{st_rel[1]} {st_rel[0]:.2e}; bf16 card step (the control): loss "
+            f"{b16['loss']:.6f}, worst gradients {_fmt(w16)}; global gradient "
+            f"norm (the clip scales above 1): card fp32 {gpu['norm']:.6g}, "
+            f"CPU float64 {f64['norm']:.6g}, card bf16 {b16['norm']:.6g}; the "
+            f"card's clip + Adam update vs float64 on its own gradients "
+            f"(limits {TOL_TTS_UPDATE[0]:.0e}, {TOL_TTS_UPDATE[1]:.0e}): "
+            + "; ".join(f"{k} step deltas {_fmt(d)}, first moments {_fmt(m)}"
+                        for k, (d, m) in upd.items())
+            + f"; the fp32 step's first moments vs float64 with the clip's "
+            f"other branch (the control): {_fmt(other)}")
+    check(rel_loss <= TOL_CONV["loss"], f"{name} fp32 loss: card {l_gpu} vs "
+          f"CPU float64 {l64}")
+    check(_within(g_rel, lim), f"{name} fp32 gradients: {g_rel}")
+    check(st_rel[0] <= TOL_CONV["stats"], f"{name} BN statistics: {st_rel}")
+    check(math.isfinite(b16["loss"]) and w16[0][0] > lim[0]
+          and w16[1][0] > lim[1],
+          f"{name}: the bf16 control meets the fp32 limits: {b16['loss']} {w16}")
+    for what, (d, m) in upd.items():
+        check(_within(d, TOL_TTS_UPDATE) and _within(m, TOL_TTS_UPDATE),
+              f"{name} {what} clip + Adam update: deltas {d}, moments {m}")
+    check(not _within(other, TOL_TTS_UPDATE),
+          f"{name}: the clip's other branch meets the limits: norm "
+          f"{gpu['norm']}, {other}")
+    return line, init
+
+
+def phase_tts_parity() -> None:
+    """22 a-b: one fp32 Tacotron2 step (B=4, text 64, mel 96) and one fp32
+    WaveGlow step (B=2, segment 8000) on the card against the CPU in
+    float64, with bf16 controls; then WaveGlow's infer at sigma 0 on the
+    card against the CPU in float64."""
+    t0 = time.perf_counter()
+    flags = (torch.backends.cudnn.benchmark, torch.backends.cudnn.deterministic)
+    torch.backends.cudnn.benchmark, torch.backends.cudnn.deterministic = \
+        False, True
+    try:
+        b, text_len, mel_len = T2_PARITY
+        t2_line, _ = _tts_parity("tacotron2", next(iter(
+            SyntheticTacotronLoader(b, text_len, mel_len, steps=1))))
+        wg_batch = next(iter(SyntheticWaveGlowLoader(WG_PARITY_B, steps=1)))
+        wg_line, init = _tts_parity("waveglow", wg_batch)
+        mel = torch.from_numpy(wg_batch["mel"])
+        want = _float64(copy.deepcopy(init)).infer(mel.double(), 0.0)
+        errs = {}
+        for what, model in (("card fp32", copy.deepcopy(init).to(DEV)),
+                            ("CPU fp32", copy.deepcopy(init)),
+                            ("card bf16", _tts_copy(init, torch.bfloat16).to(DEV))):
+            dev = next(model.parameters()).device
+            got = model.infer(mel.to(dev), 0.0)
+            errs[what] = max_err(got, want) / float(want.abs().max())
+    finally:
+        torch.backends.cudnn.benchmark, torch.backends.cudnn.deterministic = \
+            flags
+    say("22 TTS", f"parity: {t2_line}. {wg_line}. WaveGlow infer at sigma 0 "
+        f"(B={WG_PARITY_B}, {mel.shape[1]} frames) vs CPU float64, of its "
+        f"largest sample: "
+        + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+        + f" (limit {TOL_WG_INFER:.0e}); {time.perf_counter() - t0:.1f} s")
+    check(errs["card fp32"] <= TOL_WG_INFER < errs["card bf16"],
+          f"WaveGlow infer at sigma 0, card vs CPU float64: {errs}")
+
+
+def _tts_run(name: str, b: int, steps: int, lr: str, work: Path):
+    """One CLI run with the launch counts set to 0 just before it: every
+    loss finite, the last below the first (one repeated batch); K1-K6
+    launched 0 times. Returns (losses, host-clock step times, peak GB)."""
+    ws = work / name
+    shutil.rmtree(ws, ignore_errors=True)
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()  # the TTS training path starts here
+    state, _ = cli([name, "--batch-size", str(b), "--steps-per-epoch",
+                    str(steps), "--workspace", str(ws), "--lr", lr])
+    torch.cuda.synchronize()
+    launched = _counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    check(state.step == steps, f"{name}: {state.step} steps")
+    del state
+    losses, times = _raport_losses_and_times(ws / f"{name}_raport.json")
+    shutil.rmtree(ws, ignore_errors=True)
+    check(len(losses) == steps and all(math.isfinite(x) for x in losses)
+          and losses[-1] < losses[0], f"{name}: losses {losses}")
+    check(launched == dict.fromkeys(launched, 0),
+          f"{name}: K1-K6 launched {launched} on the TTS path")
+    return losses, times, peak_gb
+
+
+def _timed(times: dict, name: str, fn):
+    """``fn`` with its host-clock time, between two ``synchronize()``,
+    added to ``times[name]``."""
+    def run(*args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        torch.cuda.synchronize()
+        times[name] = times.get(name, 0.0) + time.perf_counter() - t0
+        return out
+    return run
+
+
+def phase_tts() -> dict[str, int]:
+    """22 c-d: ``tacotron2`` (B=128) and ``waveglow`` (B=10) through the
+    CLI's runner, bf16 at bench.py's rates; then ``TTSPipeline`` from three
+    sentences to wavs (800 decoder steps, the denoiser at 0.01); returns
+    the kernels' launches on these paths (all 0: no kernel of the port lies
+    on them)."""
+    t0 = time.perf_counter()
+    work = ROOT / "workspace" / "chip_smoke" / "tts"
+    lines = []
+    frames = int(next(iter(SyntheticTacotronLoader(T2_B, steps=1)))[
+        "mel_lengths"].sum())  # the CLI's batch: seed 0
+    for name, b, steps, lr, per_step, unit in (
+            ("tacotron2", T2_B, T2_STEPS, T2_LR, frames, "frames/s"),
+            ("waveglow", WG_B, WG_STEPS, WG_LR, WG_B * 8000, "samples/s")):
+        losses, times, peak = _tts_run(name, b, steps, lr, work)
+        median = statistics.median(times[2:])
+        lines.append(
+            f"{name} B={b} lr {lr}, {steps} steps: loss "
+            + " ".join(f"{x:.4f}" for x in losses)
+            + f"; median step over steps 3-{steps} {median * 1e3:.1f} ms "
+            f"(host clock; least {min(times[2:]) * 1e3:.1f}), {per_step} "
+            f"{unit.split('/')[0]} a step: {per_step / median:.0f} {unit} "
+            f"(NVIDIA's A100 figure for the reference, another card and the "
+            f"reference's widths: {A100_TTS[name]:.0f}); peak device memory "
+            f"{peak:.2f} GB")
+    shutil.rmtree(work, ignore_errors=True)
+
+    _reset_counts()  # the inference path starts here
+    t2_task, wg_task = Tacotron2Task(), WaveGlowTask()
+    times: dict[str, float] = {}
+    t2 = t2_task.init(torch.Generator().manual_seed(SEED), DEV).eval()
+    with torch.no_grad():  # no row finishes: every wav is 800 frames long
+        t2.decoder.gate_layer.linear_layer.bias.fill_(-1e3)
+    wg = wg_task.init(torch.Generator().manual_seed(SEED + 1), DEV).eval()
+    t1 = time.perf_counter()
+    pipe = TTSPipeline(
+        t2_task, t2, wg_task, wg,
+        max_decoder_steps=800, denoiser_strength=0.01,
+        generator=torch.Generator().manual_seed(SEED))
+    bias_s = time.perf_counter() - t1
+    t2_task.infer_fn = _timed(times, "tacotron2", t2_task.infer_fn)
+    wg_task.infer_fn = _timed(times, "waveglow", wg_task.infer_fn)
+    pipe._denoiser = _timed(times, "denoiser", pipe._denoiser)
+    runs = []
+    for _ in range(2):  # the first warms cuDNN's plans and the allocator
+        times.clear()
+        t1 = time.perf_counter()
+        wavs, mel_lens = pipe(TTS_TEXTS)
+        runs.append((time.perf_counter() - t1, dict(times)))
+    launched = _counts()
+    order = [len(t) for t in TTS_TEXTS]
+    check(len(wavs) == 3 and all(
+        np.isfinite(w).all() and int(n) == 800 and len(w) == int(n) * 256
+        for w, n in zip(wavs, mel_lens)),
+        f"TTSPipeline: {[w.shape for w in wavs]} for mel lengths {mel_lens}")
+    check(launched == dict.fromkeys(launched, 0),
+          f"K1-K6 launched {launched} on the inference path")
+    total, parts = runs[-1]
+    say("22 TTS", "through the CLI, bf16, one repeated synthetic batch: "
+        + "; ".join(lines)
+        + f". TTSPipeline on {card()}: three sentences ({sorted(order, reverse=True)} "
+        f"characters, ordered by decreasing text length), 800 decoder steps "
+        f"at B=3, mel lengths {mel_lens.tolist()} (random weights, the gate "
+        f"bias at -1e3 so that no row finishes), wavs of "
+        f"{[len(w) for w in wavs]} samples; text to wav {total:.3f} s: "
+        + ", ".join(f"{k} {v:.3f} s" for k, v in parts.items())
+        + f" (first call {runs[0][0]:.3f} s; the denoiser's bias "
+        f"{bias_s:.3f} s at construction). K1-K6 launched 0 times on these "
+        f"paths; {time.perf_counter() - t0:.1f} s")
+    return launched
+
+
 def main() -> None:
     name = phase_device()
     phase_build()
@@ -2726,6 +3085,9 @@ def main() -> None:
         launched[k] += v
     phase_ssd_parity()
     for k, v in phase_ssd().items():  # counts set to 0 there
+        launched[k] += v
+    phase_tts_parity()
+    for k, v in phase_tts().items():  # counts set to 0 there
         launched[k] += v
     check(set(launched) == set(results), f"{sorted(launched)} vs {sorted(results)}")
     for k, v in launched.items():

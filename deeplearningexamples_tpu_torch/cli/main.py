@@ -1,14 +1,15 @@
 """The port's training CLI: ``python -m deeplearningexamples_tpu_torch.cli
 <model> [flags]`` for ``resnet50``, ``resnext101-32x4d``,
 ``se-resnext101-32x4d``, ``efficientnet-b0``, ``efficientnet-b4``,
-``ssd300``, ``bert-pretrain``, ``bert-squad``, ``bert-glue``, ``bert-swag``
-and ``dlrm``.
+``ssd300``, ``bert-pretrain``, ``bert-squad``, ``bert-glue``, ``bert-swag``,
+``dlrm``, ``tacotron2`` and ``waveglow``.
 
 Port of ``deeplearningexamples_tpu/cli/main.py`` for the models the port
 trains so far, the ConvNets (``run_convnet``), SSD300 (``run_ssd``), BERT
 pretraining (``run_bert_pretrain``), BERT fine-tuning on SQuAD, GLUE and SWAG
-(``run_bert_squad``, ``run_bert_glue``, ``run_bert_swag``) and DLRM
-(``run_dlrm``), with the flag names and defaults of ``dlx-train``. The run is
+(``run_bert_squad``, ``run_bert_glue``, ``run_bert_swag``), DLRM
+(``run_dlrm``) and Tacotron2 and WaveGlow (``run_tts``), with the flag names
+and defaults of ``dlx-train``. The run is
 on the card unless ``--device cpu`` is given. Flags whose machinery is not
 ported yet exit with a message that says so, rather than being ignored: for
 the ConvNets and ``ssd300`` ``--data-backend`` other than synthetic and
@@ -17,8 +18,8 @@ the ConvNets and ``ssd300`` ``--data-backend`` other than synthetic and
 ``--binned``, ``--mesh-*`` and ``--data-backend corpus``; for the
 fine-tuning commands ``--mesh-*`` and an ``--init-checkpoint`` in TF
 format; for ``dlrm`` ``--data-backend binary`` and ``--mesh-model`` above
-1. ``--config-file``, ``--platform`` and
-``--precision`` (the YAML layers) are not flags here yet, so argparse refuses
+1; for ``tacotron2`` and ``waveglow`` ``--mesh-*``. ``--config-file``,
+``--platform`` and ``--precision`` (the YAML layers) are not flags here yet, so argparse refuses
 them, as it refuses ``--zero`` for the fine-tuning commands, which
 ``dlx-train`` does not give them either.
 """
@@ -48,11 +49,11 @@ __all__ = ["BertCliConfig", "BertPretrainRun", "CommonConfig",
            "ConvNetCliConfig", "ConvNetRun", "DlrmCliConfig",
            "DlrmRun", "FinetuneRun", "GlueCliConfig", "MODELS",
            "SgdCliConfig", "SquadCliConfig", "SsdRun", "SwagCliConfig",
-           "build_bert_pretrain", "build_bert_squad", "build_convnet",
-           "build_dlrm", "build_ssd", "cli", "featurize_swag", "read_swag",
-           "run_bert_glue", "run_bert_pretrain", "run_bert_squad",
-           "run_bert_swag", "run_convnet", "run_dlrm", "run_ssd",
-           "to_device"]
+           "TtsRun", "build_bert_pretrain", "build_bert_squad",
+           "build_convnet", "build_dlrm", "build_ssd", "build_tts", "cli",
+           "featurize_swag", "read_swag", "run_bert_glue",
+           "run_bert_pretrain", "run_bert_squad", "run_bert_swag",
+           "run_convnet", "run_dlrm", "run_ssd", "run_tts", "to_device"]
 
 INPUTS = ("input_ids", "attention_mask", "token_type_ids")
 
@@ -861,18 +862,100 @@ def run_dlrm(cfg: DlrmCliConfig):
     )
 
 
+@dataclass
+class TtsRun:
+    """What ``run_tts`` trains with, built by ``build_tts``."""
+
+    task: Any
+    tx: Any
+    state: Any
+    train_step: Any
+    loader: Any
+
+
+def build_tts(model_name: str, cfg: CommonConfig) -> TtsRun:
+    """Tacotron2 or WaveGlow at their default configs, the loader
+    (``--data-backend synthetic``: one batch repeated ``steps_per_epoch``
+    times at the synthetic loaders' shapes; ``ljspeech``: ``metadata.csv``
+    and ``wavs/`` under ``--data-dir``), clip-by-global-norm 1.0 then Adam,
+    the state and the step, as JAX's ``run_tts``. As there, the rate is
+    ``cfg.lr or 1e-3``, which never falls back: without ``--lr`` it is
+    CommonConfig's 0.1."""
+    from ..models.tts import Tacotron2Task, WaveGlowTask
+
+    _unported(model_name, [
+        (cfg.mesh_data not in (-1, 1) or cfg.mesh_model != 1
+         or cfg.mesh_sequence != 1, "--mesh-* (one card only so far)"),
+    ])
+    if cfg.data_backend not in ("synthetic", "ljspeech"):
+        raise SystemExit(f"{model_name}: --data-backend {cfg.data_backend}: "
+                         "synthetic or ljspeech")
+    lj = None
+    if cfg.data_backend == "ljspeech":
+        from ..data.ljspeech import LJSpeechDataset
+
+        lj = LJSpeechDataset(cfg.data_dir)
+    if model_name == "tacotron2":
+        task = Tacotron2Task(dtype=_dtype(cfg))
+        if lj is not None:
+            from ..data.ljspeech import TacotronLoader
+
+            loader = TacotronLoader(lj, cfg.batch_size)
+        else:
+            from ..data.tts_synthetic import SyntheticTacotronLoader
+
+            loader = SyntheticTacotronLoader(cfg.batch_size,
+                                             steps=cfg.steps_per_epoch)
+    else:
+        task = WaveGlowTask(dtype=_dtype(cfg))
+        if lj is not None:
+            from ..data.ljspeech import WaveGlowLoader
+
+            loader = WaveGlowLoader(lj, cfg.batch_size)
+        else:
+            from ..data.tts_synthetic import SyntheticWaveGlowLoader
+
+            loader = SyntheticWaveGlowLoader(cfg.batch_size,
+                                             steps=cfg.steps_per_epoch)
+    model = task.init(torch.Generator().manual_seed(cfg.seed), device=cfg.device)
+    params = dict(model.named_parameters())
+    tx = opt.chain(opt.clip_by_global_norm(1.0), opt.adam(cfg.lr or 1e-3))
+    state = create_train_state(model, tx, cfg.seed + 1, params=params,
+                               model_state=task.model_state(model))
+    train_step = make_train_step(task.loss_fn, tx, accum_steps=cfg.accum_steps)
+    return TtsRun(task, tx, state, train_step, loader)
+
+
+def run_tts(model_name: str, cfg: CommonConfig):
+    """Train Tacotron2 or WaveGlow, with checkpoints in
+    ``{workspace}/{model_name}_ckpt``; no evaluation. As JAX's ``run_tts``,
+    it never reads ``--resume`` (each run starts from the seed's weights)
+    nor ``--weight-decay``. Returns ``(state, best)``."""
+    logger = _common_setup(cfg, model_name)
+    run = build_tts(model_name, cfg)
+    ckpt = CheckpointManager(f"{cfg.workspace}/{model_name}_ckpt")
+    return train_loop(
+        run.state, run.train_step, lambda: to_device(run.loader, cfg.device),
+        cfg=_loop_cfg(cfg), logger=logger, checkpoints=ckpt,
+        batch_size=cfg.batch_size,
+    )
+
+
 CONVNETS = ("resnet50", "resnext101-32x4d", "se-resnext101-32x4d",
             "efficientnet-b0", "efficientnet-b4")
 MODELS = {**{a: (lambda cfg, a=a: run_convnet(a, cfg)) for a in CONVNETS},
           "ssd300": run_ssd, "bert-pretrain": run_bert_pretrain,
           "bert-squad": run_bert_squad,
           "bert-glue": run_bert_glue, "bert-swag": run_bert_swag,
-          "dlrm": run_dlrm}
+          "dlrm": run_dlrm,
+          **{m: (lambda cfg, m=m: run_tts(m, cfg))
+             for m in ("tacotron2", "waveglow")}}
 _CONFIG_CLS = {**dict.fromkeys(CONVNETS, ConvNetCliConfig),
                "ssd300": SgdCliConfig, "bert-pretrain": BertCliConfig,
                "bert-squad": SquadCliConfig,
                "bert-glue": GlueCliConfig, "bert-swag": SwagCliConfig,
-               "dlrm": DlrmCliConfig}
+               "dlrm": DlrmCliConfig,
+               "tacotron2": CommonConfig, "waveglow": CommonConfig}
 
 
 def cli(argv=None):

@@ -14,6 +14,8 @@ optax that the ported recipes use:
   under ``no_decay_mask``, then ``trace``, then ``-lr(count)``).
 - ``bert_adam`` (the reference's ``BertAdam``) and ``adamw``
   (``optax.adamw``), the two optimizers of BERT fine-tuning.
+- ``clip_by_global_norm`` and ``chain`` (optax's), which Tacotron2 and
+  WaveGlow train under: ``chain(clip_by_global_norm(1.0), adam(lr))``.
 
 Each is a ``Transform`` over a dict name -> tensor; a schedule is read at the
 update count before the update, as optax's ``scale_by_schedule``. The
@@ -29,11 +31,11 @@ from typing import Callable, Mapping, NamedTuple
 import numpy as np
 import torch
 
-from ..ops.lamb import Transform, norms
+from ..ops.lamb import Transform, global_norm, norms
 
-__all__ = ["AdamState", "SgdState", "adam", "adamw", "bert_adam",
-           "lr_cosine_policy", "lr_exponential_policy", "lr_linear_policy",
-           "lr_poly_warmup", "lr_step_policy", "no_decay_mask", "partition",
+__all__ = ["AdamState", "SgdState", "adam", "adamw", "bert_adam", "chain",
+           "clip_by_global_norm", "lr_cosine_policy", "lr_exponential_policy",
+           "lr_linear_policy", "lr_poly_warmup", "lr_step_policy", "no_decay_mask", "partition",
            "sgd"]
 
 _F = np.float32
@@ -337,5 +339,44 @@ def partition(transforms: Mapping[str, Transform],
                                                      p_parts.get(k))
             updates.update(upd)
         return {n: updates[n] for n in grads}, new_state
+
+    return Transform(init, update)
+
+
+def clip_by_global_norm(max_norm: float) -> Transform:
+    """``optax.clip_by_global_norm``: where the global norm of the updates
+    is ``max_norm`` or more, each becomes ``(t / norm) * max_norm``, else
+    it passes as it is; no state. The choice is made on the device, without
+    a sync."""
+
+    def update(grads, state, params=None):
+        names = list(grads)
+        if not names:
+            return {}, state
+        g = [grads[n] for n in names]
+        norm = global_norm(g)
+        keep = norm < max_norm
+        one = torch.ones_like(norm)
+        clipped = torch._foreach_mul(
+            torch._foreach_div(g, torch.where(keep, one, norm)),
+            torch.where(keep, one, torch.full_like(norm, max_norm)))
+        return dict(zip(names, clipped)), state
+
+    return Transform(lambda params: (), update)
+
+
+def chain(*transforms: Transform) -> Transform:
+    """``optax.chain``: each transform takes the updates of the one before;
+    the state is the tuple of their states."""
+
+    def init(params):
+        return tuple(t.init(params) for t in transforms)
+
+    def update(grads, state, params=None):
+        new_state = []
+        for t, s in zip(transforms, state):
+            grads, s = t.update(grads, s, params)
+            new_state.append(s)
+        return grads, tuple(new_state)
 
     return Transform(init, update)

@@ -6,8 +6,9 @@ The JAX package keeps flax parameter trees; the port keeps the NVIDIA/HF
 extended to the QA head, the pretraining heads and the classifier of the
 GLUE and SWAG heads, of DLRM's tree into the port's ``Dlrm`` names, and of
 ``convert_resnet50`` and ``convert_efficientnet`` for the ConvNets and of
-``convert_ssd300`` for SSD300 (their ``batch_stats`` too). The word table keeps its ``padded_vocab`` rows,
-and the MLM decoder, tied to it, has no entry of its own. The mapping is
+``convert_ssd300`` for SSD300 (their ``batch_stats`` too), and of
+``convert_tacotron2`` and ``convert_waveglow`` for Tacotron2 and WaveGlow.
+The word table keeps its ``padded_vocab`` rows, and the MLM decoder, tied to it, has no entry of its own. The mapping is
 structural, so it carries any tree of that shape across:
 parameters, or the gradients ``jax.grad`` returns for them.
 """
@@ -27,6 +28,8 @@ __all__ = [
     "efficientnet_state_dict_from_jax",
     "resnet_state_dict_from_jax",
     "ssd300_state_dict_from_jax",
+    "tacotron2_state_dict_from_jax",
+    "waveglow_state_dict_from_jax",
 ]
 
 # (JAX path, port name, transpose): flax Dense kernels are (in, out), torch
@@ -263,4 +266,128 @@ def ssd300_state_dict_from_jax(params: Mapping[str, Any],
             perm = np.array([a * k + c for c in range(k) for a in range(na)])
             sd[f"{head}.{i}.weight"] = np.ascontiguousarray(w[perm])
             sd[f"{head}.{i}.bias"] = sd[f"{head}.{i}.bias"][perm]
+    return sd
+
+
+def _t(x: Any) -> np.ndarray:
+    return np.ascontiguousarray(np.asarray(x).T)
+
+
+def _conv1d(kernel: Any) -> np.ndarray:
+    """flax 1-D kernel (k, in, out) -> torch Conv1d (out, in, k)."""
+    return np.ascontiguousarray(np.asarray(kernel).transpose(2, 1, 0))
+
+
+def _lstm_cell(tree: Mapping[str, Any], dst: str, suffix: str = "") -> dict:
+    """flax ``OptimizedLSTMCell`` (``ii/if/ig/io`` kernels, ``hi/hf/hg/ho``
+    kernels and biases) -> the port's ``LSTMCell`` / ``BiLSTM``: gate rows
+    ``[i, f, g, o]``, flax's bias in ``bias_hh``, ``bias_ih`` zeros."""
+    gates = "ifgo"
+    b = np.concatenate([np.asarray(tree[f"h{g}"]["bias"]) for g in gates])
+    return {
+        f"{dst}.weight_ih{suffix}": np.concatenate(
+            [_t(tree[f"i{g}"]["kernel"]) for g in gates]),
+        f"{dst}.weight_hh{suffix}": np.concatenate(
+            [_t(tree[f"h{g}"]["kernel"]) for g in gates]),
+        f"{dst}.bias_hh{suffix}": b,
+        f"{dst}.bias_ih{suffix}": np.zeros_like(b),
+    }
+
+
+def _conv_bn(params, stats, i: int, dst: str) -> dict:
+    """flax ``conv{i}`` and ``bn{i}`` -> ``{dst}.{i}.0.conv`` and
+    ``{dst}.{i}.1``."""
+    sd = {f"{dst}.{i}.0.conv.weight": _conv1d(params[f"conv{i}"]["kernel"]),
+          f"{dst}.{i}.0.conv.bias": np.asarray(params[f"conv{i}"]["bias"]),
+          f"{dst}.{i}.1.weight": np.asarray(params[f"bn{i}"]["scale"]),
+          f"{dst}.{i}.1.bias": np.asarray(params[f"bn{i}"]["bias"])}
+    if stats is not None:
+        sd[f"{dst}.{i}.1.running_mean"] = np.asarray(stats[f"bn{i}"]["mean"])
+        sd[f"{dst}.{i}.1.running_var"] = np.asarray(stats[f"bn{i}"]["var"])
+    return sd
+
+
+def tacotron2_state_dict_from_jax(params: Mapping[str, Any],
+                                  batch_stats: Mapping[str, Any] | None = None
+                                  ) -> dict[str, np.ndarray]:
+    """JAX ``Tacotron2`` params, or their gradients, and optionally its
+    ``batch_stats`` -> the port's ``Tacotron2`` ``state_dict`` (the
+    reference's names), as numpy arrays: the inverse of
+    ``convert_tacotron2``. The encoder's forward and backward LSTM cells
+    (flax's ``OptimizedLSTMCell_0`` and ``_1``) become ``encoder.lstm``'s
+    ``_l0`` and ``_l0_reverse``; ``memory_layer`` moves under
+    ``decoder.attention_layer``."""
+    enc, cell, post = params["encoder"], params["cell"], params["postnet"]
+    stats = batch_stats or {"encoder": None, "postnet": None}
+    sd = {"embedding.weight": np.asarray(enc["embedding"]["embedding"])}
+    for i in range(sum(k.startswith("conv") for k in enc)):
+        sd.update(_conv_bn(enc, stats["encoder"], i, "encoder.convolutions"))
+    sd.update(_lstm_cell(enc["OptimizedLSTMCell_0"], "encoder.lstm", "_l0"))
+    sd.update(_lstm_cell(enc["OptimizedLSTMCell_1"], "encoder.lstm",
+                         "_l0_reverse"))
+    att = "decoder.attention_layer"
+    dense = {f"{att}.memory_layer": params["memory_layer"],
+             "decoder.prenet.layers.0": cell["prenet"]["fc0"],
+             "decoder.prenet.layers.1": cell["prenet"]["fc1"],
+             f"{att}.location_layer.location_dense": cell["location_dense"],
+             f"{att}.query_layer": cell["query_layer"],
+             f"{att}.v": cell["v"],
+             "decoder.linear_projection": cell["linear_projection"],
+             "decoder.gate_layer": cell["gate_layer"]}
+    for dst, tree in dense.items():
+        sd[f"{dst}.linear_layer.weight"] = _t(tree["kernel"])
+        if "bias" in tree:
+            sd[f"{dst}.linear_layer.bias"] = np.asarray(tree["bias"])
+    sd[f"{att}.location_layer.location_conv.conv.weight"] = _conv1d(
+        cell["location_conv"]["kernel"])
+    sd.update(_lstm_cell(cell["attention_rnn"], "decoder.attention_rnn"))
+    sd.update(_lstm_cell(cell["decoder_rnn"], "decoder.decoder_rnn"))
+    for i in range(sum(k.startswith("conv") for k in post)):
+        sd.update(_conv_bn(post, stats["postnet"], i, "postnet.convolutions"))
+    return sd
+
+
+def waveglow_state_dict_from_jax(params: Mapping[str, Any]
+                                 ) -> dict[str, np.ndarray]:
+    """JAX ``WaveGlow`` params, or their gradients -> the port's
+    ``WaveGlow`` ``state_dict`` (the reference's names), as numpy arrays:
+    the inverse of ``convert_waveglow``. Three re-layouts: the
+    ``upsample`` kernel reversed in time into ``ConvTranspose1d``'s (in,
+    out, k); each WN's one ``cond_layer`` split into ``cond_layers.{i}``,
+    its input channels from JAX's group-major ``g * n_mel + m`` to the
+    reference's mel-major ``m * n_group + g``; ``end``'s outputs from JAX's
+    ``(log_s, b)`` to the reference's ``(b, log_s)``. The mel and group
+    counts are read from the shapes."""
+    up = np.asarray(params["upsample"]["kernel"])  # (k, in, out)
+    sd = {"upsample.weight": np.ascontiguousarray(up[::-1].transpose(1, 2, 0)),
+          "upsample.bias": np.asarray(params["upsample"]["bias"])}
+    n_mel = up.shape[1]
+    flows = sorted((int(k[len("wn_"):]) for k in params if k.startswith("wn_")))
+    for k in flows:
+        w = np.asarray(params[f"conv1x1_{k}"]["weight"])
+        sd[f"convinv.{k}.conv.weight"] = _t(w)[..., None]
+        wn, dst = params[f"wn_{k}"], f"WN.{k}"
+        n_layers = sum(n.startswith("in_layer") for n in wn)
+        for name, src in [("start", "start"),
+                          *((f"in_layers.{i}", f"in_layer{i}")
+                            for i in range(n_layers)),
+                          *((f"res_skip_layers.{i}", f"res_skip{i}")
+                            for i in range(n_layers))]:
+            sd[f"{dst}.{name}.weight"] = _conv1d(wn[src]["kernel"])
+            sd[f"{dst}.{name}.bias"] = np.asarray(wn[src]["bias"])
+        cond = np.asarray(wn["cond_layer"]["kernel"])[0]  # (in, out)
+        cond_b = np.asarray(wn["cond_layer"]["bias"])
+        n_group = cond.shape[0] // n_mel
+        perm = np.array([g * n_mel + m for m in range(n_mel)
+                         for g in range(n_group)])
+        width = cond.shape[1] // n_layers
+        for i in range(n_layers):
+            cols = slice(i * width, (i + 1) * width)
+            sd[f"{dst}.cond_layers.{i}.weight"] = _t(cond[perm, cols])[..., None]
+            sd[f"{dst}.cond_layers.{i}.bias"] = cond_b[cols]
+        end = np.asarray(wn["end"]["kernel"])[0]  # (in, 2 * n_half)
+        half = end.shape[1] // 2
+        swap = np.concatenate([np.arange(half, 2 * half), np.arange(half)])
+        sd[f"{dst}.end.weight"] = _t(end[:, swap])[..., None]
+        sd[f"{dst}.end.bias"] = np.asarray(wn["end"]["bias"])[swap]
     return sd

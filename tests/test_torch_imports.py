@@ -28,7 +28,11 @@ for name in ("core.train", "core.flat", "core.loop", "core.checkpoint",
              "models.convnets.quant", "models.convnets.task",
              "tools.profile_convnet", "models.ssd", "models.ssd.boxes",
              "models.ssd.model", "models.ssd.task", "models.ssd.coco_eval",
-             "models.ssd.evaluate", "data.ssd_synthetic"):
+             "models.ssd.evaluate", "data.ssd_synthetic", "models.tts",
+             "models.tts.audio", "models.tts.text", "models.tts.layers",
+             "models.tts.tacotron2", "models.tts.waveglow", "models.tts.task",
+             "models.tts.inference", "data.tts_synthetic", "data.ljspeech",
+             "tools.profile_tts"):
     assert f"deeplearningexamples_tpu_torch.{name}" in names, name
 import chip_smoke
 print(len(names))
@@ -44,8 +48,10 @@ def test_port_imports_with_jax_blocked():
     # (data/), the profiling tools and the hot-row probe (tools/), and the
     # int8 quantization and fused LAMB ops, the GLUE task and the BERT
     # checkpoint reader, the ConvNets models, task and losses, and SSD300
-    # (model, boxes, task, COCO mAP, evaluation, the synthetic loader)
-    assert int(res.stdout.strip()) >= 63
+    # (model, boxes, task, COCO mAP, evaluation, the synthetic loader), and
+    # Tacotron2 + WaveGlow (frontends, layers, models, tasks, the pipeline,
+    # the synthetic and LJSpeech loaders, the profiling tool)
+    assert int(res.stdout.strip()) >= 74
 
 
 def test_chip_smoke_fails_without_a_card():

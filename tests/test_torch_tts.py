@@ -1,0 +1,903 @@
+"""Port parity: Tacotron2, WaveGlow and the text-to-wav pipeline in torch
+against the JAX package.
+
+The models run at ``tests/test_tts.py``'s ``TINY_T2`` and ``TINY_WG`` widths
+(``:24-33``), the JAX side in fp32 at "highest" precision, jitted once per
+function and shared by the tests; the port in fp32 with TF32 off. JAX's
+variables are drawn in numpy for its own shapes (every kernel, bias, BN scale
+and running statistic, so no branch sits at its zero init and no gate is
+symmetric: a wrong LSTM gate order, kernel flip or channel permutation gives
+the right shapes and wrong numbers), then carried into the port by the
+bridge, which also carries JAX's gradients and batch statistics across.
+
+Dropout bits cannot be matched with ``jax.random``: the JAX side runs with
+``dropout``, ``p_attention_dropout`` and ``p_decoder_dropout`` at 0, and its
+training-mode forward with ``flax.linen.Dropout`` stubbed to the identity
+(the Encoder's and Postnet's 0.5 are hard-coded); the port sets ``p = 0`` on
+its ``Dropout`` modules. A separate test holds each dropout's keep rate to
+its statistics. WaveGlow's ``end`` convolutions start at zero, which makes
+every coupling the identity, so they are randomised, and the 1x1 mixes moved
+off the orthogonal so that ``log_det`` is not 0.
+
+Tolerances, relative to the largest entry of the JAX tensor unless said
+otherwise: the eval forward 1e-5, the training forward (BN on batch
+statistics) 1e-4, BN running statistics 1e-5; the loss 1e-5 relative;
+every gradient within 1e-4 of its own largest entry and 5e-5 of the
+largest entry of all (fp32 reads up to 1.5e-5 and 6.4e-6; a convolution
+bias before a training-mode BN, whose gradient is 0 but for rounding, to
+the second only); the 3-step clip + Adam curve 1e-4 relative; ``infer``
+lengths equal, mels and alignments 1e-5; WaveGlow's z 1e-5, log_s and
+log_det 1e-5 relative, ``infer`` at sigma 0 1e-5, the port's own round
+trip ``forward(infer(...))`` to the drawn noise 1e-4; the text frontend,
+filterbank, mel spectrogram, loaders, ``prepare_input_sequence`` and the
+denoiser bit for bit (both sides run the same numpy); the whole pipeline
+at sigma 0 (no dropout) 1e-4.
+"""
+
+import dataclasses
+import functools
+import inspect
+import json
+import math
+import wave
+from pathlib import Path
+from unittest import mock
+
+import flax.linen as fnn
+import jax
+import jax.numpy as jnp
+import numpy as np
+import optax
+import pytest
+import torch
+
+from deeplearningexamples_tpu.cli import main as jax_cli
+from deeplearningexamples_tpu.data import ljspeech as jax_lj
+from deeplearningexamples_tpu.data.tts_synthetic import (
+    SyntheticTacotronLoader as JaxTacotronLoader,
+    SyntheticWaveGlowLoader as JaxWaveGlowLoader,
+)
+from deeplearningexamples_tpu.models.tts import (
+    Tacotron2Config as JaxT2Config,
+    Tacotron2Task as JaxT2Task,
+    WaveGlowConfig as JaxWGConfig,
+    WaveGlowTask as JaxWGTask,
+)
+from deeplearningexamples_tpu.models.tts import audio as jax_audio
+from deeplearningexamples_tpu.models.tts import inference as jax_inference
+from deeplearningexamples_tpu.models.tts import text as jax_text
+from deeplearningexamples_tpu.utils.torch_import import (
+    convert_tacotron2,
+    convert_waveglow,
+)
+from deeplearningexamples_tpu_torch.cli import main as cli_main
+from deeplearningexamples_tpu_torch.cli.main import cli
+from deeplearningexamples_tpu_torch.core import optimizers as opt
+from deeplearningexamples_tpu_torch.core.train import (
+    create_train_state,
+    make_train_step,
+)
+from deeplearningexamples_tpu_torch.data import ljspeech as lj
+from deeplearningexamples_tpu_torch.data.tts_synthetic import (
+    SyntheticTacotronLoader,
+    SyntheticWaveGlowLoader,
+)
+from deeplearningexamples_tpu_torch.models import tts
+from deeplearningexamples_tpu_torch.models.tts import (
+    Denoiser,
+    TTSPipeline,
+    Tacotron2,
+    Tacotron2Config,
+    Tacotron2Task,
+    WaveGlow,
+    WaveGlowConfig,
+    WaveGlowTask,
+    audio,
+    prepare_input_sequence,
+    text,
+)
+from deeplearningexamples_tpu_torch.models.tts.layers import Dropout
+from deeplearningexamples_tpu_torch.ops import (
+    embedding as emb,
+    flash_attention as fa,
+    quantization as quant,
+)
+from deeplearningexamples_tpu_torch.utils.jax_bridge import (
+    tacotron2_state_dict_from_jax,
+    waveglow_state_dict_from_jax,
+)
+
+# tests/test_tts.py's widths, the dropouts at 0 on the JAX side
+T2_KW = dict(
+    symbols_embedding_dim=32, encoder_embedding_dim=32, n_mel_channels=16,
+    attention_rnn_dim=32, decoder_rnn_dim=32, prenet_dim=16, attention_dim=16,
+    attention_location_n_filters=4, attention_location_kernel_size=7,
+    postnet_embedding_dim=32, postnet_n_convolutions=3, max_decoder_steps=40,
+)
+NO_DROP = dict(dropout=0.0, p_attention_dropout=0.0, p_decoder_dropout=0.0)
+WG_KW = dict(
+    n_mel_channels=16, n_flows=4, n_group=8, n_early_every=2, n_early_size=2,
+    wn_n_layers=2, wn_n_channels=32, segment_length=1024, hop_length=64,
+)
+FTOL = {False: 1e-5, True: 1e-4}  # eval and training forward
+STOL = 1e-5  # BN running statistics
+LTOL = 1e-5  # a loss, relative
+# gradients: of their own largest entry, of the largest entry of all
+GTOL = (1e-4, 5e-5)
+CTOL = 1e-4  # the 3-step loss curve, relative
+ITOL = 1e-5  # infer's mels and alignments; WaveGlow's z, log_s, log_det, infer
+RTOL = 1e-4  # the port's own WaveGlow round trip; the whole pipeline
+
+B, L, T = 3, 11, 20
+TEXT_LENGTHS = np.array([11, 5, 8], np.int32)
+MEL_LENGTHS = np.array([20, 14, 9], np.int32)
+
+
+def _rel(a, b) -> float:
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-30))
+
+
+def _worst(got: dict, want: dict) -> tuple[tuple, tuple]:
+    """The worst (error, name) over each tensor's largest entry and over
+    the largest entry of all."""
+    top = max(float(np.abs(w).max()) for w in want.values())
+    return (max((_rel(got[n], w), n) for n, w in want.items()),
+            max((float(np.abs(np.asarray(got[n], np.float64) - w).max()) / top,
+                 n) for n, w in want.items()))
+
+
+@pytest.fixture(autouse=True)
+def _exact_fp32():
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    with jax.default_matmul_precision("highest"):
+        yield
+
+
+@pytest.fixture
+def no_jax_dropout():
+    """``flax.linen.Dropout`` as the identity, inside the test only."""
+    with mock.patch.object(fnn.Dropout, "__call__",
+                           lambda self, x, deterministic=None, rng=None: x):
+        yield
+
+
+def _draw(shapes, seed: int):
+    """Variables of the JAX model's shapes, drawn in numpy: kernels N(0, 1 /
+    fan_in), BN scales 1 + 0.2 N(0, 1), biases and running means 0.1 N(0, 1),
+    running variances U(0.5, 1.5)."""
+    rng = np.random.default_rng(seed)
+
+    def leaf(path, x):
+        name = getattr(path[-1], "key", None)
+        if name == "scale":
+            out = 1.0 + 0.2 * rng.normal(size=x.shape)
+        elif name == "var":
+            out = rng.uniform(0.5, 1.5, x.shape)
+        elif name in ("bias", "mean"):
+            out = 0.1 * rng.normal(size=x.shape)
+        else:
+            out = rng.standard_normal(x.shape, np.float32) / np.float32(
+                np.sqrt(np.prod(x.shape[:-1])))
+        return np.asarray(out, np.float32)
+
+    return jax.tree_util.tree_map_with_path(leaf, shapes)
+
+
+def _load(model: torch.nn.Module, sd: dict) -> torch.nn.Module:
+    model.load_state_dict({k: torch.from_numpy(np.ascontiguousarray(v))
+                           for k, v in sd.items()}, strict=True)
+    return model
+
+
+# -- Tacotron2: the shared JAX side --------------------------------------------
+
+
+def _jax_t2(**kw) -> JaxT2Task:
+    return JaxT2Task(JaxT2Config(**{**T2_KW, **NO_DROP, **kw}), jnp.float32)
+
+
+@functools.lru_cache(maxsize=None)
+def _t2_variables():
+    shapes = jax.eval_shape(lambda: _jax_t2().init(jax.random.key(0), L, T, B))
+    params, state = _draw(shapes, 1)
+    return params, state["batch_stats"]
+
+
+@functools.lru_cache(maxsize=None)
+def _t2_batch(seed: int = 2) -> dict:
+    rng = np.random.default_rng(seed)
+    text_ids = rng.integers(1, 40, (B, L)).astype(np.int32)
+    for i, n in enumerate(TEXT_LENGTHS):
+        text_ids[i, n:] = 0
+    return {"text": text_ids, "text_lengths": TEXT_LENGTHS,
+            "mel": rng.normal(size=(B, T, 16)).astype(np.float32),
+            "mel_lengths": MEL_LENGTHS}
+
+
+def _t2_port(dtype=torch.float32, train: bool = True, **kw) -> Tacotron2:
+    """The port's Tacotron2 with JAX's variables, every dropout at 0."""
+    params, stats = _t2_variables()
+    model = _load(Tacotron2(Tacotron2Config(**{**T2_KW, **kw}), dtype),
+                  tacotron2_state_dict_from_jax(params, stats))
+    for m in model.modules():
+        if isinstance(m, Dropout):
+            m.p = 0.0
+    return model.train(train)
+
+
+def _torch_batch(batch: dict) -> dict:
+    return {k: torch.from_numpy(v) for k, v in batch.items()}
+
+
+@functools.lru_cache(maxsize=None)
+def _t2_jax_forward():
+    """JAX's eval and training forwards on ``_t2_batch()`` (the Dropout
+    stub active while they trace): (eval outputs, training outputs, the
+    training forward's batch statistics)."""
+    task, (params, stats) = _jax_t2(), _t2_variables()
+    b = _t2_batch()
+
+    def both(params, stats):
+        v = {"params": params, "batch_stats": stats}
+        args = (b["text"], b["text_lengths"], b["mel"], b["mel_lengths"])
+        ev = task.model.apply(v, *args, deterministic=True,
+                              rngs={"dropout": jax.random.key(0)})
+        tr, mut = task.model.apply(v, *args, deterministic=False,
+                                   rngs={"dropout": jax.random.key(0)},
+                                   mutable=["batch_stats"])
+        return ev, tr, mut["batch_stats"]
+
+    with mock.patch.object(fnn.Dropout, "__call__",
+                           lambda self, x, deterministic=None, rng=None: x):
+        out = jax.jit(both)(params, stats)
+    return jax.tree_util.tree_map(np.asarray, out)
+
+
+@functools.lru_cache(maxsize=None)
+def _t2_jax_grad_fn():
+    """JAX ``Tacotron2Task.loss_fn`` under ``jax.value_and_grad``, jitted:
+    (params, batch_stats, batch) -> ((loss, (mutated, {})), grads). Call it
+    with the Dropout stub active."""
+    task = _jax_t2()
+
+    def f(params, stats, batch):
+        return task.loss_fn(params, {"batch_stats": stats}, batch,
+                            jax.random.key(0))
+
+    return jax.jit(jax.value_and_grad(f, has_aux=True))
+
+
+# -- Tacotron2: forward, statistics, gradients, curve ----------------------------
+
+
+@pytest.mark.parametrize("train", [False, True], ids=["eval", "train"])
+def test_tacotron2_forward_matches_jax(train):
+    """mel, mel_post, gates and alignments of the teacher-forced forward,
+    with BN on its running (eval) or batch (train) statistics; in training
+    mode also every BN's running statistics after the forward."""
+    ev, tr, stats = _t2_jax_forward()
+    want = tr if train else ev
+    pm = _t2_port(train=train)
+    with torch.no_grad():
+        got = pm(*_torch_batch(_t2_batch()).values())
+    assert [tuple(g.shape) for g in got] == [(B, T, 16), (B, T, 16), (B, T),
+                                             (B, T, L)]
+    for g, w in zip(got, want):
+        assert _rel(g, w) <= FTOL[train]
+    assert float(got[2][2, MEL_LENGTHS[2]:].min()) == 1e3  # gates past a length
+    if train:
+        params, _ = _t2_variables()
+        want_sd = tacotron2_state_dict_from_jax(params, stats)
+        sd = pm.state_dict()
+        assert max(_rel(sd[k], want_sd[k]) for k in want_sd
+                   if "running" in k) <= STOL
+
+
+def test_tacotron2_loss_and_gradients_match_jax(no_jax_dropout):
+    """One step's loss and every gradient through ``Tacotron2Task.loss_fn``
+    in training mode (BN on batch statistics; the gate target 1 from
+    ``mel_length - 1``). The port's ``bias_ih`` buffers take no gradient:
+    each LSTM's trained bias is ``bias_hh``, flax's one bias."""
+    params, stats = _t2_variables()
+    batch = _t2_batch()
+    (want_loss, _), grads = _t2_jax_grad_fn()(params, stats, batch)
+    want_sd = tacotron2_state_dict_from_jax(
+        jax.tree_util.tree_map(np.asarray, grads))
+    pm = _t2_port()
+    task = Tacotron2Task(pm.cfg, torch.float32)
+    loss, (ms, metrics) = task.loss_fn(pm, task.model_state(pm),
+                                       _torch_batch(batch), torch.Generator())
+    loss.backward()
+    assert abs(float(loss) - float(want_loss)) <= LTOL * abs(float(want_loss))
+    got = {n: p.grad for n, p in pm.named_parameters()}
+    want = {n: want_sd[n] for n in got}
+    assert set(want_sd) - set(got) == {n for n, _ in pm.named_buffers()
+                                       if "bias_ih" in n}
+    # BN removes any shift of its input: these biases' gradients are 0 but
+    # for rounding, on both sides
+    shift = {n for n in got if n.endswith(".0.conv.bias")}
+    assert len(shift) == 6
+    top = max(float(np.abs(w).max()) for w in want.values())
+    assert max(max(float(np.abs(want[n]).max()), float(got[n].abs().max()))
+               for n in shift) <= 1e-5 * top
+    own, _ = _worst({n: got[n] for n in got if n not in shift},
+                    {n: want[n] for n in want if n not in shift})
+    _, whole = _worst(got, want)
+    assert own[0] <= GTOL[0] and whole[0] <= GTOL[1], (own, whole)
+
+
+def test_tacotron2_clip_adam_curve_matches_jax(no_jax_dropout):
+    """3 steps of ``chain(clip_by_global_norm(1.0), adam(1e-3))``, JAX's
+    ``run_tts`` optimizer, on one batch: the losses within CTOL relative
+    and, after the last step, every parameter within 1e-3 of its largest
+    entry (1.6e-4 read: Adam's early steps are about lr times the sign of
+    each gradient entry, so the few entries whose gradient is near its
+    rounding noise move a part of lr either way; not the convolution biases
+    before a training-mode BN, whose whole gradient is such noise) and the
+    BN running variances within STOL (the running means carry those
+    biases' moves)."""
+    params, stats = _t2_variables()
+    batch = _t2_batch()
+    grad_fn = _t2_jax_grad_fn()
+    jtx = optax.chain(optax.clip_by_global_norm(1.0), optax.adam(1e-3))
+
+    @jax.jit
+    def jax_step(params, stats, opt_state):
+        (loss, (mut, _)), g = grad_fn(params, stats, batch)
+        upd, opt_state = jtx.update(g, opt_state, params)
+        return optax.apply_updates(params, upd), mut["batch_stats"], \
+            opt_state, loss
+
+    jstate, want = jtx.init(params), []
+    for _ in range(3):
+        params, stats, jstate, loss = jax_step(params, stats, jstate)
+        want.append(float(loss))
+    pm = _t2_port()
+    task = Tacotron2Task(pm.cfg, torch.float32)
+    tx = opt.chain(opt.clip_by_global_norm(1.0), opt.adam(1e-3))
+    state = create_train_state(pm, tx, 0, model_state=task.model_state(pm))
+    step = make_train_step(task.loss_fn, tx)
+    got = []
+    for _ in range(3):
+        state, m = step(state, _torch_batch(batch))
+        got.append(float(m["loss"]))
+    assert got == pytest.approx(want, rel=CTOL)
+    want_sd = tacotron2_state_dict_from_jax(
+        jax.tree_util.tree_map(np.asarray, params),
+        jax.tree_util.tree_map(np.asarray, stats))
+    sd = pm.state_dict()
+    assert max(_rel(p.detach(), want_sd[n]) for n, p in pm.named_parameters()
+               if not n.endswith(".0.conv.bias")) <= 1e-3
+    assert max(_rel(sd[k], want_sd[k]) for k in want_sd
+               if "running_var" in k) <= STOL
+
+
+@functools.lru_cache(maxsize=None)
+def _t2_jax_infer():
+    task = _jax_t2()
+    b = _t2_batch()
+    return jax.jit(lambda params, stats: task.infer_fn(
+        params, {"batch_stats": stats}, b["text"], b["text_lengths"],
+        max_steps=15))
+
+
+def _gate_trace() -> np.ndarray:
+    """The port's gate logits (B, 15) of ``infer`` at gate bias 0: the
+    gate feeds nothing back, so a bias moves only where each row stops."""
+    pm = _t2_port(train=False)
+    seen = []
+    pm.decoder.gate_layer.register_forward_hook(
+        lambda m, a, out: seen.append(out[:, 0].clone()))
+    with torch.no_grad():
+        pm.decoder.gate_layer.linear_layer.bias.zero_()
+        b = _t2_batch()
+        pm.infer(torch.from_numpy(b["text"]), torch.from_numpy(b["text_lengths"]),
+                 15)
+    return torch.stack(seen, 1).numpy()
+
+
+def _midway_bias() -> tuple[float, int]:
+    """A gate bias at which row 0 first fires at frame s, 2 <= s <= 12,
+    half-way between its frame-s logit and its largest logit before (the
+    widest such margin), and row 0's length then: s + 1 (the frame that
+    fires counts)."""
+    g = _gate_trace()[0]
+    _, s = max((g[s] - g[:s].max(), s) for s in range(2, 13)
+               if g[s] > g[:s].max())
+    return -float(g[:s].max() + g[s]) / 2, s + 1
+
+
+@pytest.mark.parametrize("finish", ["first", "never", "midway"])
+def test_tacotron2_infer_matches_jax(finish):
+    """``infer`` over 15 steps with the gate bias forced so that every row
+    finishes at step 1, none finishes, or row 0 finishes at a step in
+    between: lengths equal, the mels (zeroed after each finish) and the
+    alignments within ITOL."""
+    params, stats = _t2_variables()
+    if finish == "midway":
+        bias, n = _midway_bias()
+    else:
+        bias, n = {"first": (1e3, 1), "never": (-1e3, 15)}[finish]
+    params = jax.tree_util.tree_map(lambda x: x, params)
+    params["cell"]["gate_layer"] = {
+        **params["cell"]["gate_layer"],
+        "bias": np.full((1,), bias, np.float32)}
+    want_mel, want_len, want_align = jax.tree_util.tree_map(
+        np.asarray, _t2_jax_infer()(params, stats))
+    pm = _load(_t2_port(train=False),
+               tacotron2_state_dict_from_jax(params, stats))
+    b = _t2_batch()
+    mel, length, align = pm.infer(torch.from_numpy(b["text"]),
+                                  torch.from_numpy(b["text_lengths"]), 15)
+    assert length.tolist() == want_len.tolist()
+    assert int(length[0]) == n
+    if finish == "first":
+        assert float(mel[:, 1:].abs().max()) == 0.0
+    assert _rel(mel, want_mel) <= ITOL and _rel(align, want_align) <= ITOL
+
+
+def test_dropouts_keep_their_rates_and_the_prenet_stays_on_in_infer():
+    """Each dropout of the default config zeroes its rate's share of a
+    large tensor (within 5 standard deviations) and scales the rest by 1 /
+    (1 - p); the Encoder's and Postnet's 0.5 act in training mode only, the
+    Prenet's, attention's and decoder's always. ``infer`` with two dropout
+    seeds gives two mels; with the always-on dropouts at 0, one."""
+    model = Tacotron2(Tacotron2Config(), torch.float32)
+    rates = {"encoder.dropout": (0.5, False), "postnet.dropout": (0.5, False),
+             "decoder.prenet.dropout": (0.5, True),
+             "decoder.attention_dropout": (0.1, True),
+             "decoder.decoder_dropout": (0.1, True)}
+    mods = {n: m for n, m in model.named_modules() if isinstance(m, Dropout)}
+    assert set(mods) == set(rates)
+    n, gen = 200_000, torch.Generator().manual_seed(0)
+    for name, (p, always) in rates.items():
+        m = mods[name]
+        assert (m.p, m.always) == (p, always)
+        y = m(torch.ones(n), gen)
+        kept = y != 0
+        assert abs(float(kept.float().mean()) - (1 - p)) <= 5 * math.sqrt(
+            p * (1 - p) / n)
+        assert torch.allclose(y[kept], torch.full_like(y[kept], 1 / (1 - p)))
+        assert torch.equal(m(torch.ones(8), gen, deterministic=True),
+                           torch.ones(8)) != always
+
+    pm, b = _t2_port(train=False), _t2_batch()
+    pm.decoder.prenet.dropout.p = 0.5
+    args = (torch.from_numpy(b["text"]), torch.from_numpy(b["text_lengths"]), 6)
+    m1, _, _ = pm.infer(*args, generator=torch.Generator().manual_seed(1))
+    m2, _, _ = pm.infer(*args, generator=torch.Generator().manual_seed(2))
+    assert not torch.equal(m1, m2)
+    pm.decoder.prenet.dropout.p = 0.0
+    m1, _, _ = pm.infer(*args, generator=torch.Generator().manual_seed(1))
+    m2, _, _ = pm.infer(*args, generator=torch.Generator().manual_seed(2))
+    assert torch.equal(m1, m2)
+
+
+# -- WaveGlow --------------------------------------------------------------------
+
+
+def _jax_wg() -> JaxWGTask:
+    return JaxWGTask(JaxWGConfig(**WG_KW), jnp.float32)
+
+
+@functools.lru_cache(maxsize=None)
+def _wg_params():
+    """JAX's WaveGlow variables drawn in numpy, with every ``end``
+    randomised and each 1x1 mix an orthogonal matrix plus 0.1 N(0, 1)."""
+    shapes = jax.eval_shape(lambda: _jax_wg().init(jax.random.key(0))[0])
+    params = _draw(shapes, 3)
+    rng = np.random.default_rng(4)
+    for k, v in params.items():
+        if k.startswith("conv1x1_"):
+            c = v["weight"].shape[0]
+            q, _ = np.linalg.qr(rng.normal(size=(c, c)))
+            v["weight"] = (q + 0.1 * rng.normal(size=(c, c))).astype(np.float32)
+        if k.startswith("wn_"):  # small, so that exp(log_s) stays near 1
+            v["end"]["kernel"] = 0.05 * v["end"]["kernel"]
+    return params
+
+
+def _wg_port(dtype=torch.float32) -> WaveGlow:
+    return _load(WaveGlow(WaveGlowConfig(**WG_KW), dtype),
+                 waveglow_state_dict_from_jax(_wg_params()))
+
+
+@functools.lru_cache(maxsize=None)
+def _wg_batch() -> dict:
+    return next(iter(JaxWaveGlowLoader(2, 1024, 64, 16, steps=1, seed=5)))
+
+
+@functools.lru_cache(maxsize=None)
+def _wg_jax():
+    """JAX's forward (z, log_s, log_det) and its loss and gradients on
+    ``_wg_batch()``."""
+    task, params, b = _jax_wg(), _wg_params(), _wg_batch()
+    fwd = jax.jit(lambda p: task.model.apply({"params": p}, b["audio"],
+                                             b["mel"]))(params)
+    (loss, _), grads = jax.jit(jax.value_and_grad(
+        lambda p: task.loss_fn(p, {}, b, jax.random.key(0)),
+        has_aux=True))(params)
+    return jax.tree_util.tree_map(np.asarray, (fwd, loss, grads))
+
+
+def test_waveglow_forward_matches_jax():
+    """z (the early outputs first; JAX's (B, T, n_group) against the port's
+    (B, n_group, T)), the total log_s and log_det."""
+    (z, log_s, log_det), _, _ = _wg_jax()
+    b = _wg_batch()
+    with torch.no_grad():
+        gz, gs, gd = _wg_port()(torch.from_numpy(b["audio"]),
+                                torch.from_numpy(b["mel"]))
+    assert gz.shape == (2, 8, 128)
+    assert _rel(gz.transpose(1, 2), z) <= ITOL
+    assert abs(float(log_det)) > 1.0 and abs(float(log_s)) > 1.0
+    assert abs(float(gs) - float(log_s)) <= ITOL * abs(float(log_s))
+    assert abs(float(gd) - float(log_det)) <= ITOL * abs(float(log_det))
+
+
+def test_waveglow_loss_and_gradients_match_jax():
+    _, want_loss, grads = _wg_jax()
+    want = waveglow_state_dict_from_jax(grads)
+    pm = _wg_port()
+    task = WaveGlowTask(pm.cfg, torch.float32)
+    loss, _ = task.loss_fn(pm, {}, _torch_batch(_wg_batch()), torch.Generator())
+    loss.backward()
+    assert abs(float(loss) - float(want_loss)) <= LTOL * abs(float(want_loss))
+    got = {n: p.grad for n, p in pm.named_parameters()}
+    assert set(got) == set(want)
+    own, whole = _worst(got, want)
+    assert own[0] <= GTOL[0] and whole[0] <= GTOL[1], (own, whole)
+
+
+def test_waveglow_infer_at_sigma_zero_matches_jax():
+    """With sigma 0 the noise is zero, yet every inverse coupling and 1x1
+    mix runs: audio (B, T_mel * hop) within ITOL."""
+    mel = _wg_batch()["mel"][:, :6]
+    want = np.asarray(jax.jit(_jax_wg().infer_fn)(_wg_params(), mel, 0.0))
+    got = _wg_port().infer(torch.from_numpy(mel), 0.0)
+    assert got.shape == (2, 6 * 64) and np.abs(want).max() > 1e-2
+    assert _rel(got, want) <= ITOL
+
+
+def test_waveglow_round_trip_gives_back_the_drawn_noise():
+    """``forward(infer(mel, sigma=1))`` gives back the noise ``infer`` drew
+    from its generator (the last flow's channels first, then each early
+    output's as the flows are undone; the forward puts the early outputs
+    first), within RTOL of its largest entry; the noise is N(0, 1)."""
+    pm, mel = _wg_port(), torch.from_numpy(_wg_batch()["mel"][:, :6])
+    audio = pm.infer(mel, 1.0, torch.Generator().manual_seed(7))
+    g = torch.Generator().manual_seed(7)
+    t = 6 * 64 // 8
+    last = torch.randn(2, pm.flow_channels()[-1], t, generator=g)  # 6
+    early = torch.randn(2, 2, t, generator=g)  # drawn at flow 2
+    with torch.no_grad():
+        z, _, _ = pm(audio, mel)
+    noise = torch.cat([early, last], 1)
+    assert _rel(z, noise) <= RTOL
+    assert abs(float(z.mean())) < 0.1 and abs(float(z.std()) - 1.0) < 0.1
+
+
+# -- frontends, loaders, denoiser ------------------------------------------------
+
+TEXTS = ["Hello, world!", "Dr. Smith paid $3.50 on the 2nd of May, 1905.",
+         "say {HH AH0 L OW1} to Mr. Müller", "Crème brûlée costs £12,000!"]
+CMU_LINES = ["HELLO  HH AH0 L OW1", "WORLD  W ER1 L D", "WORLD(1)  W ER0 L D",
+             ";;; a comment", "SAY  S EY1", "BAD  XX YY"]
+
+
+@pytest.mark.parametrize("s", TEXTS)
+def test_text_frontend_is_jaxs_bit_for_bit(s):
+    """``text_to_sequence`` with and without a ``CMUDict``, and
+    ``sequence_to_text``."""
+    seq = text.text_to_sequence(s)
+    assert seq == jax_text.text_to_sequence(s)
+    assert text.sequence_to_text(seq) == jax_text.sequence_to_text(seq)
+    d, jd = text.CMUDict(CMU_LINES), jax_text.CMUDict(CMU_LINES)
+    assert len(d) == len(jd) == 3 and d.lookup("world") == jd.lookup("world")
+    assert text.text_to_sequence(s, cmudict=d) == \
+        jax_text.text_to_sequence(s, cmudict=jd)
+    assert text.symbols == jax_text.symbols and text.N_SYMBOLS == 148
+
+
+def test_filterbank_and_mel_spectrogram_are_jaxs_bit_for_bit():
+    cfg = audio.MelConfig()
+    assert np.array_equal(audio.mel_filterbank(cfg),
+                          jax_audio.mel_filterbank(jax_audio.MelConfig()))
+    x = np.random.default_rng(0).normal(size=5000).astype(np.float32) * 0.3
+    got = audio.mel_spectrogram(x, cfg)
+    assert got.shape == (80, 20)
+    assert np.array_equal(got, jax_audio.mel_spectrogram(x))
+
+
+def test_synthetic_loaders_draw_jaxs_batches():
+    for port, jx in ((SyntheticTacotronLoader(4, 32, 48, seed=3, steps=1),
+                      JaxTacotronLoader(4, 32, 48, seed=3, steps=1)),
+                     (SyntheticWaveGlowLoader(3, seed=3, steps=1),
+                      JaxWaveGlowLoader(3, seed=3, steps=1))):
+        got, want = next(iter(port)), next(iter(jx))
+        assert set(got) == set(want)
+        for k in want:
+            assert got[k].dtype == want[k].dtype
+            assert np.array_equal(got[k], want[k])
+
+
+def _write_ljspeech(root: Path) -> Path:
+    """Three 16-bit wavs (0.5 s, 0.3 s, and 0.2 s, shorter than WaveGlow's
+    8000-sample segment) and a ``metadata.csv`` in LJSpeech's layout."""
+    rng = np.random.default_rng(9)
+    (root / "wavs").mkdir(parents=True)
+    rows = []
+    for i, (n, s) in enumerate([(11025, "Printing, in the only sense."),
+                                (6615, "With which we are at present concerned,"),
+                                (4410, "Dr. Smith, 1905.")]):
+        t = np.arange(n) / 22050
+        x = 0.3 * np.sin(2 * np.pi * (200 + 100 * i) * t) \
+            + 0.05 * rng.normal(size=n)
+        with wave.open(str(root / "wavs" / f"LJ001-000{i}.wav"), "wb") as w:
+            w.setnchannels(1)
+            w.setsampwidth(2)
+            w.setframerate(22050)
+            w.writeframes((np.clip(x, -1, 1) * 32767).astype(np.int16).tobytes())
+        rows.append(f"LJ001-000{i}|{s}|{s}")
+    (root / "metadata.csv").write_text("\n".join(rows) + "\n")
+    return root
+
+
+def test_ljspeech_loaders_are_jaxs_bit_for_bit(tmp_path):
+    """``load_wav``, ``TacotronLoader`` (from the wavs and from
+    ``precompute_mels``' cache) and ``WaveGlowLoader`` over two epochs."""
+    root = _write_ljspeech(tmp_path / "lj")
+    ds, jds = lj.LJSpeechDataset(str(root)), jax_lj.LJSpeechDataset(str(root))
+    assert ds.items == jds.items and len(ds) == 3
+    a, sr = lj.load_wav(ds.items[0][0])
+    assert sr == 22050 and np.array_equal(a, jax_lj.load_wav(ds.items[0][0])[0])
+    lj.precompute_mels(ds, str(tmp_path / "mels"))
+    for port, jx in ((lj.TacotronLoader(ds, 2, 64, 48, seed=1),
+                      jax_lj.TacotronLoader(jds, 2, 64, 48, seed=1)),
+                     (lj.TacotronLoader(ds, 3, mel_dir=str(tmp_path / "mels")),
+                      jax_lj.TacotronLoader(jds, 3)),
+                     (lj.WaveGlowLoader(ds, 3, seed=2),
+                      jax_lj.WaveGlowLoader(jds, 3, seed=2))):
+        for _ in range(2):
+            got, want = list(port), list(jx)
+            assert len(got) == len(want) >= 1
+            for g, w in zip(got, want):
+                assert set(g) == set(w)
+                assert all(np.array_equal(g[k], w[k]) for k in w)
+
+
+def test_prepare_input_sequence_and_denoiser_are_jaxs():
+    """The padded, length-sorted ids; and the denoiser on one given bias
+    waveform (the audio WaveGlow would emit for a zero mel), bit for bit."""
+    for pad in (None, 12):
+        got, want = prepare_input_sequence(TEXTS, pad), \
+            jax_inference.prepare_input_sequence(TEXTS, pad)
+        assert all(np.array_equal(g, w) for g, w in zip(got, want))
+    rng = np.random.default_rng(11)
+    bias = (0.01 * rng.normal(size=(1, 88 * 256))).astype(np.float32)
+    calls = []
+
+    def vocode(mel, sigma):
+        calls.append((np.asarray(mel).shape, sigma))
+        return bias
+
+    x = (0.3 * rng.normal(size=7000)).astype(np.float32)
+    got = Denoiser(vocode)(x, 0.1)
+    want = jax_inference.Denoiser(vocode)(x, 0.1)
+    assert calls == [((1, 88, 80), 0.0)] * 2
+    assert got.dtype == np.float32 and np.array_equal(got, want)
+
+
+def test_tts_pipeline_matches_jaxs_at_sigma_zero():
+    """``TTSPipeline`` on three sentences (no dropout, sigma 0, no row
+    finishing within 12 frames): JAX's order (by decreasing text length),
+    mel lengths, and each denoised wav within RTOL of its largest
+    sample."""
+    t2_params, t2_stats = _t2_variables()
+    t2_params = jax.tree_util.tree_map(lambda x: x, t2_params)
+    t2_params["cell"]["gate_layer"] = {
+        **t2_params["cell"]["gate_layer"], "bias": np.full((1,), -1e3, np.float32)}
+    texts = ["A short one.", "The longest sentence of the three, by far.",
+             "A middle sentence."]
+    # JAX's pipeline, its two infer_fn jitted
+    t2_task, wg_task = _jax_t2(), _jax_wg()
+    t2_task.infer_fn = jax.jit(t2_task.infer_fn, static_argnames="max_steps")
+    wg_task.infer_fn = jax.jit(wg_task.infer_fn)
+    want_wavs, want_lens = jax_inference.TTSPipeline(
+        t2_task, t2_params, {"batch_stats": t2_stats}, wg_task,
+        _wg_params(), max_decoder_steps=12, sigma=0.0, hop_length=64)(texts)
+    t2 = _load(_t2_port(train=False),
+               tacotron2_state_dict_from_jax(t2_params, t2_stats))
+    got_wavs, got_lens = TTSPipeline(
+        Tacotron2Task(t2.cfg, torch.float32), t2,
+        WaveGlowTask(WaveGlowConfig(**WG_KW), torch.float32), _wg_port(),
+        max_decoder_steps=12, sigma=0.0, hop_length=64)(texts)
+    assert got_lens.tolist() == np.asarray(want_lens).tolist() == [12] * 3
+    assert [len(w) for w in got_wavs] == [12 * 64] * 3
+    for g, w in zip(got_wavs, want_wavs):
+        assert np.isfinite(g).all() and _rel(g, w) <= RTOL
+
+
+# -- the optimizer ---------------------------------------------------------------
+
+
+@pytest.mark.parametrize("scale", [0.01, 10.0], ids=["below", "above"])
+def test_clip_then_adam_matches_optax(scale):
+    """``chain(clip_by_global_norm(1.0), adam(1e-3))`` against optax's over
+    3 updates, with the gradients' global norm below 1 and above it; the
+    clipped updates alone too. Within 1e-7 of the largest update."""
+    rng = np.random.default_rng(0)
+    p = {"a": rng.normal(size=(3, 4)).astype(np.float32),
+         "b": rng.normal(size=5).astype(np.float32)}
+    jtx = optax.chain(optax.clip_by_global_norm(1.0), optax.adam(1e-3))
+    tx = opt.chain(opt.clip_by_global_norm(1.0), opt.adam(1e-3))
+    tp = {k: torch.from_numpy(v.copy()) for k, v in p.items()}
+    js, ts = jtx.init(p), tx.init(tp)
+    for _ in range(3):
+        g = {k: (scale * rng.normal(size=v.shape)).astype(np.float32)
+             for k, v in p.items()}
+        norm = math.sqrt(sum(float((x.astype(np.float64) ** 2).sum())
+                             for x in g.values()))
+        assert (norm < 1.0) == (scale < 1.0)
+        tg = {k: torch.from_numpy(v) for k, v in g.items()}
+        ju, js = jtx.update(g, js, p)
+        tu, ts = tx.update(tg, ts, tp)
+        assert _worst(tu, {k: np.asarray(v) for k, v in ju.items()})[1][0] \
+            <= 1e-7
+        cu, _ = optax.clip_by_global_norm(1.0).update(g, optax.EmptyState())
+        tc, _ = opt.clip_by_global_norm(1.0).update(tg, ())
+        assert _worst(tc, {k: np.asarray(v) for k, v in cu.items()})[1][0] \
+            <= 1e-7
+
+
+# -- weights ---------------------------------------------------------------------
+
+
+def _tree_equal(want, got) -> None:
+    flat_w = dict(jax.tree_util.tree_leaves_with_path(want))
+    flat_g = {jax.tree_util.keystr(k): v
+              for k, v in jax.tree_util.tree_leaves_with_path(got)}
+    assert set(map(jax.tree_util.keystr, flat_w)) == set(flat_g)
+    for k, w in flat_w.items():
+        np.testing.assert_array_equal(flat_g[jax.tree_util.keystr(k)], w)
+
+
+def test_full_width_tacotron2_weights_round_trip_through_convert_tacotron2():
+    """At ``Tacotron2Config()``: a JAX tree of JAX's shapes and random
+    values goes through the bridge into the port's model (strict names and
+    shapes), then the port's ``state_dict`` through JAX's
+    ``convert_tacotron2`` gives the same tree back, bit for bit (the LSTM
+    gates, the reference's names)."""
+    task = JaxT2Task(JaxT2Config(), jnp.float32)
+    shapes = jax.eval_shape(lambda: task.init(jax.random.key(0), 8, 8, 2))
+    params, state = _draw(shapes, 12)
+    model = _load(Tacotron2(Tacotron2Config(), torch.float32),
+                  tacotron2_state_dict_from_jax(params, state["batch_stats"]))
+    sd = {k: t.numpy() for k, t in model.state_dict().items()}
+    assert sd["encoder.lstm.weight_ih_l0_reverse"].shape == (1024, 512)
+    got_params, got_stats = convert_tacotron2(sd)
+    _tree_equal(params, got_params)
+    _tree_equal(state["batch_stats"], got_stats)
+    assert sum(t.numel() for t in model.parameters()) == sum(
+        int(np.prod(a.shape)) for a in jax.tree_util.tree_leaves(shapes[0]))
+
+
+def test_full_width_waveglow_weights_round_trip_through_convert_waveglow():
+    """At ``WaveGlowConfig()``: the same round trip through
+    ``convert_waveglow``, which pins the ``upsample`` flip, the
+    conditioning channels' permutation and the ``end`` swap (each of which
+    leaves the shapes as they are)."""
+    shapes = jax.eval_shape(lambda: JaxWGTask(JaxWGConfig(), jnp.float32).init(
+        jax.random.key(0))[0])
+    params = _draw(shapes, 13)
+    sd_np = waveglow_state_dict_from_jax(params)
+    model = _load(WaveGlow(WaveGlowConfig(), torch.float32), sd_np)
+    sd = {k: t.numpy() for k, t in model.state_dict().items()}
+    _tree_equal(params, convert_waveglow(sd))
+    assert not np.array_equal(sd["upsample.weight"], np.transpose(
+        params["upsample"]["kernel"], (1, 2, 0)))
+    assert sd["WN.0.cond_layers.0.weight"].shape == (512, 640, 1)
+    assert sum(t.numel() for t in model.parameters()) == sum(
+        int(np.prod(a.shape)) for a in jax.tree_util.tree_leaves(shapes))
+
+
+# -- the CLI ---------------------------------------------------------------------
+
+# small models for the CPU: 80 mel channels (the loaders' and the mel
+# frontend's), narrow layers
+CLI_T2 = Tacotron2Config(**{**T2_KW, "n_mel_channels": 80})
+CLI_WG = WaveGlowConfig(n_flows=4, n_early_every=2, wn_n_layers=2,
+                        wn_n_channels=16)
+
+
+def _raport(path: Path) -> list[dict]:
+    return [json.loads(line[len("DLLL "):]) for line in path.read_text().splitlines()
+            if line.startswith("DLLL ")]
+
+
+def _losses(path: Path) -> list[float]:
+    return [r["data"]["train.loss"] for r in _raport(path)
+            if "train.loss" in r.get("data", {})]
+
+
+@pytest.fixture
+def small_tts(monkeypatch):
+    """The CLI's models and loaders at CPU sizes: ``CLI_T2`` and
+    ``CLI_WG``, synthetic text of 16 and mels of 24 frames, LJSpeech text
+    padded to 64 and mels to 48 frames."""
+    monkeypatch.setattr(tts, "Tacotron2Task",
+                        functools.partial(Tacotron2Task, CLI_T2))
+    monkeypatch.setattr(tts, "WaveGlowTask",
+                        functools.partial(WaveGlowTask, CLI_WG))
+    from deeplearningexamples_tpu_torch.data import tts_synthetic
+
+    monkeypatch.setattr(tts_synthetic, "SyntheticTacotronLoader",
+                        functools.partial(SyntheticTacotronLoader,
+                                          max_text_len=16, max_mel_len=24))
+    monkeypatch.setattr(lj, "TacotronLoader",
+                        functools.partial(lj.TacotronLoader, max_text_len=64,
+                                          max_mel_len=48))
+
+
+@pytest.mark.parametrize("backend", ["synthetic", "ljspeech"])
+@pytest.mark.parametrize("model", ["tacotron2", "waveglow"])
+def test_cli_trains_on_the_cpu(tmp_path, small_tts, model, backend):
+    """2 steps at B=2 (bf16, ``--lr 1e-3``), on synthetic batches or on the
+    LJSpeech files the test writes: every loss finite, a checkpoint at
+    step 2, no kernel of the port launched."""
+    before = (fa.launches, emb.launches, quant.launches)
+    args = [model, "--device", "cpu", "--batch-size", "2", "--steps-per-epoch",
+            "2", "--workspace", str(tmp_path), "--lr", "1e-3"]
+    if backend == "ljspeech":
+        root = _write_ljspeech(tmp_path / "lj")
+        # three files: one batch of 2 an epoch; two epochs make 2 steps
+        args += ["--data-backend", "ljspeech", "--data-dir", str(root),
+                 "--epochs", "2"]
+    state, _ = cli(args)
+    assert state.step == 2 and state.model.dtype == torch.bfloat16
+    loss = _losses(tmp_path / f"{model}_raport.json")
+    assert len(loss) == 2 and all(math.isfinite(x) for x in loss)
+    assert (fa.launches, emb.launches, quant.launches) == before
+    assert (tmp_path / f"{model}_ckpt" / "ckpt_2.pt").exists()
+
+
+@pytest.mark.parametrize("flag,value", [("--mesh-data", "2"),
+                                        ("--mesh-model", "2")])
+def test_cli_refuses_unported_flags(tmp_path, flag, value):
+    with pytest.raises(SystemExit, match="not ported"):
+        cli(["waveglow", "--device", "cpu", flag, value, "--workspace",
+             str(tmp_path)])
+
+
+def test_cli_rate_resume_and_weight_decay_quirk(tmp_path, small_tts):
+    """ROADMAP Queue 3 quirk 8h, kept on purpose: without a config file
+    ``tacotron2`` and ``waveglow`` inherit ``CommonConfig.lr = 0.1`` (JAX's
+    ``cfg.lr or 1e-3`` never falls back), so Adam's first step moves some
+    weight by about 0.1; ``--resume`` is never read (each run starts again
+    from the seed's weights and counts its steps from 0) and neither is
+    ``--weight-decay``: a second run with both gives the first run's losses
+    bit for bit. JAX's ``run_tts`` reads neither."""
+    assert jax_cli.CommonConfig().lr == 0.1
+    src = inspect.getsource(jax_cli.run_tts)
+    assert "cfg.lr or 1e-3" in src and "_maybe_resume" not in src \
+        and "weight_decay" not in src
+    seen = {}
+    with mock.patch.dict(cli_main.MODELS,
+                         {"waveglow": lambda cfg: seen.setdefault("cfg", cfg)}):
+        cli(["waveglow", "--workspace", str(tmp_path)])
+    assert seen["cfg"].lr == 0.1 and seen["cfg"].weight_decay == 0.0
+
+    args = ["waveglow", "--device", "cpu", "--batch-size", "2",
+            "--steps-per-epoch", "2", "--workspace", str(tmp_path)]
+    start = WaveGlowTask(CLI_WG, torch.bfloat16).init(
+        torch.Generator().manual_seed(0), "cpu").state_dict()
+    state, _ = cli(args)
+    first = _losses(tmp_path / "waveglow_raport.json")
+    moved = max(float((p.detach() - start[n]).abs().max())
+                for n, p in state.model.named_parameters())
+    assert 0.1 <= moved <= 0.3  # two Adam steps at lr 0.1
+    state, _ = cli([*args, "--resume", "--weight-decay", "0.5"])
+    assert state.step == 2
+    assert _losses(tmp_path / "waveglow_raport.json") == first
