@@ -93,14 +93,32 @@ and it imports nothing of JAX. Phases, one line each:
     CLI's runner, bf16 at bench.py's rates, with frames/s and samples/s;
     ``TTSPipeline`` from three sentences to wavs (800 decoder steps, the
     denoiser at 0.01), timed by part
+23. encoder-decoder: one fp32 step of Transformer-base (B=4, source 64
+    left-padded, target 64), bart-large (B=2, source 64, target 32) and
+    GNMT (B=2, 48) on the card, TF32 off, dropout 0, under the CLI's
+    optimizers, against the same steps on the CPU in float64 (the CPU's
+    fp32 steps beside them), the bf16 steps the controls; K1 and K2 against
+    their plain versions at the slice's shapes (the encoder's masked
+    self-attention, the decoder's causal one, cross-attention with Sq != Sk,
+    cross-attention at Sq = 1 with Sk 64 and 1024, BART's causal and masked
+    decoder), bf16 and fp32, with times beside SDPA's and the bound; plain
+    and KV-cached beam search of fp32 Transformer-base at B=8, beam 4,
+    max_len 64 on the card, equal to each other, their scores against
+    teacher forcing on the CPU in float64; ``transformer`` (B=128, 20
+    steps), ``bart --task summarize`` (beam-decoded ROUGE) and ``--task
+    pretrain``, ``gnmt`` (B=128, 5 steps) through the CLI's runners in bf16;
+    one bart-large bf16 AdamW step at B=8, source 1024, target 128, and a
+    cached beam decode at B=4, beam 4, source 1024, with peak memory
 
 Each main path (serving: phases 5-6; BERT training: phase 10; DLRM
 training: phase 13; ``int8_matmul``: phase 14; ``fused_lamb``: phase 15;
 ``hot_gather``: phase 16; BERT fine-tuning: phase 18; each ConvNets run of
 phase 20; SSD300's training, resume and inference in phase 21; Tacotron2's
-and WaveGlow's training and the TTS pipeline in phase 22) runs with the
+and WaveGlow's training and the TTS pipeline in phase 22; the beam searches
+and each encoder-decoder run of phase 23) runs with the
 launch counts set to 0 just before it and read just after; on the
-ConvNets, SSD300 and TTS paths every count must stay 0. Then one JSON
+ConvNets, SSD300, TTS and GNMT paths every count must stay 0, and on the
+Transformer and BART paths K1 and K2 must launch and K3-K6 must not. Then one JSON
 line with each kernel's launches on those paths, its error against the plain
 version, its time, the plain version's, its bound on this card and the time
 of the PyTorch call that computes the same function (where there is one),
@@ -133,6 +151,7 @@ from deeplearningexamples_tpu_torch.data.squad import (
     read_squad_examples,
 )
 from deeplearningexamples_tpu_torch.data.tokenization import BertTokenizer
+from deeplearningexamples_tpu_torch.cli import main as cli_main
 from deeplearningexamples_tpu_torch.cli.main import _bert_finetune_tx, cli
 from deeplearningexamples_tpu_torch.core import flat
 from deeplearningexamples_tpu_torch.core.train import (
@@ -141,8 +160,10 @@ from deeplearningexamples_tpu_torch.core.train import (
 )
 from deeplearningexamples_tpu_torch.core.optimizers import (
     adam,
+    adamw,
     chain,
     clip_by_global_norm,
+    lr_poly_warmup,
     no_decay_mask,
     sgd,
 )
@@ -169,6 +190,7 @@ from deeplearningexamples_tpu_torch.models.convnets import (
 from deeplearningexamples_tpu_torch.models.convnets.layers import BatchNorm2d
 from deeplearningexamples_tpu_torch.models.convnets.quant import QATConv
 from deeplearningexamples_tpu_torch.data.ssd_synthetic import SyntheticSSDLoader
+from deeplearningexamples_tpu_torch.data.summarization import rouge_scores
 from deeplearningexamples_tpu_torch.models.ssd import (
     SSD300,
     SSDTask,
@@ -191,6 +213,15 @@ from deeplearningexamples_tpu_torch.models.tts import (
 from deeplearningexamples_tpu_torch.models.tts.layers import (
     Dropout as TtsDropout,
 )
+from deeplearningexamples_tpu_torch.models.bart import BartConfig, BartTask
+from deeplearningexamples_tpu_torch.models.translation import (
+    GnmtConfig,
+    GnmtTask,
+    TransformerConfig,
+    TransformerTask,
+    beam_search,
+    beam_search_cached,
+)
 from deeplearningexamples_tpu_torch.models.dlrm import (
     Dlrm,
     DlrmConfig,
@@ -203,6 +234,7 @@ from deeplearningexamples_tpu_torch.ops import flash_attention as fa
 from deeplearningexamples_tpu_torch.ops import fused_lamb as fused
 from deeplearningexamples_tpu_torch.ops import quantization as quant
 from deeplearningexamples_tpu_torch.ops.lamb import lamb
+from deeplearningexamples_tpu_torch.tools import profile_seq2seq
 from deeplearningexamples_tpu_torch.tools.dlrm_hotrow import flat_ids
 from deeplearningexamples_tpu_torch.utils.jax_bridge import bert_pretrain_jax_order
 from deeplearningexamples_tpu_torch.serving import (
@@ -2177,11 +2209,13 @@ def _redraw_bn(model, gen: torch.Generator) -> None:
 
 
 def _float64(model):
-    """The model computing in float64 (its layers' compute dtype too)."""
+    """The model computing in float64 (its layers' compute dtype too: a
+    ``dtype``, or a ``compute_dtype`` that is set)."""
     model = model.double()
     for m in model.modules():
-        if hasattr(m, "dtype"):
-            m.dtype = torch.float64
+        for attr in ("dtype", "compute_dtype"):
+            if getattr(m, attr, None) is not None:
+                setattr(m, attr, torch.float64)
     return model
 
 
@@ -3038,6 +3072,655 @@ def phase_tts() -> dict[str, int]:
     return launched
 
 
+# -- phase 23 ----------------------------------------------------------------
+
+# 23a: one fp32 training step of each encoder-decoder model on the card (TF32
+# off, every dropout at 0) under the CLI's optimizer, against the same step
+# on the CPU in float64 (the CPU's fp32 step beside it): the loss to 1e-5
+# relative; each gradient to TOL_S2S of its own largest entry (or FLOOR
+# times the largest of all, where that is more: BART's key biases, whose
+# gradient the softmax cancels, are 0 but for rounding) and of the largest
+# entry of all; the bf16 step (the control) must miss them. The card's
+# AdamW update (each delta, the first moments) against the same update in
+# float64 on the card's own gradients, to TOL_S2S_UPDATE: two devices'
+# whole steps are not compared entry by entry (AdamW's first step is about
+# -lr * sign(g)); each delta may differ from the update by the rounding of
+# p + u (an ulp of the parameter, which swamps an update below it). The
+# shapes: Transformer-base at B=4, source 64 left-padded by 0, 5, 17 and
+# 40, target 64 right-padded; bart-large at B=2, source 64 and target 32,
+# both right-padded; GNMT at B=2, source and target 48, right-padded. The
+# CPU steps stop at the gradients. The limits lie between the readings of an H100 run (NVIDIA
+# H100 80GB HBM3, 700 W; of its own / of all) of the fp32 steps, card and
+# CPU alike, and the bf16 controls': Transformer-base card 6.72e-3 /
+# 1.04e-3, CPU fp32 7.90e-3 / 1.37e-3, bf16 6.90e-1 / 2.80e-2 (the ReLU
+# FFNs: of 12 x 524,288 inputs a few lie within fp32 rounding of the kink,
+# and each that flips moves its fc1 row by one token's share); bart-large
+# (exact GELU) card 5.28e-5 / 7.61e-7, CPU 4.50e-5 / 1.34e-6, bf16 6.38e-1
+# / 1.09e-2; GNMT card 4.18e-6 / 2.69e-6, CPU 9.67e-6 / 4.88e-6, bf16
+# 2.82e-2 / 2.56e-2. The update read at most 6.9e-6 (deltas) and 7.1e-8
+# (moments).
+TOL_S2S = {"transformer": (5e-2, 5e-3), "bart": (1e-3, 1e-4),
+           "gnmt": (1e-3, 1e-4)}
+TOL_S2S_UPDATE = (1e-4, 1e-4)
+S2S_PARITY = {  # (B, source, target, source lengths, target lengths)
+    "transformer": (4, 64, 64, (64, 59, 47, 24), (64, 50, 37, 21)),
+    "bart": (2, 64, 32, (64, 45), (32, 19)),
+    "gnmt": (2, 48, 48, (48, 30), (48, 25)),
+}
+# 23b: K1/K2 against their plain versions at this slice's shapes (B, Sq, Sk,
+# H, causal, masked), with TOL and TOL_BWD; times for bf16. Every shape at
+# which 23c-d run K1 or K2: Transformer-base at B=128 (source 64, target 63)
+# and its cached decode; the CLI's bart (B=8, 4 heads, source 128, target
+# 33, denoising target 129) and its decode; the bart-large step (B=8,
+# source 1024, target 128: the decoder runs 127 queries, a ragged last
+# tile) and decode (B=4, beam 4, source 1024)
+S2S_ATTN = {
+    "encoder self": (128, 64, 64, 8, False, True),
+    "decoder self": (128, 63, 63, 8, True, False),
+    "cross": (128, 63, 64, 8, False, True),
+    "cross Sq=1 (cached decode)": (32, 1, 64, 8, False, True),
+    "cli bart encoder self": (8, 128, 128, 4, False, True),
+    "cli bart decoder self": (8, 33, 33, 4, True, True),
+    "cli bart cross": (8, 33, 128, 4, False, True),
+    "cli bart pretrain decoder self": (8, 129, 129, 4, True, True),
+    "cli bart pretrain cross": (8, 129, 128, 4, False, True),
+    "cli bart cross Sq=1 (cached decode)": (32, 1, 128, 4, False, True),
+    "bart decoder self": (8, 128, 128, 16, True, True),
+    "bart-large encoder self": (8, 1024, 1024, 16, False, True),
+    "bart-large decoder self": (8, 127, 127, 16, True, True),
+    "bart-large cross": (8, 127, 1024, 16, False, True),
+    "bart-large decode encoder": (4, 1024, 1024, 16, False, True),
+    "cross Sq=1 bart-large S=1024": (16, 1, 1024, 16, False, True),
+}
+# 23c: beam search on the card in fp32, Transformer-base at B=8, beam 4,
+# max_len 64: cached against uncached sequences equal and scores to
+# TOL_S2S_CACHED relative; the card's best-first sequences re-scored by
+# teacher forcing on the CPU in float64, the length-normalised scores to
+# TOL_S2S_RESCORE relative
+S2S_BEAM = (8, 4, 64)
+TOL_S2S_CACHED = 1e-5
+TOL_S2S_RESCORE = 1e-4
+# 23d: through the CLI's runners, bf16: transformer at B=128 for 20 steps at
+# lr 5e-4 (the JAX runner's fallback rate; without --lr it is 0.1, quirk
+# 8i), bart summarize and pretrain at B=8 and lr 1e-3, gnmt at B=128 for 5
+# steps at lr 1e-3; then a bart-large AdamW step at B=8, source 1024,
+# target 128, and a cached beam decode at B=4, beam 4, source 1024
+S2S_T_B, S2S_T_STEPS = 128, 20
+S2S_BART_B = 8
+# bart summarize trains 40 epochs of the synthetic set's 8 batches: after 8
+# steps every best hypothesis was empty (EOS first) and ROUGE 0, after 96 on
+# the CPU (bf16) the hypotheses had 6 tokens and after 320 they depended on
+# the source. The card's bf16 best scores against float64 teacher forcing:
+# the CPU's bf16 decode read 3.3e-3 after 320 steps, so the limit is 3e-2
+S2S_BART_EPOCHS = 40
+TOL_S2S_ROUGE_RESCORE = 3e-2
+S2S_GNMT_B, S2S_GNMT_STEPS = 128, 5
+S2S_DECODE = (4, 4, 1024, 64)  # B, beam, source, max_len
+
+
+def _s2s_init(kind: str):
+    """A full-width fp32 model on the CPU from SEED, every dropout at 0,
+    each bias redrawn at 0.02 N(0, 1) and each LayerNorm scale at 1 + 0.1
+    N(0, 1), so that no branch sits at its zero init."""
+    gen = torch.Generator().manual_seed(SEED)
+    if kind == "transformer":
+        model = TransformerTask(TransformerConfig(dropout=0.0),
+                                torch.float32).init(gen, "cpu")
+    elif kind == "bart":
+        model = BartTask(BartConfig(dropout=0.0), torch.float32).init(gen, "cpu")
+    else:
+        model = GnmtTask(GnmtConfig(dropout=0.0), torch.float32).init(gen, "cpu")
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            leaf = name.rsplit(".", 1)[-1]
+            if leaf.startswith("bias"):
+                p.copy_(0.02 * torch.randn(p.shape, generator=gen))
+            elif leaf == "weight" and p.dim() == 1:  # a LayerNorm's scale
+                p.copy_(1.0 + 0.1 * torch.randn(p.shape, generator=gen))
+    return model
+
+
+def _s2s_copy(model, dtype):
+    out = type(model)(model.cfg, dtype)
+    out.load_state_dict(model.state_dict())
+    return out.train()
+
+
+def _s2s_batch(kind: str) -> dict:
+    b, s, t, src_len, tgt_len = S2S_PARITY[kind]
+    cfg = {"transformer": TransformerConfig(), "bart": BartConfig(),
+           "gnmt": GnmtConfig()}[kind]
+    rng = np.random.default_rng(SEED)
+    src = np.full((b, s), cfg.pad_id, np.int32)
+    tgt = np.full((b, t), cfg.pad_id, np.int32)
+    for i, (n, m) in enumerate(zip(src_len, tgt_len)):
+        ids = rng.integers(4, cfg.vocab_size, n)
+        if kind == "transformer":  # the reference left-pads the source
+            src[i, s - n:] = ids
+        else:
+            src[i, :n] = ids
+        tgt[i, 0], tgt[i, m - 1] = cfg.bos_id, cfg.eos_id
+        tgt[i, 1:m - 1] = rng.integers(4, cfg.vocab_size, m - 2)
+    return {"src": src, "tgt": tgt}
+
+
+# the CLI's optimizers (lr(0) is the base rate: one warmup step of ten)
+S2S_TX = {
+    "transformer": (5e-4, 0.0, lambda: adamw(lr_poly_warmup(5e-4, 1, 10),
+                                             b2=0.997, weight_decay=0.0)),
+    "bart": (1e-3, 0.01, lambda: adamw(lr_poly_warmup(1e-3, 1, 10),
+                                       weight_decay=0.01)),
+    "gnmt": (1e-3, 0.0, lambda: adam(1e-3)),
+}
+
+
+def _s2s_step(kind: str, model, batch: dict, device,
+              update: bool = True) -> dict:
+    """One step through ``make_train_step`` under the CLI's optimizer in the
+    model's compute dtype: the loss, the gradients, the parameters before,
+    the deltas and AdamW's first moments, on the CPU. ``update=False``: the
+    loss and the gradients only."""
+    task = {"transformer": TransformerTask, "bart": BartTask,
+            "gnmt": GnmtTask}[kind](model.cfg, model.dtype)
+    model = model.to(device).train()
+    params = dict(model.named_parameters())
+    if not update:
+        t = {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+        loss, _ = task.loss_fn(model, {}, t, torch.Generator())
+        loss.backward()
+        return {"loss": float(loss.detach()),
+                "grads": {n: p.grad.detach().cpu() for n, p in params.items()}}
+    tx = S2S_TX[kind][2]()
+    state = create_train_state(model, tx, SEED, params=params)
+    before = {n: p.detach().clone() for n, p in params.items()}
+    t = {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+    state, metrics = make_train_step(task.loss_fn, tx)(state, t)
+    cpu = lambda d: {n: x.detach().cpu() for n, x in d.items()}  # noqa: E731
+    return {"loss": float(metrics["loss"]),
+            "grads": cpu({n: p.grad for n, p in params.items()}),
+            "before": cpu(before),
+            "deltas": cpu({n: p.detach() - before[n] for n, p in params.items()}),
+            "mu": cpu(state.opt_state.mu)}
+
+
+def _adamw64(kind: str, step: dict) -> tuple[dict, dict]:
+    """AdamW's first update on ``step``'s own gradients, in float64:
+    (deltas, first moments)."""
+    lr, wd = S2S_TX[kind][:2]
+    g = {n: x.double() for n, x in step["grads"].items()}
+    return ({n: -lr * (x / (x.abs() + 1e-8) + wd * step["before"][n].double())
+             for n, x in g.items()},
+            {n: 0.1 * x for n, x in g.items()})
+
+
+def _worst_update(deltas: dict, want: dict, before: dict):
+    """``_worst`` of the deltas against the float64 update, each entry
+    allowed one ulp of its fp32 parameter after the step (the rounding of p
+    + u, which swamps an update below that ulp)."""
+    top = max(float(w.abs().max()) for w in want.values())
+    out = ([], [])
+    for n, w in want.items():
+        after = before[n] + deltas[n]
+        ulp = (torch.nextafter(after, torch.full_like(after, math.inf))
+               - after).double()
+        err = float(((deltas[n].double() - w).abs() - ulp).clamp(min=0).max())
+        out[0].append((err / max(float(w.abs().max()), FLOOR * top), n))
+        out[1].append((err / top, n))
+    return max(out[0]), max(out[1])
+
+
+def _s2s_parity(kind: str) -> None:
+    """23a for one model."""
+    t0 = time.perf_counter()
+    batch = _s2s_batch(kind)
+    init = _s2s_init(kind)
+    gpu = _s2s_step(kind, copy.deepcopy(init), batch, DEV)
+    f64 = _s2s_step(kind, _float64(copy.deepcopy(init)), batch, "cpu",
+                    update=False)
+    f32 = _s2s_step(kind, copy.deepcopy(init), batch, "cpu", update=False)
+    b16 = _s2s_step(kind, _s2s_copy(init, torch.bfloat16), batch, DEV)
+    del init
+    lim = TOL_S2S[kind]
+    g64 = f64["grads"]
+    g_rel, g_cpu, w16 = (_worst(s["grads"], g64) for s in (gpu, f32, b16))
+    rel_loss = abs(gpu["loss"] - f64["loss"]) / abs(f64["loss"])
+    upd = {}
+    for what, s in (("fp32", gpu), ("bf16", b16)):
+        d64, mu64 = _adamw64(kind, s)
+        upd[what] = (_worst_update(s["deltas"], d64, s["before"]),
+                     _worst(s["mu"], mu64))
+    b, s_len, t_len = S2S_PARITY[kind][:3]
+    line = (f"{kind} B={b} source {s_len} target {t_len}: one fp32 step, card "
+            f"vs CPU float64: loss {gpu['loss']:.7f} vs {f64['loss']:.7f} "
+            f"({rel_loss:.2e}); worst gradients: {_fmt(g_rel)} (limits "
+            f"{lim[0]:.0e}, {lim[1]:.0e}; the CPU's own fp32 step: "
+            f"{_fmt(g_cpu)}, loss {f32['loss']:.7f}); bf16 card step (the "
+            f"control): loss {b16['loss']:.6f}, worst gradients {_fmt(w16)}; "
+            f"the card's update vs float64 on its own gradients (limits "
+            f"{TOL_S2S_UPDATE[0]:.0e}, {TOL_S2S_UPDATE[1]:.0e}): "
+            + "; ".join(f"{k} step deltas {_fmt(d)}, first moments {_fmt(m)}"
+                        for k, (d, m) in upd.items())
+            + f" ({time.perf_counter() - t0:.1f} s)")
+    say("23 seq2seq", f"parity: {line}")
+    check(rel_loss <= TOL_CONV["loss"], f"{kind} fp32 loss: card "
+          f"{gpu['loss']} vs CPU float64 {f64['loss']}")
+    check(_within(g_rel, lim), f"{kind} fp32 gradients: {g_rel}")
+    check(math.isfinite(b16["loss"]) and not _within(w16, lim),
+          f"{kind}: the bf16 control meets the fp32 limits: {b16['loss']} {w16}")
+    for what, (d, m) in upd.items():
+        check(_within(d, TOL_S2S_UPDATE) and _within(m, TOL_S2S_UPDATE),
+              f"{kind} {what} update: deltas {d}, moments {m}")
+
+
+def phase_s2s_parity() -> None:
+    """23a: one fp32 step of Transformer-base, bart-large and GNMT, card
+    against CPU float64, with bf16 controls; each model's line is printed
+    before its checks, and every model runs before the first failure is
+    raised."""
+    flags = (torch.backends.cudnn.benchmark, torch.backends.cudnn.deterministic)
+    torch.backends.cudnn.benchmark, torch.backends.cudnn.deterministic = \
+        False, True
+    failed = []
+    try:
+        for kind in S2S_PARITY:
+            try:
+                _s2s_parity(kind)
+            except AssertionError as e:
+                failed.append(str(e))
+    finally:
+        torch.backends.cudnn.benchmark, torch.backends.cudnn.deterministic = \
+            flags
+    check(not failed, "; ".join(failed))
+
+
+def _s2s_attn_inputs(b, sq, sk, h, dtype, masked, seed=SEED):
+    """q (B, Sq, H, 64), k, v (B, Sk, H, 64) and a key mask with lengths
+    in [Sk / 4, Sk], the last row fully masked."""
+    g = torch.Generator().manual_seed(seed)
+    q = torch.randn((b, sq, h, D), generator=g).to(DEV, dtype)
+    k, v = (torch.randn((b, sk, h, D), generator=g).to(DEV, dtype)
+            for _ in range(2))
+    mask = None
+    if masked:
+        lengths = torch.randint(sk // 4, sk + 1, (b,), generator=g)
+        mask = (torch.arange(sk)[None, :] < lengths[:, None]).to(torch.int32)
+        mask[-1] = 0
+        mask = mask.to(DEV)
+    return q, k, v, mask
+
+
+def _s2s_attn_case(b, sq, sk, h, causal, masked, dtype):
+    """K1 and K2 against their plain versions at one shape (raises past TOL
+    and TOL_BWD): (K1's out error, K2's worst error over its largest entry,
+    K2's worst error)."""
+    q, k, v, mask = _s2s_attn_inputs(b, sq, sk, h, dtype, masked)
+    for t in (q, k, v):
+        t.requires_grad_()
+    kw = dict(causal=causal, layout="bshd")
+    before = (fa.launches, fa.launches_bwd_dq, fa.launches_bwd_dkv)
+    out, lse = fa.flash_attention_with_lse(q, k, v, mask, **kw)
+    ref, ref_lse = fa.mha_reference(q.detach(), k.detach(), v.detach(), mask,
+                                    **kw)
+    e_out, e_lse = max_err(out, ref), max_err(lse, ref_lse)
+    check(e_out <= TOL[dtype][0] and e_lse <= TOL[dtype][1],
+          f"K1 vs plain b{b} sq{sq} sk{sk} h{h} {dtype}: out {e_out:.3e} "
+          f"lse {e_lse:.3e}")
+    dout = torch.randn(q.shape, generator=torch.Generator().manual_seed(1)
+                       ).to(DEV, dtype)
+    out.backward(dout)
+    torch.cuda.synchronize()
+    check((fa.launches, fa.launches_bwd_dq, fa.launches_bwd_dkv)
+          == tuple(n + 1 for n in before), "K1/K2 not launched")
+    want = fa.mha_backward_reference(q.detach(), k.detach(), v.detach(), mask,
+                                     out.detach(), lse, dout, causal,
+                                     layout="bshd")
+    rel = worst = 0.0
+    for name, got, ref in zip("qkv", (q.grad, k.grad, v.grad), want):
+        err, scale = max_err(got, ref), float(ref.float().abs().max())
+        check(math.isfinite(err) and err <= TOL_BWD[dtype] * scale,
+              f"K2 vs plain b{b} sq{sq} sk{sk} h{h} {dtype}: d{name} {err:.3e}"
+              f" of {scale:.3e}")
+        rel, worst = max(rel, err / max(scale, 1e-30)), max(worst, err)
+    return e_out, rel, worst
+
+
+def _s2s_time(b, sq, sk, h, causal, masked) -> str:
+    """bf16 K1, its plain version and SDPA at one shape, in turns, with the
+    bound: one line."""
+    q, k, v, mask = _s2s_attn_inputs(b, sq, sk, h, torch.bfloat16, masked)
+    sdpa_mask = None
+    if mask is not None:
+        sdpa_mask = mask.bool()[:, None, None, :].expand(b, 1, sq, sk)
+    if causal:
+        tri = torch.ones(sq, sk, dtype=torch.bool, device=DEV).tril()
+        sdpa_mask = tri if sdpa_mask is None else sdpa_mask & tri
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    with torch.inference_mode():
+        ms = _clocks({
+            "ms": (lambda: fa.flash_attention(q, k, v, mask, causal=causal,
+                                              layout="bshd"), 30),
+            "plain_ms": (lambda: fa.mha_reference(q, k, v, mask, causal,
+                                                  layout="bshd"), 10),
+            "library_ms": (lambda: torch.nn.functional.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=sdpa_mask), 30)}, turns=2)
+    pairs = b * h * (sq * (sq + 1) // 2 if causal else sq * sk)
+    bound, by = _bound(2 * b * (sq + sk) * h * D * 2 + b * h * sq * 4
+                       + (b * sk * 4 if masked else 0), 4 * pairs * D,
+                       torch.bfloat16)
+    return (f"K1 {ms['ms'][0]:.4f} [{ms['ms'][1]:.4f}] ms, plain "
+            f"{ms['plain_ms'][0]:.4f} ms, SDPA {ms['library_ms'][0]:.4f} "
+            f"[{ms['library_ms'][1]:.4f}] ms, bound {bound:.4f} ms ({by})")
+
+
+def phase_s2s_kernels() -> tuple[float, float]:
+    """23b: K1 and K2 against their plain versions at this slice's shapes in
+    bf16 and fp32, with bf16 times. Returns the worst K1 out error and K2
+    error (max abs)."""
+    t0 = time.perf_counter()
+    worst_fwd = worst_bwd = 0.0
+    lines = []
+    for name, (b, sq, sk, h, causal, masked) in S2S_ATTN.items():
+        errs = []
+        for dtype in (torch.float32, torch.bfloat16):
+            e_out, rel, e_bwd = _s2s_attn_case(b, sq, sk, h, causal, masked,
+                                               dtype)
+            worst_fwd, worst_bwd = max(worst_fwd, e_out), max(worst_bwd, e_bwd)
+            errs.append(f"{'fp32' if dtype == torch.float32 else 'bf16'} "
+                        f"{e_out:.2e}/{rel:.2e}")
+        lines.append(f"{name} (B={b} Sq={sq} Sk={sk} H={h}"
+                     f"{' causal' if causal else ''}"
+                     f"{' masked' if masked else ''}): K1 out err / K2 err of "
+                     f"its largest {', '.join(errs)}; bf16 "
+                     + _s2s_time(b, sq, sk, h, causal, masked))
+    # K2's times at the training shapes whose queries and keys are one
+    # sequence: the encoder's masked self-attention, the decoder's causal
+    # one, BART's causal and masked decoder, bart-large's encoder and decoder
+    bwd = {"encoder self B=128 S=64 H=8 masked": (128, 64, 8, True, False),
+           "decoder self B=128 S=63 H=8 causal": (128, 63, 8, False, True),
+           "bart decoder self B=8 S=128 H=16 causal masked":
+               (8, 128, 16, True, True),
+           "bart-large encoder self B=8 S=1024 H=16 masked":
+               (8, 1024, 16, True, False),
+           "bart-large decoder self B=8 S=127 H=16 causal masked":
+               (8, 127, 16, True, True)}
+    for name, (b, s, h, masked, causal) in bwd.items():
+        lines.append(f"K2 {name}: " + _fmt_bwd_times(
+            _time_bwd(b, s, h, D, "bshd", masked=masked, causal=causal)))
+    say("23 seq2seq", "K1/K2 at the slice's shapes vs plain (D=64, bshd): "
+        + "; ".join(lines) + " (CUDA events, least of 2 (K2: 3) in turns; "
+        f"[the card's clock alone]; {time.perf_counter() - t0:.1f} s)")
+    return worst_fwd, worst_bwd
+
+
+def _rescore64(model64, src: np.ndarray, seqs: torch.Tensor, beam: int,
+               cfg) -> torch.Tensor:
+    """The length-normalised score of each (B, beam, L) sequence by teacher
+    forcing on the CPU in float64: the log-probabilities of its tokens up to
+    and with its first EOS (pads after it cost 0)."""
+    b, _, length = seqs.shape
+    flat = seqs.reshape(b * beam, length).cpu()
+    with torch.no_grad():
+        memory, mask = model64.encode(torch.from_numpy(src))
+        logits = model64.decode(flat, memory.repeat_interleave(beam, 0),
+                                mask.repeat_interleave(beam, 0))
+    logp = torch.log_softmax(logits, -1)[:, :-1]
+    tok = flat[:, 1:]
+    gain = logp.gather(-1, tok[..., None])[..., 0]
+    done_before = torch.cumsum((tok == cfg.eos_id).long(), 1) - (
+        tok == cfg.eos_id).long() > 0
+    score = torch.where(done_before, 0.0, gain).sum(1)
+    lengths = (flat != cfg.pad_id).sum(1).double()
+    return (score / ((5.0 + lengths) / 6.0) ** 0.6).reshape(b, beam)
+
+
+def phase_s2s_decode() -> dict[str, int]:
+    """23c: plain and cached beam search of fp32 Transformer-base on the
+    card; the cached search's K1 launches; the card's sequences re-scored on
+    the CPU in float64."""
+    t0 = time.perf_counter()
+    b, beam, max_len = S2S_BEAM
+    cfg = TransformerConfig()
+    init = TransformerTask(cfg, torch.float32).init(
+        torch.Generator().manual_seed(SEED), "cpu").eval()
+    model = copy.deepcopy(init).to(DEV)
+    rng = np.random.default_rng(SEED)
+    src = np.full((b, 64), cfg.pad_id, np.int32)
+    for i, n in enumerate(rng.integers(32, 65, b)):
+        src[i, 64 - n:] = rng.integers(4, cfg.vocab_size, n)
+    kw = dict(beam_size=beam, max_len=max_len, bos_id=cfg.bos_id,
+              eos_id=cfg.eos_id, pad_id=cfg.pad_id, vocab_size=cfg.vocab_size)
+    with torch.no_grad():
+        memory, mask = model.encode(torch.from_numpy(src).to(DEV))
+    mem, msk = memory.repeat_interleave(beam, 0), mask.repeat_interleave(beam, 0)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    before = fa.launches
+    plain = beam_search(lambda ids: model.decode(ids, mem, msk), b,
+                        device=DEV, **kw)
+    torch.cuda.synchronize()
+    t_plain, plain_k1 = time.perf_counter() - t1, fa.launches - before
+    t1 = time.perf_counter()
+    before = fa.launches
+    cached = beam_search_cached(model, mem, msk, b, **kw)
+    torch.cuda.synchronize()
+    t_cached, cached_k1 = time.perf_counter() - t1, fa.launches - before
+    layers = cfg.decoder_layers
+    check(cached_k1 == layers * (max_len - 1),
+          f"cached search launched K1 {cached_k1} times, not "
+          f"{layers * (max_len - 1)}")
+    check(plain_k1 == 2 * layers * (max_len - 1),
+          f"plain search launched K1 {plain_k1} times")
+    same = bool((plain[0] == cached[0]).all())
+    rel_cached = max_err(plain[1], cached[1]) / float(cached[1].abs().max())
+    want = _rescore64(_float64(copy.deepcopy(init)), src, cached[0], beam, cfg)
+    rel_rescore = max_err(cached[1], want) / float(want.abs().max())
+    lengths = (cached[0][:, 0] != cfg.pad_id).sum(1).tolist()
+    say("23 seq2seq", f"beam search, fp32 Transformer-base on the card, B={b} "
+        f"beam {beam} max_len {max_len}: plain and cached sequences equal: "
+        f"{same}; scores {rel_cached:.2e} apart (limit {TOL_S2S_CACHED:.0e}); "
+        f"the cached search's best-first scores vs teacher forcing on the CPU "
+        f"in float64: {rel_rescore:.2e} (limit {TOL_S2S_RESCORE:.0e}); best "
+        f"lengths {lengths}; K1 launches: cached {cached_k1} (= {layers} "
+        f"layers x {max_len - 1} steps, the cross-attention at Sq=1), plain "
+        f"{plain_k1}; host clock: plain {t_plain:.3f} s, cached "
+        f"{t_cached:.3f} s ({time.perf_counter() - t0:.1f} s)")
+    check(same and rel_cached <= TOL_S2S_CACHED,
+          f"cached vs plain beam search: equal {same}, scores {rel_cached}")
+    check(rel_rescore <= TOL_S2S_RESCORE,
+          f"beam scores vs float64 teacher forcing: {rel_rescore}")
+    return {"flash_fwd": cached_k1 + plain_k1}
+
+
+def _s2s_counts_ok(name: str, launched: dict, attention: bool) -> None:
+    k12 = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+    want_zero = {k: v for k, v in launched.items() if k not in k12}
+    check(want_zero == dict.fromkeys(want_zero, 0),
+          f"{name}: K3-K6 launched {launched}")
+    if attention:
+        check(all(launched[k] > 0 for k in k12),
+              f"{name}: K1/K2 not launched {launched}")
+    else:
+        check(all(launched[k] == 0 for k in k12),
+              f"{name}: K1/K2 launched {launched}")
+
+
+def _s2s_cli(name: str, args: list[str], work: Path, attention: bool = True,
+             after=None):
+    """One CLI run with the counts set to 0 just before it: (launches,
+    losses, host-clock step times, peak GB, what the runner returned, what
+    ``after(state, workspace, returned)`` returned, called once the counts
+    are read)."""
+    ws = work / name
+    shutil.rmtree(ws, ignore_errors=True)
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()  # this path starts here
+    state, out = cli([name.split("-")[0], *args, "--workspace", str(ws)])
+    torch.cuda.synchronize()
+    launched = _counts()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    checked = after(state, ws, out) if after else None
+    del state
+    losses, times = _raport_losses_and_times(
+        ws / f"{name.split('-')[0]}_raport.json")
+    shutil.rmtree(ws, ignore_errors=True)
+    check(losses and all(math.isfinite(x) for x in losses),
+          f"{name}: losses {losses}")
+    _s2s_counts_ok(name, launched, attention)
+    return launched, losses, times, peak, out, checked
+
+
+def _bart_rouge_check(state, ws: Path, out: dict) -> str:
+    """The summarize run's val decode, again on the card from the trained
+    state (``bart_decode_val``, as the runner calls it): every best
+    hypothesis non-empty, the runner's ROUGE equal to ``rouge_scores`` of
+    these sequences, ROUGE-1 above 0, and the best scores (bf16) against
+    teacher forcing of the same sequences on the CPU in float64, to
+    TOL_S2S_ROUGE_RESCORE relative to the largest."""
+    cfg = cli_main.BartCliConfig(task="summarize", batch_size=S2S_BART_B,
+                                 workspace=str(ws))
+    data_dir, tok = cli_main.bart_corpus(cfg)
+    got = cli_main.bart_decode_val(cfg, state.model, data_dir, tok)
+    lengths = [len(h) for h in got["hyps"]]
+    again = {f"val.{k}": v for k, v in
+             rouge_scores(got["hyps"], got["refs"]).items()}
+    mcfg = state.model.cfg
+    want = _rescore64(_float64(copy.deepcopy(state.model).cpu()), got["src"],
+                      got["seqs"][:, None], 1, mcfg)[:, 0]
+    rel = max_err(got["scores"], want) / float(want.abs().max())
+    check(lengths and min(lengths) > 0,
+          f"bart summarize: empty hypotheses, lengths {lengths}")
+    check(again == out, f"bart summarize: ROUGE {out} vs {again} of the "
+          "decoded sequences")
+    check(out["val.rouge1"] > 0.0, f"bart summarize: ROUGE {out}")
+    check(rel <= TOL_S2S_ROUGE_RESCORE,
+          f"bart summarize: best scores vs float64 teacher forcing {rel}")
+    return (f"{len(lengths)} val hypotheses of {min(lengths)}-{max(lengths)} "
+            f"tokens, their best scores vs teacher forcing on the CPU in "
+            f"float64 {rel:.2e} (limit {TOL_S2S_ROUGE_RESCORE:.0e}), the "
+            f"runner's ROUGE that of these sequences")
+
+
+def phase_s2s() -> dict[str, int]:
+    """23d: transformer, bart (summarize, pretrain) and gnmt through the
+    CLI's runners in bf16; a bart-large step and cached decode; returns the
+    kernels' launches on these paths."""
+    t0 = time.perf_counter()
+    work = ROOT / "workspace" / "chip_smoke" / "s2s"
+    total = dict.fromkeys(_counts(), 0)
+    lines = []
+    tokens = S2S_T_B * (64 + 63)
+    launched, losses, times, peak, _, _ = _s2s_cli(
+        "transformer", ["--batch-size", str(S2S_T_B), "--steps-per-epoch",
+                        str(S2S_T_STEPS), "--lr", "5e-4"], work)
+    check(losses[-1] < losses[0], f"transformer: losses {losses}")
+    med = statistics.median(times[2:])
+    lines.append(f"transformer B={S2S_T_B} lr 5e-4, {S2S_T_STEPS} steps: loss "
+                 f"{losses[0]:.4f} -> {losses[-1]:.4f}; median step over steps "
+                 f"3-{S2S_T_STEPS} {med * 1e3:.1f} ms (host clock), {tokens} "
+                 f"tokens a step: {tokens / med:.0f} tokens/s; peak {peak:.2f} "
+                 f"GB; launches {launched}")
+    for k, v in launched.items():
+        total[k] += v
+    launched, losses, times, peak, out, decoded = _s2s_cli(
+        "bart-summarize", ["--task", "summarize", "--lr", "1e-3",
+                           "--batch-size", str(S2S_BART_B), "--epochs",
+                           str(S2S_BART_EPOCHS)], work,
+        after=_bart_rouge_check)
+    check(set(out) == {"val.rouge1", "val.rouge2", "val.rougeL"}
+          and all(0.0 <= v <= 1.0 for v in out.values()),
+          f"bart summarize: ROUGE {out}")
+    lines.append(f"bart --task summarize B={S2S_BART_B} lr 1e-3, "
+                 f"{len(losses)} steps: loss {losses[0]:.4f} -> "
+                 f"{losses[-1]:.4f}, beam-decoded val ROUGE "
+                 + ", ".join(f"{k} {v:.4f}" for k, v in out.items())
+                 + f"; {decoded}; launches {launched}")
+    for k, v in launched.items():
+        total[k] += v
+    launched, losses, times, peak, _, _ = _s2s_cli(
+        "bart-pretrain", ["--task", "pretrain", "--lr", "1e-3", "--batch-size",
+                          str(S2S_BART_B), "--steps-per-epoch", "5"], work)
+    lines.append(f"bart --task pretrain B={S2S_BART_B} lr 1e-3, 5 steps: loss "
+                 f"{losses[0]:.4f} -> {losses[-1]:.4f}; launches {launched}")
+    for k, v in launched.items():
+        total[k] += v
+    launched, losses, times, peak, _, _ = _s2s_cli(
+        "gnmt", ["--batch-size", str(S2S_GNMT_B), "--steps-per-epoch",
+                 str(S2S_GNMT_STEPS), "--lr", "1e-3"], work, attention=False)
+    med = statistics.median(times[1:])
+    tokens = S2S_GNMT_B * (48 + 47)
+    lines.append(f"gnmt B={S2S_GNMT_B} lr 1e-3, {S2S_GNMT_STEPS} steps: loss "
+                 f"{losses[0]:.4f} -> {losses[-1]:.4f}; median step over steps "
+                 f"2-{S2S_GNMT_STEPS} {med * 1e3:.1f} ms, {tokens / med:.0f} "
+                 f"tokens/s; peak {peak:.2f} GB (K1-K6 launched 0 times: GNMT's "
+                 "attention is Bahdanau's, in plain ops as in JAX)")
+    shutil.rmtree(work, ignore_errors=True)
+
+    # bart-large: one bf16 AdamW step at B=8, source 1024, target 128
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()  # this path starts here
+    step, state, batch = profile_seq2seq._bart_large(DEV)
+    step_ms = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t1) * 1e3)
+    launched = _counts()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    check(math.isfinite(float(m["loss"])), f"bart-large loss {m['loss']}")
+    _s2s_counts_ok("bart-large step", launched, True)
+    for k, v in launched.items():
+        total[k] += v
+    shape = profile_seq2seq.BART_SHAPE
+    lines.append(f"bart-large B={shape['batch']} source {shape['src']} target "
+                 f"{shape['tgt']}, bf16 AdamW step: "
+                 f"{' '.join(f'{x:.1f}' for x in step_ms)} ms (host clock; "
+                 f"the first warms up), loss {float(m['loss']):.4f}, peak "
+                 f"{peak:.2f} GB; launches {launched}")
+
+    # bart-large: a cached beam decode at B=4, beam 4, source 1024
+    model = state.model
+    del state, step, batch
+    torch.cuda.empty_cache()
+    b, beam, s, max_len = S2S_DECODE
+    cfg = model.cfg
+    src = torch.from_numpy(np.random.default_rng(SEED).integers(
+        4, cfg.vocab_size, (b, s))).to(DEV)
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()  # this path starts here
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    with torch.no_grad():
+        memory, mask = model.encode(src)
+    seqs, scores = beam_search_cached(
+        model, memory.repeat_interleave(beam, 0),
+        mask.repeat_interleave(beam, 0), b, beam, max_len=max_len,
+        bos_id=cfg.bos_id, eos_id=cfg.eos_id, pad_id=cfg.pad_id,
+        vocab_size=cfg.vocab_size)
+    torch.cuda.synchronize()
+    t_dec = time.perf_counter() - t1
+    launched = _counts()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    check(launched["flash_fwd"] == cfg.encoder_layers
+          + cfg.decoder_layers * (max_len - 1),
+          f"bart-large decode: K1 launched {launched['flash_fwd']}")
+    check(bool(torch.isfinite(scores).all()) and seqs.shape == (b, beam, max_len),
+          f"bart-large decode: {seqs.shape}, {scores}")
+    for k, v in launched.items():
+        total[k] += v
+    lines.append(f"bart-large cached beam decode B={b} beam {beam} source {s} "
+                 f"max_len {max_len}: {t_dec:.3f} s (host clock, encoder "
+                 f"included: {t_dec / (max_len - 1) * 1e3:.1f} ms a step), "
+                 f"peak {peak:.2f} GB; K1 launched {launched['flash_fwd']} "
+                 f"times (= {cfg.encoder_layers} + {cfg.decoder_layers} x "
+                 f"{max_len - 1})")
+    del model
+    say("23 seq2seq", f"paths on {card()}, bf16: " + "; ".join(lines)
+        + f" ({time.perf_counter() - t0:.1f} s)")
+    return total
+
+
 def main() -> None:
     name = phase_device()
     phase_build()
@@ -3089,16 +3772,29 @@ def main() -> None:
     phase_tts_parity()
     for k, v in phase_tts().items():  # counts set to 0 there
         launched[k] += v
+    phase_s2s_parity()
+    s2s_fwd, s2s_bwd = phase_s2s_kernels()
+    results["flash_fwd"]["max_abs_err"] = max(
+        results["flash_fwd"]["max_abs_err"], s2s_fwd)
+    for k in ("flash_bwd_dq", "flash_bwd_dkv"):
+        results[k]["max_abs_err"] = max(results[k]["max_abs_err"], s2s_bwd)
+    _reset_counts()  # the decoding path starts here
+    launched["flash_fwd"] += phase_s2s_decode()["flash_fwd"]
+    for k, v in phase_s2s().items():  # counts set to 0 there
+        launched[k] += v
     check(set(launched) == set(results), f"{sorted(launched)} vs {sorted(results)}")
     for k, v in launched.items():
         check(v > 0, f"the main path never launched {k}")
     sources = {  # (source in the port, the TPU kernel it replaces)
         "flash_fwd": ("csrc/flash_fwd.cu",
-                      "deeplearningexamples_tpu/ops/flash_attention.py:686"),
+                      "deeplearningexamples_tpu/ops/flash_attention.py:686, "
+                      ":215"),
         "flash_bwd_dq": ("csrc/flash_bwd.cu",
-                         "deeplearningexamples_tpu/ops/flash_attention.py:896"),
+                         "deeplearningexamples_tpu/ops/flash_attention.py:896, "
+                         ":975"),
         "flash_bwd_dkv": ("csrc/flash_bwd.cu",
-                          "deeplearningexamples_tpu/ops/flash_attention.py:896"),
+                          "deeplearningexamples_tpu/ops/flash_attention.py:896, "
+                          ":975"),
         "flat_lamb_moments": ("csrc/flat_lamb.cu",
                               "deeplearningexamples_tpu/core/flat.py:212"),
         "flat_lamb_apply": ("csrc/flat_lamb.cu",

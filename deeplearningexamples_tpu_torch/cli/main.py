@@ -2,14 +2,17 @@
 <model> [flags]`` for ``resnet50``, ``resnext101-32x4d``,
 ``se-resnext101-32x4d``, ``efficientnet-b0``, ``efficientnet-b4``,
 ``ssd300``, ``bert-pretrain``, ``bert-squad``, ``bert-glue``, ``bert-swag``,
-``dlrm``, ``tacotron2`` and ``waveglow``.
+``dlrm``, ``tacotron2``, ``waveglow``, ``transformer``, ``bart`` and
+``gnmt``.
 
 Port of ``deeplearningexamples_tpu/cli/main.py`` for the models the port
 trains so far, the ConvNets (``run_convnet``), SSD300 (``run_ssd``), BERT
 pretraining (``run_bert_pretrain``), BERT fine-tuning on SQuAD, GLUE and SWAG
 (``run_bert_squad``, ``run_bert_glue``, ``run_bert_swag``), DLRM
-(``run_dlrm``) and Tacotron2 and WaveGlow (``run_tts``), with the flag names
-and defaults of ``dlx-train``. The run is
+(``run_dlrm``), Tacotron2 and WaveGlow (``run_tts``), the Transformer NMT
+(``run_transformer``), BART (``run_bart``: denoising pretraining or
+summarization with beam-decoded ROUGE) and GNMT (``run_breadth``), with the
+flag names and defaults of ``dlx-train``. The run is
 on the card unless ``--device cpu`` is given. Flags whose machinery is not
 ported yet exit with a message that says so, rather than being ignored: for
 the ConvNets and ``ssd300`` ``--data-backend`` other than synthetic and
@@ -18,7 +21,8 @@ the ConvNets and ``ssd300`` ``--data-backend`` other than synthetic and
 ``--binned``, ``--mesh-*`` and ``--data-backend corpus``; for the
 fine-tuning commands ``--mesh-*`` and an ``--init-checkpoint`` in TF
 format; for ``dlrm`` ``--data-backend binary`` and ``--mesh-model`` above
-1; for ``tacotron2`` and ``waveglow`` ``--mesh-*``. ``--config-file``,
+1; for ``tacotron2``, ``waveglow``, ``transformer``, ``bart`` and ``gnmt``
+``--mesh-*``. ``--config-file``,
 ``--platform`` and ``--precision`` (the YAML layers) are not flags here yet, so argparse refuses
 them, as it refuses ``--zero`` for the fine-tuning commands, which
 ``dlx-train`` does not give them either.
@@ -45,15 +49,17 @@ from ..core import optimizers as opt
 from ..core.optimizers import adamw, bert_adam, lr_poly_warmup
 from ..core.train import create_train_state, make_eval_step, make_train_step
 
-__all__ = ["BertCliConfig", "BertPretrainRun", "CommonConfig",
-           "ConvNetCliConfig", "ConvNetRun", "DlrmCliConfig",
-           "DlrmRun", "FinetuneRun", "GlueCliConfig", "MODELS",
+__all__ = ["BartCliConfig", "BertCliConfig", "BertPretrainRun",
+           "CommonConfig", "ConvNetCliConfig", "ConvNetRun", "DlrmCliConfig",
+           "DlrmRun", "FinetuneRun", "GlueCliConfig", "MODELS", "Seq2SeqRun",
            "SgdCliConfig", "SquadCliConfig", "SsdRun", "SwagCliConfig",
            "TtsRun", "build_bert_pretrain", "build_bert_squad",
-           "build_convnet", "build_dlrm", "build_ssd", "build_tts", "cli",
+           "build_convnet", "build_dlrm", "build_ssd", "build_transformer",
+           "build_tts", "cli",
            "featurize_swag", "read_swag", "run_bert_glue",
            "run_bert_pretrain", "run_bert_squad", "run_bert_swag",
-           "run_convnet", "run_dlrm", "run_ssd", "run_tts", "to_device"]
+           "run_bart", "run_breadth", "run_convnet", "run_dlrm", "run_ssd",
+           "run_transformer", "run_tts", "to_device"]
 
 INPUTS = ("input_ids", "attention_mask", "token_type_ids")
 
@@ -147,6 +153,14 @@ def _unported_bert(cfg: BertCliConfig) -> None:
          or cfg.mesh_sequence != 1, "--mesh-* (one card only so far)"),
         (cfg.data_backend != "synthetic",
          f"--data-backend {cfg.data_backend} (only synthetic is ported)"),
+    ])
+
+
+def _unported_mesh(model: str, cfg: CommonConfig) -> None:
+    """Refuse ``--mesh-*``: one card only so far."""
+    _unported(model, [
+        (cfg.mesh_data not in (-1, 1) or cfg.mesh_model != 1
+         or cfg.mesh_sequence != 1, "--mesh-* (one card only so far)"),
     ])
 
 
@@ -883,10 +897,7 @@ def build_tts(model_name: str, cfg: CommonConfig) -> TtsRun:
     CommonConfig's 0.1."""
     from ..models.tts import Tacotron2Task, WaveGlowTask
 
-    _unported(model_name, [
-        (cfg.mesh_data not in (-1, 1) or cfg.mesh_model != 1
-         or cfg.mesh_sequence != 1, "--mesh-* (one card only so far)"),
-    ])
+    _unported_mesh(model_name, cfg)
     if cfg.data_backend not in ("synthetic", "ljspeech"):
         raise SystemExit(f"{model_name}: --data-backend {cfg.data_backend}: "
                          "synthetic or ljspeech")
@@ -941,6 +952,249 @@ def run_tts(model_name: str, cfg: CommonConfig):
     )
 
 
+@dataclass
+class Seq2SeqRun:
+    """What ``run_transformer`` trains with, built by ``build_transformer``."""
+
+    task: Any
+    tx: Any
+    state: Any
+    train_step: Any
+    loader: Any
+
+
+def build_transformer(cfg: CommonConfig) -> Seq2SeqRun:
+    """The Transformer NMT at ``TransformerConfig()``'s full width, one
+    synthetic batch repeated ``steps_per_epoch`` times (src (B, 64), tgt
+    BOS + src[:, :62] + EOS), AdamW (b2 0.997, no decay) under
+    ``lr_poly_warmup(lr, total // 20, total)``, the state and the step, as
+    JAX's ``run_transformer``. As there, the rate is ``cfg.lr or 5e-4``,
+    which never falls back: without ``--lr`` it is CommonConfig's 0.1."""
+    from ..models.translation import TransformerConfig, TransformerTask
+
+    _unported_mesh("transformer", cfg)
+    tcfg = TransformerConfig()
+    task = TransformerTask(tcfg, _dtype(cfg))
+    model = task.init(torch.Generator().manual_seed(cfg.seed), device=cfg.device)
+    rng = np.random.default_rng(cfg.seed)
+    src = rng.integers(3, tcfg.vocab_size, (cfg.batch_size, 64)).astype(np.int32)
+    tgt = np.concatenate(
+        [np.full((cfg.batch_size, 1), tcfg.bos_id), src[:, :62],
+         np.full((cfg.batch_size, 1), tcfg.eos_id)], axis=1).astype(np.int32)
+    loader = [{"src": src, "tgt": tgt}] * cfg.steps_per_epoch
+    total = cfg.epochs * len(loader)
+    sched = lr_poly_warmup(cfg.lr or 5e-4, max(total // 20, 1), total,
+                           power=0.5)
+    tx = adamw(sched, b1=0.9, b2=0.997, weight_decay=0.0)
+    state = create_train_state(model, tx, cfg.seed + 1)
+    train_step = make_train_step(task.loss_fn, tx, accum_steps=cfg.accum_steps)
+    return Seq2SeqRun(task, tx, state, train_step, loader)
+
+
+def run_transformer(cfg: CommonConfig):
+    """Train the Transformer NMT (``build_transformer``) with checkpoints in
+    ``{workspace}/transformer_ckpt``; no evaluation. As JAX's
+    ``run_transformer``, it reads neither ``--resume`` nor
+    ``--data-backend``. Returns ``(state, best)``."""
+    logger = _common_setup(cfg, "transformer")
+    run = build_transformer(cfg)
+    ckpt = CheckpointManager(f"{cfg.workspace}/transformer_ckpt")
+    return train_loop(
+        run.state, run.train_step, lambda: to_device(run.loader, cfg.device),
+        cfg=_loop_cfg(cfg), logger=logger, checkpoints=ckpt,
+        batch_size=cfg.batch_size)
+
+
+@dataclass
+class BartCliConfig(CommonConfig):
+    task: str = "summarize"  # summarize | pretrain (denoising)
+    vocab_file: str = ""  # WordPiece vocab; "" = build from the corpus
+    max_source_len: int = 128
+    max_target_len: int = 32
+    beam_size: int = 4
+
+
+def _corpus_vocab(paths: list[str]) -> dict:
+    """Copy of JAX's ``_corpus_vocab``: a whitespace-word vocab with the
+    Transformer's special ids (bos 0, pad 1, eos 2, unk and mask 3)."""
+    vocab = {"<s>": 0, "[PAD]": 1, "</s>": 2, "[UNK]": 3}
+    for p in paths:
+        with open(p) as f:
+            for line in f:
+                for w in line.lower().split():
+                    if w not in vocab:
+                        vocab[w] = len(vocab)
+    return vocab
+
+
+def bart_corpus(cfg: BartCliConfig):
+    """``run_bart``'s data: (the directory of the CNN-DM line files, the
+    tokenizer). Without ``--data-dir``, or with the synthetic backend, the
+    synthetic files are written to ``{workspace}/bart_synth`` from
+    ``--seed``; without ``--vocab-file`` the vocab is ``_corpus_vocab`` of
+    the train split."""
+    from ..data.summarization import write_synthetic_summarization
+    from ..data.tokenization import BertTokenizer
+
+    data_dir = cfg.data_dir
+    if cfg.data_backend == "synthetic" or not data_dir:
+        data_dir = f"{cfg.workspace}/bart_synth"
+        write_synthetic_summarization(data_dir, seed=cfg.seed)
+    vocab = cfg.vocab_file or _corpus_vocab(
+        [f"{data_dir}/train.source", f"{data_dir}/train.target"])
+    return data_dir, BertTokenizer(vocab)
+
+
+def bart_decode_val(cfg: BartCliConfig, model, data_dir: str, tok) -> dict:
+    """``run_bart``'s summarize evaluation: every val batch beam-decoded
+    with ``beam_search_cached`` (``--beam-size``, ``max_target_len + 2``
+    steps). Returns ``hyps`` and ``refs`` (the best sequences and the
+    targets without BOS, EOS and pads, for ``rouge_scores``), and per
+    example ``src`` (numpy), the best sequence ``seqs`` and its
+    length-normalised ``scores`` (on the host)."""
+    from ..data.summarization import SummarizationDataset
+    from ..models.translation import beam_search_cached
+
+    mcfg, beam = model.cfg, cfg.beam_size
+    val = SummarizationDataset(
+        data_dir, "val", tok, cfg.batch_size,
+        max_source_len=cfg.max_source_len,
+        max_target_len=cfg.max_target_len, shuffle=False)
+    special = (mcfg.bos_id, mcfg.eos_id, mcfg.pad_id)
+    out = {"hyps": [], "refs": [], "src": [], "seqs": [], "scores": []}
+    for batch in val:
+        src = torch.from_numpy(batch["src"]).to(cfg.device)
+        with torch.no_grad():
+            memory, memory_mask = model.encode(src)
+        seqs, scores = beam_search_cached(
+            model, memory.repeat_interleave(beam, 0),
+            memory_mask.repeat_interleave(beam, 0), src.shape[0], beam,
+            max_len=cfg.max_target_len + 2, bos_id=mcfg.bos_id,
+            eos_id=mcfg.eos_id, pad_id=mcfg.pad_id, vocab_size=mcfg.vocab_size)
+        best = seqs[:, 0].cpu()
+        for row, tgt in zip(best.numpy(), batch["tgt"]):
+            out["hyps"].append([t for t in row.tolist() if t not in special])
+            out["refs"].append([t for t in tgt.tolist() if t not in special])
+        out["src"].append(batch["src"])
+        out["seqs"].append(best)
+        out["scores"].append(scores[:, 0].cpu())
+    if out["src"]:
+        out["src"] = np.concatenate(out["src"])
+        out["seqs"], out["scores"] = (torch.cat(out[k])
+                                      for k in ("seqs", "scores"))
+    return out
+
+
+def run_bart(cfg: BartCliConfig):
+    """BART, as JAX's ``run_bart``: denoising pretraining or summarization
+    fine-tuning over the CNN-DM line files in ``--data-dir`` (or the
+    synthetic ones, written to ``{workspace}/bart_synth``), a small
+    ``TransformerConfig`` (d 256, 3+3 layers, 4 heads, the corpus's vocab),
+    AdamW (decay 0.01) under ``lr_poly_warmup(lr, total // 20, total)``
+    (``cfg.lr or 1e-3``: without ``--lr`` it is 0.1), ``--resume`` from
+    ``{workspace}/bart_ckpt``. In summarize mode the val split is then
+    beam-decoded (``bart_decode_val``) and its ROUGE logged as
+    ``val.rouge*``. Returns ``(state, ROUGE scores)``."""
+    from ..data.summarization import SummarizationDataset, rouge_scores
+    from ..models.bart import BartTask
+    from ..models.translation import TransformerConfig
+
+    logger = _common_setup(cfg, "bart")
+    _unported_mesh("bart", cfg)
+    data_dir, tok = bart_corpus(cfg)
+    tcfg = TransformerConfig(
+        vocab_size=len(tok.vocab), d_model=256, d_ff=1024, num_heads=4,
+        encoder_layers=3, decoder_layers=3,
+        # +2: denoising targets are the whole source with BOS and EOS
+        max_len=max(cfg.max_source_len, cfg.max_target_len) + 2)
+    task = BartTask(tcfg, _dtype(cfg))
+    if cfg.task == "pretrain":
+        with open(f"{data_dir}/train.source") as f:
+            docs = [np.asarray(tok.convert_tokens_to_ids(tok.tokenize(line)),
+                               np.int32) for line in f]
+        rng = np.random.default_rng(cfg.seed)
+        loader = []
+        for _ in range(cfg.steps_per_epoch):
+            picks = rng.choice(len(docs), cfg.batch_size)
+            loader.append(task.make_denoising_batch(
+                [docs[i] for i in picks], cfg.max_source_len, rng))
+    else:
+        loader = SummarizationDataset(
+            data_dir, "train", tok, cfg.batch_size,
+            max_source_len=cfg.max_source_len,
+            max_target_len=cfg.max_target_len)
+    model = task.init(torch.Generator().manual_seed(cfg.seed), device=cfg.device)
+    total = cfg.epochs * len(loader)
+    sched = lr_poly_warmup(cfg.lr or 1e-3, max(total // 20, 1), total)
+    tx = adamw(sched, weight_decay=0.01)
+    state = create_train_state(model, tx, cfg.seed + 1)
+    ckpt = CheckpointManager(f"{cfg.workspace}/bart_ckpt")
+    state, start_epoch = _maybe_resume(cfg, ckpt, state, len(loader))
+    train_step = make_train_step(task.loss_fn, tx, accum_steps=cfg.accum_steps)
+    state, _ = train_loop(
+        state, train_step, lambda: to_device(loader, cfg.device),
+        cfg=_loop_cfg(cfg), logger=logger, checkpoints=ckpt,
+        batch_size=cfg.batch_size, start_epoch=start_epoch)
+    out: dict[str, float] = {}
+    if cfg.task != "summarize":
+        return state, out
+    decoded = bart_decode_val(cfg, state.model, data_dir, tok)
+    if decoded["hyps"]:
+        out = {f"val.{k}": v for k, v in
+               rouge_scores(decoded["hyps"], decoded["refs"]).items()}
+        logger.log((), out)
+    return state, out
+
+
+def _breadth_spec(name: str, cfg: CommonConfig):
+    """(task, init, batch factory, optimizer) of JAX's ``_breadth_spec`` for
+    the families the port trains through ``run_breadth``: ``gnmt``
+    (``GnmtConfig()``, src (B, 48), tgt BOS + src[:, :46] + EOS, Adam at
+    ``cfg.lr or 1e-3``, which never falls back)."""
+    rng = np.random.default_rng(cfg.seed)
+    bs = cfg.batch_size
+    if name == "gnmt":
+        from ..models.translation.gnmt import GnmtTask
+
+        task = GnmtTask(dtype=_dtype(cfg))
+
+        def init():
+            return task.init(torch.Generator().manual_seed(cfg.seed),
+                             device=cfg.device)
+
+        def batch():
+            src = rng.integers(3, task.cfg.vocab_size, (bs, 48))
+            tgt = np.concatenate(
+                [np.full((bs, 1), task.cfg.bos_id), src[:, :46],
+                 np.full((bs, 1), task.cfg.eos_id)], axis=1)
+            return {"src": src.astype(np.int32), "tgt": tgt.astype(np.int32)}
+        tx = opt.adam(cfg.lr or 1e-3)
+    else:
+        raise KeyError(name)
+    return task, init, batch, tx
+
+
+def run_breadth(name: str, cfg: CommonConfig):
+    """JAX's ``run_breadth``: ``min(steps_per_epoch, 16)`` distinct synthetic
+    batches repeated to ``steps_per_epoch``, ``--resume`` from
+    ``{workspace}/{name}_ckpt``. Returns ``(state, best)``."""
+    logger = _common_setup(cfg, name.replace("-", "_"))
+    _unported_mesh(name, cfg)
+    task, init, batch_fn, tx = _breadth_spec(name, cfg)
+    model = init()
+    loader = [batch_fn() for _ in range(min(cfg.steps_per_epoch, 16))]
+    loader = (loader * (-(-cfg.steps_per_epoch // len(loader))))[
+        :cfg.steps_per_epoch]
+    state = create_train_state(model, tx, cfg.seed + 1)
+    ckpt = CheckpointManager(f"{cfg.workspace}/{name.replace('-', '_')}_ckpt")
+    state, start_epoch = _maybe_resume(cfg, ckpt, state, len(loader))
+    train_step = make_train_step(task.loss_fn, tx, accum_steps=cfg.accum_steps)
+    return train_loop(
+        state, train_step, lambda: to_device(loader, cfg.device),
+        cfg=_loop_cfg(cfg), logger=logger, checkpoints=ckpt,
+        batch_size=cfg.batch_size, start_epoch=start_epoch)
+
+
 CONVNETS = ("resnet50", "resnext101-32x4d", "se-resnext101-32x4d",
             "efficientnet-b0", "efficientnet-b4")
 MODELS = {**{a: (lambda cfg, a=a: run_convnet(a, cfg)) for a in CONVNETS},
@@ -949,13 +1203,17 @@ MODELS = {**{a: (lambda cfg, a=a: run_convnet(a, cfg)) for a in CONVNETS},
           "bert-glue": run_bert_glue, "bert-swag": run_bert_swag,
           "dlrm": run_dlrm,
           **{m: (lambda cfg, m=m: run_tts(m, cfg))
-             for m in ("tacotron2", "waveglow")}}
+             for m in ("tacotron2", "waveglow")},
+          "transformer": run_transformer, "bart": run_bart,
+          "gnmt": lambda cfg: run_breadth("gnmt", cfg)}
 _CONFIG_CLS = {**dict.fromkeys(CONVNETS, ConvNetCliConfig),
                "ssd300": SgdCliConfig, "bert-pretrain": BertCliConfig,
                "bert-squad": SquadCliConfig,
                "bert-glue": GlueCliConfig, "bert-swag": SwagCliConfig,
                "dlrm": DlrmCliConfig,
-               "tacotron2": CommonConfig, "waveglow": CommonConfig}
+               "tacotron2": CommonConfig, "waveglow": CommonConfig,
+               "transformer": CommonConfig, "bart": BartCliConfig,
+               "gnmt": CommonConfig}
 
 
 def cli(argv=None):

@@ -69,24 +69,27 @@ class Conv2d(nn.Module):
 
 
 class Dense(nn.Linear):
-    """``nn.Dense``: input, weight and bias cast to ``dtype``; lecun normal
-    (truncated) weight, zero bias."""
+    """``nn.Dense``: input, weight and bias (``use_bias``) cast to
+    ``dtype``; lecun normal (truncated) weight, zero bias."""
 
-    def __init__(self, cin: int, cout: int, dtype: torch.dtype = torch.float32):
-        super().__init__(cin, cout)
+    def __init__(self, cin: int, cout: int, dtype: torch.dtype = torch.float32,
+                 bias: bool = True):
+        super().__init__(cin, cout, bias=bias)
         self.dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.linear(x.to(self.dtype), self.weight.to(self.dtype),
-                        self.bias.to(self.dtype))
+        b = None if self.bias is None else self.bias.to(self.dtype)
+        return F.linear(x.to(self.dtype), self.weight.to(self.dtype), b)
 
+    @torch.no_grad()
     def init_(self, generator: torch.Generator) -> None:
         std = math.sqrt(1.0 / self.in_features) / _TRUNC_STD
         w = torch.empty(self.weight.shape)
         nn.init.trunc_normal_(w, 0.0, std, -2.0 * std, 2.0 * std,
                               generator=generator)
         self.weight.copy_(w)
-        self.bias.zero_()
+        if self.bias is not None:
+            self.bias.zero_()
 
 
 class BatchNorm2d(nn.Module):

@@ -15,6 +15,10 @@ an odd kernel is ``(k - 1) // 2 * dilation`` on each side.
   is a buffer (zeros, or a reference checkpoint's value, added and never
   trained), so an optimizer steps the gate bias once, as in JAX. Input
   kernels lecun normal, hidden kernels orthogonal per gate.
+- ``LSTMLayer``: the same one-bias parameters for a whole ``nn.LSTM`` layer,
+  under its names (``weight_ih_l0`` ..., ``_l0_reverse``), for the layers
+  that run a sequence in one ``torch.lstm`` call (Tacotron2's ``BiLSTM``,
+  GNMT's ``LSTM``).
 - ``BatchNorm1d``: ``BatchNorm2d`` of the ConvNets over (B, C, T): flax's
   momentum 0.9 and biased running variance, eps 1e-5, the statistics over
   every position.
@@ -34,7 +38,8 @@ from torch import nn
 from ...ops.dropout import draw_seed
 from ..convnets.layers import _TRUNC_STD, BatchNorm2d
 
-__all__ = ["BatchNorm1d", "ConvNorm", "Dropout", "LSTMCell", "LinearNorm",
+__all__ = ["BatchNorm1d", "ConvNorm", "Dropout", "LSTMCell", "LSTMLayer",
+           "LinearNorm",
            "acc_dtype", "device_generator", "lecun_normal_",
            "orthogonal_"]
 
@@ -147,6 +152,31 @@ class LSTMCell(nn.Module):
     def init_(self, generator: torch.Generator) -> None:
         init_lstm_(self.weight_ih, self.weight_hh, self.bias_hh, self.bias_ih,
                    generator)
+
+
+class LSTMLayer(nn.Module):
+    """One ``nn.LSTM`` layer's parameters, one direction per suffix of
+    ``suffixes`` (``_l0``, ``_l0_reverse``), with ``LSTMCell``'s one bias:
+    ``bias_hh{s}`` trained, ``bias_ih{s}`` a buffer. Subclasses run it."""
+
+    def __init__(self, cin: int, hidden: int, dtype: torch.dtype,
+                 suffixes: tuple[str, ...]):
+        super().__init__()
+        self.dtype, self.hidden, self.suffixes = dtype, hidden, suffixes
+        for s in suffixes:
+            self.register_parameter(f"weight_ih{s}",
+                                    nn.Parameter(torch.empty(4 * hidden, cin)))
+            self.register_parameter(f"weight_hh{s}",
+                                    nn.Parameter(torch.empty(4 * hidden, hidden)))
+            self.register_buffer(f"bias_ih{s}", torch.zeros(4 * hidden))
+            self.register_parameter(f"bias_hh{s}",
+                                    nn.Parameter(torch.zeros(4 * hidden)))
+
+    def weights(self, suffix: str) -> list[torch.Tensor]:
+        """One direction's weights in ``dtype``, in ``torch.lstm``'s order
+        (``weight_ih``, ``weight_hh``, ``bias_ih``, ``bias_hh``)."""
+        return [getattr(self, f"{n}{suffix}").to(self.dtype)
+                for n in ("weight_ih", "weight_hh", "bias_ih", "bias_hh")]
 
 
 @torch.no_grad()

@@ -55,6 +55,7 @@ from .layers import (
     Dropout,
     LinearNorm,
     LSTMCell,
+    LSTMLayer,
     acc_dtype,
     device_generator,
     init_lstm_,
@@ -92,24 +93,13 @@ def _conv_bn(cin: int, cout: int, k: int, dtype) -> nn.Sequential:
     return nn.Sequential(ConvNorm(cin, cout, k, dtype=dtype), BatchNorm1d(cout))
 
 
-class BiLSTM(nn.Module):
+class BiLSTM(LSTMLayer):
     """The encoder's bidirectional LSTM with ``nn.LSTM``'s names (``_l0`` and
     ``_l0_reverse``) and ``LSTMCell``'s one trained bias per direction,
     over packed sequences (cuDNN on the card)."""
 
-    SUFFIXES = ("_l0", "_l0_reverse")
-
     def __init__(self, cin: int, hidden: int, dtype: torch.dtype):
-        super().__init__()
-        self.dtype, self.hidden = dtype, hidden
-        for s in self.SUFFIXES:
-            self.register_parameter(f"weight_ih{s}",
-                                    nn.Parameter(torch.empty(4 * hidden, cin)))
-            self.register_parameter(f"weight_hh{s}",
-                                    nn.Parameter(torch.empty(4 * hidden, hidden)))
-            self.register_buffer(f"bias_ih{s}", torch.zeros(4 * hidden))
-            self.register_parameter(f"bias_hh{s}",
-                                    nn.Parameter(torch.zeros(4 * hidden)))
+        super().__init__(cin, hidden, dtype, ("_l0", "_l0_reverse"))
 
     def forward(self, x: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
         """x (B, T, C), lengths (B,) -> (B, T, 2 * hidden), 0 past each
@@ -117,9 +107,7 @@ class BiLSTM(nn.Module):
         b, t, _ = x.shape
         packed = pack_padded_sequence(x.to(self.dtype), lengths.cpu(),
                                       batch_first=True, enforce_sorted=False)
-        weights = [getattr(self, f"{n}{s}").to(self.dtype)
-                   for s in self.SUFFIXES
-                   for n in ("weight_ih", "weight_hh", "bias_ih", "bias_hh")]
+        weights = [w for s in self.suffixes for w in self.weights(s)]
         h0 = x.new_zeros(2, b, self.hidden, dtype=self.dtype)
         out = _VF.lstm(packed.data, packed.batch_sizes, (h0, h0), weights,
                        True, 1, 0.0, self.training, True)[0]
@@ -130,7 +118,7 @@ class BiLSTM(nn.Module):
         return out
 
     def init_(self, generator: torch.Generator) -> None:
-        for s in self.SUFFIXES:
+        for s in self.suffixes:
             init_lstm_(*(getattr(self, f"{n}{s}") for n in
                          ("weight_ih", "weight_hh", "bias_hh", "bias_ih")),
                        generator)

@@ -109,16 +109,25 @@ def dropout_scale(row, col, seed, salt, rate: float) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
+def _acc(q):
+    """Upcast to the dtype the plain versions compute in: fp32, or float64
+    for float64 inputs (a float64 model's reference on the CPU)."""
+    acc = torch.promote_types(q.dtype, torch.float32)
+    return lambda t: t.to(acc)
+
+
 def mha_reference(q, k, v, key_mask=None, causal=False, sm_scale=None, *,
                   layout="bhsd", dropout_rate=0.0, dropout_seed=0):
     """Plain PyTorch attention with the kernel's semantics. Returns ``(out,
-    lse)``: out in the input layout and dtype, lse (B, H, Sq) fp32."""
+    lse)``: out in the input layout and dtype, lse (B, H, Sq) fp32 (float64
+    for float64 inputs, which it computes in float64 throughout)."""
     if layout == "bshd":
         q, k, v = (t.transpose(1, 2) for t in (q, k, v))
     b, h, sq, d = q.shape
     sk = k.shape[2]
     scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(d)
-    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
+    f = _acc(q)
+    s = torch.einsum("bhqd,bhkd->bhqk", f(q), f(k)) * scale
     if key_mask is not None:
         s = s.masked_fill(~key_mask.bool()[:, None, None, :], NEG_INF)
     rows = torch.arange(sq, device=q.device)[:, None]
@@ -132,7 +141,7 @@ def mha_reference(q, k, v, key_mask=None, causal=False, sm_scale=None, *,
         salt = (torch.arange(b, device=q.device)[:, None] * h
                 + torch.arange(h, device=q.device)[None, :])[:, :, None, None]
         p = p * dropout_scale(rows, cols, dropout_seed, salt, dropout_rate)
-    o = torch.einsum("bhqk,bhkd->bhqd", p.to(v.dtype).float(), v.float())
+    o = torch.einsum("bhqk,bhkd->bhqd", f(p.to(v.dtype)), f(v))
     out = (o / l).to(q.dtype)
     lse = (m + torch.log(l))[..., 0]
     if layout == "bshd":
@@ -152,7 +161,8 @@ def mha_backward_reference(q, k, v, key_mask, out, lse, dout, causal=False,
     b, h, sq, d = q.shape
     sk = k.shape[2]
     scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(d)
-    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
+    f = _acc(q)
+    s = torch.einsum("bhqd,bhkd->bhqk", f(q), f(k)) * scale
     if key_mask is not None:
         s = s.masked_fill(~key_mask.bool()[:, None, None, :], NEG_INF)
     rows = torch.arange(sq, device=q.device)[:, None]
@@ -160,7 +170,7 @@ def mha_backward_reference(q, k, v, key_mask, out, lse, dout, causal=False,
     if causal:
         s = s.masked_fill(rows < cols, NEG_INF)
     p = torch.exp(s - lse[..., None])
-    dp = torch.einsum("bhqd,bhkd->bhqk", dout.float(), v.float())
+    dp = torch.einsum("bhqd,bhkd->bhqk", f(dout), f(v))
     p_used = p
     if dropout_rate > 0.0:
         salt = (torch.arange(b, device=q.device)[:, None] * h
@@ -168,12 +178,11 @@ def mha_backward_reference(q, k, v, key_mask, out, lse, dout, causal=False,
         drop = dropout_scale(rows, cols, dropout_seed, salt, dropout_rate)
         p_used = p * drop
         dp = dp * drop
-    dv = torch.einsum("bhqk,bhqd->bhkd", p_used.to(dout.dtype).float(),
-                      dout.float())
-    delta = (dout.float() * out.float()).sum(-1, keepdim=True)
-    ds = (p * (dp - delta) * scale).to(q.dtype).float()
-    dq = torch.einsum("bhqk,bhkd->bhqd", ds, k.float()).to(q.dtype)
-    dk = torch.einsum("bhqk,bhqd->bhkd", ds, q.float()).to(k.dtype)
+    dv = torch.einsum("bhqk,bhqd->bhkd", f(p_used.to(dout.dtype)), f(dout))
+    delta = (f(dout) * f(out)).sum(-1, keepdim=True)
+    ds = f((p * (dp - delta) * scale).to(q.dtype))
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds, f(k)).to(q.dtype)
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, f(q)).to(k.dtype)
     dv = dv.to(v.dtype)
     if layout == "bshd":
         dq, dk, dv = (t.transpose(1, 2) for t in (dq, dk, dv))

@@ -79,11 +79,13 @@ def _chain(event) -> list:
     return out
 
 
-def attribute(events) -> tuple[dict[str, float], dict[str, int]]:
+def attribute(events, part=None) -> tuple[dict[str, float], dict[str, int]]:
     """(kernel us by part, kernels by part) over the traced CPU events: a
-    kernel's part is read from the names of the op that launched it and the
-    ops above it, and for a backward op also from those of the forward op
-    its autograd node came from."""
+    kernel's part is ``part(ops, kernel name)`` (by default ``PARTS``'
+    reading of ``ops``), where ``ops`` are the names of the op that
+    launched it and the ops above it, and for a backward op also those of
+    the forward op its autograd node came from."""
+    part = part or (lambda ops, kernel: _part(ops))
     forward: dict[int, list[str]] = {}
     for e in events:
         if e.device_type == torch.autograd.DeviceType.CPU \
@@ -101,10 +103,10 @@ def attribute(events) -> tuple[dict[str, float], dict[str, int]]:
                      and a.sequence_nr >= 0), None)
         if node is not None:
             ops += forward.get(node.sequence_nr, [])
-        part = _part(ops)
         for k in e.kernels:
-            us[part] = us.get(part, 0.0) + k.duration
-            count[part] = count.get(part, 0) + 1
+            name = part(ops, k.name)
+            us[name] = us.get(name, 0.0) + k.duration
+            count[name] = count.get(name, 0) + 1
     return us, count
 
 

@@ -7,8 +7,9 @@ extended to the QA head, the pretraining heads and the classifier of the
 GLUE and SWAG heads, of DLRM's tree into the port's ``Dlrm`` names, and of
 ``convert_resnet50`` and ``convert_efficientnet`` for the ConvNets and of
 ``convert_ssd300`` for SSD300 (their ``batch_stats`` too), and of
-``convert_tacotron2`` and ``convert_waveglow`` for Tacotron2 and WaveGlow.
-The word table keeps its ``padded_vocab`` rows, and the MLM decoder, tied to it, has no entry of its own. The mapping is
+``convert_tacotron2`` and ``convert_waveglow`` for Tacotron2 and WaveGlow,
+and of ``convert_nmt_transformer``, ``convert_bart`` and ``convert_gnmt`` for
+the encoder-decoder models. The word table keeps its ``padded_vocab`` rows, and the MLM decoder, tied to it, has no entry of its own. The mapping is
 structural, so it carries any tree of that shape across:
 parameters, or the gradients ``jax.grad`` returns for them.
 """
@@ -20,15 +21,18 @@ from typing import Any, Mapping
 import numpy as np
 
 __all__ = [
+    "bart_state_dict_from_jax",
     "bert_classifier_state_dict_from_jax",
     "bert_pretrain_jax_order",
     "bert_pretrain_state_dict_from_jax",
     "bert_qa_state_dict_from_jax",
     "dlrm_state_dict_from_jax",
     "efficientnet_state_dict_from_jax",
+    "gnmt_state_dict_from_jax",
     "resnet_state_dict_from_jax",
     "ssd300_state_dict_from_jax",
     "tacotron2_state_dict_from_jax",
+    "transformer_state_dict_from_jax",
     "waveglow_state_dict_from_jax",
 ]
 
@@ -390,4 +394,114 @@ def waveglow_state_dict_from_jax(params: Mapping[str, Any]
         swap = np.concatenate([np.arange(half, 2 * half), np.arange(half)])
         sd[f"{dst}.end.weight"] = _t(end[:, swap])[..., None]
         sd[f"{dst}.end.bias"] = np.asarray(wn["end"]["bias"])[swap]
+    return sd
+
+
+def _seq2seq_layers(tree: Mapping[str, Any], side: str, dst: str,
+                    attn, ln) -> dict:
+    """The ``{side}_{i}`` blocks of the JAX ``Transformer`` or ``BartModel``
+    (``self_attn``, ``cross_attn``, ``ln1``, ``ln_cross``, ``ff1``, ``ff2``,
+    ``ln2``) -> ``{dst}.{i}.*`` under the reference's names; ``attn`` and
+    ``ln`` map one attention and one LayerNorm."""
+    sd: dict = {}
+    n = sum(1 for k in tree if k.startswith(f"{side}_")
+            and k[len(side) + 1:].isdigit())
+    for i in range(n):
+        src, out = tree[f"{side}_{i}"], f"{dst}.{i}"
+        sd.update(attn(src["self_attn"], f"{out}.self_attn"))
+        lns = {"ln1": "self_attn_layer_norm", "ln2": "final_layer_norm"}
+        if "cross_attn" in src:
+            sd.update(attn(src["cross_attn"], f"{out}.encoder_attn"))
+            lns["ln_cross"] = "encoder_attn_layer_norm"
+        for k, name in lns.items():
+            sd.update(ln(src[k], f"{out}.{name}"))
+        for k, name in (("ff1", "fc1"), ("ff2", "fc2")):
+            sd[f"{out}.{name}.weight"] = _t(src[k]["kernel"])
+            sd[f"{out}.{name}.bias"] = np.asarray(src[k]["bias"])
+    return sd
+
+
+def _ln(tree: Mapping[str, Any], dst: str) -> dict:
+    return {f"{dst}.weight": np.asarray(tree["scale"]),
+            f"{dst}.bias": np.asarray(tree["bias"])}
+
+
+def transformer_state_dict_from_jax(tree: Mapping[str, Any]
+                                    ) -> dict[str, np.ndarray]:
+    """JAX ``Transformer`` (NMT) params, or their gradients -> the port's
+    ``Transformer`` ``state_dict`` (fairseq's names), as numpy arrays: the
+    inverse of ``convert_nmt_transformer``. fairseq applies
+    ``in_proj_weight_{q,k,v}`` as ``x @ W``, so those kernels copy over
+    untransposed; an encoder layer's LayerNorms are ``maybe_ln1.ln`` and
+    ``maybe_ln2.ln``, a decoder layer's ``{name}.ln``."""
+
+    def attn(t, dst):
+        sd = {f"{dst}.in_proj_weight_{k}": np.asarray(t[k]["kernel"])
+              for k in "qkv"}
+        sd[f"{dst}.out_proj.weight"] = _t(t["out"]["kernel"])
+        return sd
+
+    def ln(t, dst):
+        prefix, _, name = dst.rpartition(".")
+        if prefix.startswith("encoder."):
+            name = {"self_attn_layer_norm": "maybe_ln1",
+                    "final_layer_norm": "maybe_ln2"}[name]
+        return _ln(t, f"{prefix}.{name}.ln")
+
+    sd = {"encoder.embed_tokens.weight": np.asarray(tree["embed"]["embedding"])}
+    sd.update(_seq2seq_layers(tree, "enc", "encoder.layers", attn, ln))
+    sd.update(_seq2seq_layers(tree, "dec", "decoder.layers", attn, ln))
+    return sd
+
+
+def bart_state_dict_from_jax(tree: Mapping[str, Any]) -> dict[str, np.ndarray]:
+    """JAX ``BartModel`` params, or their gradients -> the port's
+    ``BartModel`` ``state_dict`` (HF's names under ``model.``), as numpy
+    arrays: the inverse of ``convert_bart``."""
+
+    def attn(t, dst):
+        sd = {}
+        for k in ("q", "k", "v", "out"):
+            sd[f"{dst}.{k}_proj.weight"] = _t(t[k]["kernel"])
+            sd[f"{dst}.{k}_proj.bias"] = np.asarray(t[k]["bias"])
+        return sd
+
+    sd = {"model.shared.weight": np.asarray(tree["embed"]["embedding"])}
+    for side, short in (("encoder", "enc"), ("decoder", "dec")):
+        sd[f"model.{side}.embed_positions.weight"] = np.asarray(
+            tree[f"{short}_pos"]["embedding"])
+        sd.update(_ln(tree[f"{short}_emb_ln"],
+                      f"model.{side}.layernorm_embedding"))
+        sd.update(_seq2seq_layers(tree, short, f"model.{side}.layers", attn,
+                                  _ln))
+    return sd
+
+
+def gnmt_state_dict_from_jax(tree: Mapping[str, Any]) -> dict[str, np.ndarray]:
+    """JAX ``Gnmt`` params, or their gradients -> the port's ``Gnmt``
+    ``state_dict`` (the reference's names), as numpy arrays: the inverse of
+    ``convert_gnmt``. Each ``nn.RNN``'s cell becomes one direction of an
+    ``nn.LSTM``-named layer (``_l0``; the bidirectional layer 0's backward
+    cell ``_l0_reverse``); the attention's scalar ``g`` becomes the
+    reference's 1-element ``normalize_scalar``."""
+    n = 1 + sum(1 for k in tree if k.startswith("enc_") and k[4:].isdigit())
+    sd = {"encoder.embedder.weight": np.asarray(tree["embed"]["embedding"])}
+    sd.update(_lstm_cell(tree["enc_fwd"]["cell"], "encoder.rnn_layers.0", "_l0"))
+    sd.update(_lstm_cell(tree["enc_bwd"]["cell"], "encoder.rnn_layers.0",
+                         "_l0_reverse"))
+    sd.update(_lstm_cell(tree["dec_l0"]["cell"], "decoder.att_rnn.rnn", "_l0"))
+    for i in range(1, n):
+        sd.update(_lstm_cell(tree[f"enc_{i}"]["cell"],
+                             f"encoder.rnn_layers.{i}", "_l0"))
+        sd.update(_lstm_cell(tree[f"dec_{i}"]["cell"],
+                             f"decoder.rnn_layers.{i - 1}", "_l0"))
+    att, dst = tree["attn"], "decoder.att_rnn.attn"
+    sd[f"{dst}.linear_q.weight"] = _t(att["q"]["kernel"])
+    sd[f"{dst}.linear_k.weight"] = _t(att["k"]["kernel"])
+    sd[f"{dst}.linear_att"] = np.asarray(att["v"])
+    sd[f"{dst}.normalize_scalar"] = np.asarray(att["g"]).reshape(1)
+    sd[f"{dst}.normalize_bias"] = np.asarray(att["bias"])
+    cls = tree["classifier"]
+    sd["decoder.classifier.classifier.weight"] = _t(cls["kernel"])
+    sd["decoder.classifier.classifier.bias"] = np.asarray(cls["bias"])
     return sd

@@ -26,7 +26,7 @@ TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (2e-2, 1e-3)}
 
 # The bf16 kernels tile by 64 queries and 64 keys on the tensor cores, 16
 # rows a warp: ragged S, D=128, a causal dead row (a masked key prefix), the
-# dropout hash and Sk != Sq test that tiling. Every case's last batch row has
+# dropout hash, Sk != Sq and one live query row (Sq = 1) test that tiling. Every case's last batch row has
 # every key masked.
 CASES = [
     dict(layout="bshd", d=64, s=384),
@@ -42,6 +42,12 @@ CASES = [
     dict(layout="bshd", d=64, s=130, rate=0.1, seed=12345),
     dict(layout="bshd", d=64, s=96, sk=200),
     dict(layout="bhsd", d=128, s=200, sk=96, causal=True, dead=40),
+    # the encoder-decoder models: a decoder's causal S=63, cross-attention
+    # at Sq=63 against Sk=64, and at Sq=1 (each cached decode step)
+    dict(layout="bshd", d=64, s=63, causal=True, masked=False),
+    dict(layout="bshd", d=64, s=63, sk=64),
+    dict(layout="bshd", d=64, s=1, sk=64),
+    dict(layout="bshd", d=64, s=1, sk=1024, h=16),
 ]
 
 
@@ -136,6 +142,9 @@ BWD_CASES = [
     dict(layout="bshd", d=64, s=130, rate=0.1, seed=12345),
     dict(layout="bshd", d=64, s=96, sk=200),
     dict(layout="bhsd", d=128, s=200, sk=96, causal=True, dead=40),
+    dict(layout="bshd", d=64, s=63, causal=True, masked=False),
+    dict(layout="bshd", d=64, s=63, sk=64),
+    dict(layout="bshd", d=64, s=1, sk=64),
 ]
 
 

@@ -32,7 +32,10 @@ for name in ("core.train", "core.flat", "core.loop", "core.checkpoint",
              "models.tts.audio", "models.tts.text", "models.tts.layers",
              "models.tts.tacotron2", "models.tts.waveglow", "models.tts.task",
              "models.tts.inference", "data.tts_synthetic", "data.ljspeech",
-             "tools.profile_tts"):
+             "tools.profile_tts", "models.translation",
+             "models.translation.transformer",
+             "models.translation.beam_search", "models.translation.gnmt",
+             "models.bart", "data.summarization", "tools.profile_seq2seq"):
     assert f"deeplearningexamples_tpu_torch.{name}" in names, name
 import chip_smoke
 print(len(names))
@@ -50,8 +53,10 @@ def test_port_imports_with_jax_blocked():
     # checkpoint reader, the ConvNets models, task and losses, and SSD300
     # (model, boxes, task, COCO mAP, evaluation, the synthetic loader), and
     # Tacotron2 + WaveGlow (frontends, layers, models, tasks, the pipeline,
-    # the synthetic and LJSpeech loaders, the profiling tool)
-    assert int(res.stdout.strip()) >= 74
+    # the synthetic and LJSpeech loaders, the profiling tool), and the
+    # encoder-decoder family (the Transformer NMT, beam search, BART, GNMT,
+    # the summarization data path, the profiling tool)
+    assert int(res.stdout.strip()) >= 83
 
 
 def test_chip_smoke_fails_without_a_card():
