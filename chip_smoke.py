@@ -109,15 +109,31 @@ and it imports nothing of JAX. Phases, one line each:
     pretrain``, ``gnmt`` (B=128, 5 steps) through the CLI's runners in bf16;
     one bart-large bf16 AdamW step at B=8, source 1024, target 128, and a
     cached beam decode at B=4, beam 4, source 1024, with peak memory
+24. BERT's data and flags, DLRM's binary backend: K1 and K2 against their
+    plain versions at head dim 26 (the 4l-312 student, B=32 S=128 H=12,
+    bf16 and fp32) and at every bucket length of the binned phase-2 loader
+    (B=16, S=64 to 512), with times; one fp32 BERT-Large step with
+    ``remat`` against the same step without (dropout on), and the phase-2
+    step's peak memory and time with and without; ``bert-pretrain``
+    through the CLI's runner on a corpus the script writes: ``--config-file
+    configs.yml --precision bf16`` for 20 steps, ``--phase2 --binned
+    --remat`` at B=16, ``--attention-impl xla`` (K1/K2 launch 0 times), the
+    host time to make a batch and the step and idle share of the corpus
+    against the synthetic loader in turns; a distillation step of the
+    4l-312 and 6l-768 students under a BERT-Large teacher at B=32 S=128,
+    timed, and at B=2 in fp32 against the CPU in float64; ``dlrm
+    --data-backend binary`` at B=65,536 on 4M records the script writes (26
+    unequal tables, 2.6M rows), 20 steps and AUC over the trailing 2%,
+    beside the synthetic backend
 
 Each main path (serving: phases 5-6; BERT training: phase 10; DLRM
 training: phase 13; ``int8_matmul``: phase 14; ``fused_lamb``: phase 15;
 ``hot_gather``: phase 16; BERT fine-tuning: phase 18; each ConvNets run of
 phase 20; SSD300's training, resume and inference in phase 21; Tacotron2's
 and WaveGlow's training and the TTS pipeline in phase 22; the beam searches
-and each encoder-decoder run of phase 23) runs with the
+and each encoder-decoder run of phase 23; each CLI run of phase 24) runs with the
 launch counts set to 0 just before it and read just after; on the
-ConvNets, SSD300, TTS and GNMT paths every count must stay 0, and on the
+ConvNets, SSD300, TTS, GNMT and ``--attention-impl xla`` paths every count must stay 0, and on the
 Transformer and BART paths K1 and K2 must launch and K3-K6 must not. Then one JSON
 line with each kernel's launches on those paths, its error against the plain
 version, its time, the plain version's, its bound on this card and the time
@@ -132,6 +148,7 @@ import copy
 import dataclasses
 import json
 import math
+import queue
 import shutil
 import statistics
 import subprocess
@@ -176,11 +193,17 @@ from deeplearningexamples_tpu_torch.models.bert import (
     BERT_CONFIGS,
     BertForPreTraining,
     BertForQuestionAnswering,
+    BertModel,
     BertPretrainTask,
     BertSquadTask,
     predict_squad,
 )
 from deeplearningexamples_tpu_torch.models.bert.task import init_bert_weights_
+from deeplearningexamples_tpu_torch.models.bert.distillation import (
+    STUDENT_CONFIGS,
+    DistillationTask,
+)
+from deeplearningexamples_tpu_torch.data import bert_prep, criteo
 from deeplearningexamples_tpu_torch.models.convnets import (
     EFFNET_ARCHS,
     ClassificationTask,
@@ -234,7 +257,7 @@ from deeplearningexamples_tpu_torch.ops import flash_attention as fa
 from deeplearningexamples_tpu_torch.ops import fused_lamb as fused
 from deeplearningexamples_tpu_torch.ops import quantization as quant
 from deeplearningexamples_tpu_torch.ops.lamb import lamb
-from deeplearningexamples_tpu_torch.tools import profile_seq2seq
+from deeplearningexamples_tpu_torch.tools import profile_pretrain, profile_seq2seq
 from deeplearningexamples_tpu_torch.tools.dlrm_hotrow import flat_ids
 from deeplearningexamples_tpu_torch.utils.jax_bridge import bert_pretrain_jax_order
 from deeplearningexamples_tpu_torch.serving import (
@@ -3721,6 +3744,584 @@ def phase_s2s() -> dict[str, int]:
     return total
 
 
+# -- phase 24 ----------------------------------------------------------------
+
+# K1/K2 where this slice runs them off the earlier shapes: BERT's 4l-312
+# distillation student (12 heads of 312 / 12 = 26) at B=32 S=128, and
+# BERT-Large's heads at every bucket length of the binned phase-2 loader
+# (B=16, the phase-2 batch)
+D26 = dict(b=32, s=128, h=12, d=26)
+BUCKETS = tuple(range(64, 513, 64))
+TIMED_BUCKETS = (64, 192, 320, 512)
+P2_B = 16
+CORPUS_DOCS = 240  # documents of the corpus phase 24 writes
+CORPUS_STEPS = 20  # --config-file run
+IDLE_STEPS, IDLE_TRACED = 6, 2
+TOL_REMAT = 1e-6  # remat vs not, fp32 on the card: of the largest entry
+# the distillation step card fp32 vs CPU float64 (dropout off): the loss,
+# and each gradient against the largest gradient entry of all
+TOL_DISTILL = {"loss": 1e-5, "grad": 1e-4}
+DISTILL_B, DISTILL_STEPS = 32, 10
+DLRM_BIN_CARDS = tuple(150_000 - 4_000 * i for i in range(26))  # 2.6M rows
+DLRM_BIN_ROWS, DLRM_BIN_STEPS = 4_000_000, 20
+
+
+def _case_name(c: dict) -> str:
+    return (f"{'f32' if c['dtype'] == torch.float32 else 'bf16'} b{c['b']} "
+            f"s{c['s']} h{c['h']} d{c['d']}"
+            f"{' drop' if c.get('rate') else ''}")
+
+
+def phase_bert_data_kernels() -> tuple[float, float, dict]:
+    """24a: K1 and K2 against their plain versions at head dim 26 (bf16 and
+    fp32, masked, dropout 0.1) and at the binned loader's bucket lengths
+    (bf16); times beside SDPA and the bound. Returns K1's and K2's worst
+    errors and the times."""
+    t0 = time.perf_counter()
+    cases = [dict(**D26, dtype=dt, layout="bshd", rate=0.1, seed=-24680)
+             for dt in (torch.float32, torch.bfloat16)]
+    cases += [dict(b=P2_B, s=s, h=16, d=64, dtype=torch.bfloat16,
+                   layout="bshd", rate=0.1, seed=s) for s in BUCKETS]
+    for c in cases:
+        _fwd_bwd_case(c)
+    times = {}
+    for dt in (torch.float32, torch.bfloat16):
+        key = f"d26 {'f32' if dt == torch.float32 else 'bf16'}"
+        times[key] = (_time_fwd(D26["b"], D26["s"], D26["h"], 26, "bshd",
+                                dtype=dt),
+                      _time_bwd(D26["b"], D26["s"], D26["h"], 26, "bshd",
+                                dtype=dt))
+    for s in TIMED_BUCKETS:
+        times[f"b{P2_B} s{s} h16 d64 bf16"] = (
+            _time_fwd(P2_B, s, 16, 64, "bshd"), _time_bwd(P2_B, s, 16, 64, "bshd"))
+    say("24a kernels", "K1/K2 vs plain, max abs err of out/lse and of "
+        "dq/dk/dv, and the worst over the gradient's largest entry: "
+        + ", ".join(f"{_case_name(c)}: {c['err'][1]:.2e}/{c['err'][2]:.2e}, "
+                    f"{c['err'][0]:.2e} ({c['rel']:.2e})" for c in cases)
+        + "; times (CUDA events, least of 3 in turns; [the card's clock "
+        "alone]): " + "; ".join(f"{k}: forward {_fmt_times(f)}; backward "
+                                f"{_fmt_bwd_times(b)}"
+                                for k, (f, b) in times.items())
+        + f" ({time.perf_counter() - t0:.1f} s)")
+    return (max(c["err"][1] for c in cases), max(c["err"][0] for c in cases),
+            times)
+
+
+def _grads_of(model, task, batch, seed):
+    gen = torch.Generator().manual_seed(seed)
+    loss, _ = task.loss_fn(model, {}, batch, gen)
+    loss.backward()
+    return float(loss), {n: p.grad.detach() for n, p in model.named_parameters()}
+
+
+def phase_remat() -> str:
+    """24b: one fp32 BERT-Large step (B=4 S=128, dropout 0.1, TF32 off)
+    with ``remat`` against the same step without; then the phase-2 step
+    (B=16 S=512 bf16) with and without, for peak memory and time."""
+    t0 = time.perf_counter()
+    cfg = BERT_CONFIGS["large"]
+    init = BertForPreTraining(cfg)
+    init_bert_weights_(init, torch.Generator().manual_seed(SEED),
+                       cfg.initializer_range)
+    sd = init.state_dict()
+    del init
+    batch = {k: torch.from_numpy(v).to(DEV)
+             for k, v in _pretrain_batch(4, TS, 20).items()}
+    p2 = {k: torch.from_numpy(v).to(DEV)
+          for k, v in _pretrain_batch(P2_B, 512, 76).items()}
+    grads, lines = {}, []
+    for remat in (False, True):
+        c = dataclasses.replace(cfg, remat=remat)
+        model = BertForPreTraining(c, torch.float32)
+        model.load_state_dict(sd)
+        model.to(DEV)
+        before = dict(_counts())
+        loss, grads[remat] = _grads_of(
+            model, BertPretrainTask(c, torch.float32, 20), batch, SEED + 24)
+        torch.cuda.synchronize()
+        n = {k: v - before[k] for k, v in _counts().items()}
+        k1 = LAYERS * (2 if remat else 1)  # the recompute runs K1 again
+        check(n["flash_fwd"] == k1 and n["flash_bwd_dq"] == LAYERS
+              and n["flash_bwd_dkv"] == LAYERS,
+              f"remat {remat}: launches {n}, want K1 {k1}, K2 {LAYERS}")
+        del model
+        # phase 2 in bf16: peak memory and the time of a forward + backward
+        model = BertForPreTraining(c, torch.bfloat16)
+        model.load_state_dict(sd)
+        model.to(DEV)
+        task = BertPretrainTask(c, torch.bfloat16, 76)
+        ms = []
+        for i in range(3):
+            model.zero_grad(set_to_none=True)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t1 = time.perf_counter()
+            _grads_of(model, task, p2, SEED + i)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t1) * 1e3)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        del model, task
+        torch.cuda.empty_cache()
+        lines.append(f"{'remat' if remat else 'no remat'}: fp32 loss {loss:.6f}, K1 "
+                     f"{n['flash_fwd']} K2 {n['flash_bwd_dq']}+"
+                     f"{n['flash_bwd_dkv']}; phase 2 b{P2_B} s512 bf16 "
+                     f"forward + backward {min(ms[1:]):.1f} ms (least of 2 "
+                     f"after one warm-up), peak {peak:.2f} GB")
+    top = max(float(g.abs().max()) for g in grads[False].values())
+    worst, name = max((max_err(grads[True][n], g) / top, n)
+                      for n, g in grads[False].items())
+    lines.append(f"remat vs none: worst gradient {name} {worst:.2e} of the "
+                 "largest entry")
+    check(worst <= TOL_REMAT, f"remat: {name} {worst:.3e} of the largest "
+          f"gradient entry (limit {TOL_REMAT:.0e})")
+    del grads
+    say("24b remat", f"BERT-Large, dropout 0.1, TF32 off: " + "; ".join(lines)
+        + f" ({time.perf_counter() - t0:.1f} s)")
+    return "; ".join(lines)
+
+
+def _write_corpus(root: Path) -> tuple[str, str]:
+    """Text files of blank-line-separated documents, capitalised sentences of
+    4 to 200 words drawn from a vocabulary of a few thousand made-up words
+    (whole words, so every id is below BERT's vocabulary), and that
+    vocabulary; returns (the glob of the text files, the vocab file)."""
+    rng = np.random.default_rng(SEED)
+    syll = ["ka", "lo", "mi", "ne", "tu", "ra", "si", "vo", "de", "pa", "be",
+            "go", "fu", "zi", "ho"]
+    words = sorted({"".join(rng.choice(syll, size=rng.integers(1, 5)))
+                    for _ in range(8000)})
+    vocab = (["[PAD]"] + [f"[unused{i}]" for i in range(99)]
+             + ["[UNK]", "[CLS]", "[SEP]", "[MASK]", ".", ","] + words)
+    (root / "vocab.txt").write_text("\n".join(vocab) + "\n")
+    # Zipf-like word frequencies, and mostly short sentences with a long tail
+    weights = 1.0 / np.arange(1, len(words) + 1)
+    weights /= weights.sum()
+    for f in range(4):
+        docs = []
+        for _ in range(CORPUS_DOCS // 4):
+            sents = []
+            for _ in range(rng.integers(4, 16)):
+                n = int(min(3 + rng.geometric(1 / 45), 200))
+                ws = rng.choice(words, size=n, p=weights)
+                sents.append(" ".join(ws).capitalize() + ".")
+            docs.append("\n".join(" ".join(sents[i:i + 2])
+                                  for i in range(0, len(sents), 2)))
+        (root / f"part_{f}.txt").write_text("\n\n".join(docs) + "\n")
+    return str(root / "part_*.txt"), str(root / "vocab.txt")
+
+
+def _cli_run(args: list[str], ws: Path) -> dict:
+    """One CLI run with the launch counts set to 0 before it: its state, the
+    counts after it, its raport's losses, step and data times, val records
+    and parameters, and its peak memory."""
+    shutil.rmtree(ws, ignore_errors=True)
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()  # this path starts here
+    t0 = time.perf_counter()
+    state, best = cli([*args, "--workspace", str(ws)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launched = _counts()
+    raport = next(ws.glob("*_raport.json"))
+    data = _raport_data(raport)
+    train = [d for d in data if "train.loss" in d]
+    out = {"state": state, "best": best, "launched": launched, "wall": wall,
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "losses": [d["train.loss"] for d in train],
+           "step_ms": [d["train.compute_time"] * 1e3 for d in train],
+           "data_ms": [d.get("train.data_time", 0.0) * 1e3 for d in train],
+           "val": [d for d in data if any(k.startswith("val.") for k in d)],
+           "params": next(d for d in data if "batch_size" in d and "lr" in d)}
+    shutil.rmtree(ws, ignore_errors=True)
+    return out
+
+
+def _on_a_worker_thread(it, depth: int = 3):
+    """``it``'s items made on a worker thread, ``depth`` ahead (the JAX
+    package's ``data/prefetch.py`` ``background``): phase 24c times the
+    corpus loader behind it, to decide whether the port needs it."""
+    q: queue.Queue = queue.Queue(maxsize=depth)
+    end = object()
+
+    def produce():
+        try:
+            for item in it:
+                q.put(item)
+            q.put(end)
+        except BaseException as e:  # raised in the consumer
+            q.put(e)
+
+    threading.Thread(target=produce, daemon=True).start()
+    while (item := q.get()) is not end:
+        if isinstance(item, BaseException):
+            raise item
+        yield item
+
+
+def _loop(state, train_step, batches, steps: int):
+    """``steps`` steps in the training loop's overlap: the next batch is made
+    and queued while the card runs the step before, and each step's loss is
+    read one step late. Returns the state after them."""
+    prev = None
+    for _ in range(steps):
+        state, m = train_step(state, next(batches))
+        if prev is not None:
+            float(prev["loss"])
+        prev = m
+    float(prev["loss"])
+    torch.cuda.synchronize()
+    return state
+
+
+def _loop_ms(state, train_step, batches, steps: int):
+    """(state, ms a step of ``_loop`` on the host clock, after 2 warm-up
+    steps)."""
+    state = _loop(state, train_step, batches, 2)
+    t0 = time.perf_counter()
+    state = _loop(state, train_step, batches, steps)
+    return state, (time.perf_counter() - t0) * 1e3 / steps
+
+
+def _loop_busy_ms(state, train_step, batches, traced: int):
+    """(state, the card's busy ms a step of ``_loop`` under torch.profiler:
+    the union of its kernels' intervals)."""
+    state = _loop(state, train_step, batches, 2)
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        state = _loop(state, train_step, batches, traced)
+    busy = profile_pretrain._union_us(
+        [(e.time_range.start, e.time_range.end)
+         for e in profile_pretrain.device_kernels(prof.events())])
+    return state, busy / traced / 1e3
+
+
+def phase_bert_corpus() -> dict[str, int]:
+    """24c: ``bert-pretrain`` on a corpus the phase writes, through the
+    CLI's runner at full width (BERT-Large, bf16): ``--config-file
+    configs.yml --precision bf16`` (B=64 S=128 lr 0.006 from the file), 20
+    steps; ``--phase2 --binned --remat`` at B=16; ``--attention-impl xla``;
+    the host time to make a batch; the step and idle share of the corpus
+    against the synthetic backend. Returns the kernels' launches on the CLI
+    runs."""
+    t0 = time.perf_counter()
+    work = ROOT / "workspace" / "chip_smoke" / "corpus"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    texts, vocab = _write_corpus(work)
+    t1 = time.perf_counter()
+    n_docs = bert_prep.prepare_corpus(texts, vocab, str(work / "shards"),
+                                      n_shards=4)
+    prep_s = time.perf_counter() - t1
+    check(n_docs == CORPUS_DOCS, f"prepare_corpus wrote {n_docs} documents")
+    shards = str(work / "shards")
+    corpus = ["--data-backend", "corpus", "--data-dir", shards, "--mode",
+              "benchmark-training"]
+    total = dict.fromkeys(_counts(), 0)
+    lines = [f"corpus of {n_docs} documents prepared in {prep_s:.1f} s"]
+    eval_batches = 10  # the corpus backend's val loader
+
+    # configs.yml's phase-1 settings, 20 steps
+    r = _cli_run(["bert-pretrain", "--config-file", "configs.yml",
+                  "--precision", "bf16", *corpus, "--steps-per-epoch",
+                  str(CORPUS_STEPS)], work / "cfg")
+    prm = r["params"]
+    check((prm["batch_size"], prm["seq_len"], prm["lr"], prm["amp"])
+          == (64, 128, 0.006, True), f"--config-file resolved {prm}")
+    losses = r["losses"]
+    check(len(losses) == CORPUS_STEPS and all(map(math.isfinite, losses)),
+          f"corpus run: losses {losses}")
+    check(statistics.mean(losses[-5:]) < losses[0],
+          f"corpus run: the loss did not fall: {losses}")
+    want = {**dict.fromkeys(r["launched"], 0),
+            "flash_fwd": LAYERS * (CORPUS_STEPS + eval_batches),
+            "flash_bwd_dq": LAYERS * CORPUS_STEPS,
+            "flash_bwd_dkv": LAYERS * CORPUS_STEPS}
+    check(r["launched"] == want, f"corpus run: launches {r['launched']}, "
+          f"want {want}")
+    for k, v in r["launched"].items():
+        total[k] += v
+    val = r["val"][0]
+    lines.append(f"--config-file configs.yml --precision bf16 (B "
+                 f"{prm['batch_size']}, S {prm['seq_len']}, lr {prm['lr']}), "
+                 f"{CORPUS_STEPS} steps: loss " + " ".join(f"{x:.4f}" for x in losses)
+                 + f"; val mlm_acc {val.get('val.mlm_acc', float('nan')):.4f}; "
+                 f"median step {statistics.median(r['step_ms'][1:]):.1f} ms, "
+                 f"data {statistics.median(r['data_ms'][1:]):.2f} ms (the loop's "
+                 f"host clock); peak {r['peak_gb']:.2f} GB; launches "
+                 f"{r['launched']}")
+    del r
+
+    # phase 2, binned, remat
+    steps = 5
+    args = ["bert-pretrain", *corpus, "--phase2", "--binned", "--remat",
+            "--batch-size", str(P2_B), "--lr", PRETRAIN_LR,
+            "--steps-per-epoch", str(steps)]
+    cfg = cli_main.BertCliConfig(data_backend="corpus", data_dir=shards,
+                                 batch_size=P2_B, seq_len=512,
+                                 max_predictions=76, binned=True,
+                                 mode="benchmark-training",
+                                 steps_per_epoch=steps)
+    loader, _ = cli_main._corpus_loaders(cfg, BERT_CONFIGS["large"].vocab_size)
+    buckets = [b["input_ids"].shape[1] for b in loader]
+    r = _cli_run(args, work / "p2")
+    check(len(r["losses"]) == steps and all(map(math.isfinite, r["losses"])),
+          f"phase 2 binned remat: losses {r['losses']}")
+    want = {**dict.fromkeys(r["launched"], 0),
+            # the recompute runs each layer's K1 again in the backward
+            "flash_fwd": LAYERS * (2 * steps + eval_batches),
+            "flash_bwd_dq": LAYERS * steps, "flash_bwd_dkv": LAYERS * steps}
+    check(r["launched"] == want, f"phase 2 binned remat: launches "
+          f"{r['launched']}, want {want}")
+    for k, v in r["launched"].items():
+        total[k] += v
+    lines.append(f"--phase2 --binned --remat B={P2_B}, {steps} steps at "
+                 f"bucket lengths {buckets}: loss "
+                 + " ".join(f"{x:.4f}" for x in r["losses"])
+                 + f"; steps {' '.join(f'{x:.1f}' for x in r['step_ms'])} ms; "
+                 f"peak {r['peak_gb']:.2f} GB; per step K1 "
+                 f"{2 * LAYERS} ({LAYERS} + {LAYERS} recomputed), K2 "
+                 f"{r['launched']['flash_bwd_dq'] // steps}+"
+                 f"{r['launched']['flash_bwd_dkv'] // steps}")
+    del r
+
+    # the plain attention path
+    r = _cli_run(["bert-pretrain", *corpus, "--attention-impl", "xla",
+                  "--batch-size", str(TB), "--seq-len", str(TS), "--lr",
+                  PRETRAIN_LR, "--steps-per-epoch", str(steps)], work / "xla")
+    check(len(r["losses"]) == steps and all(map(math.isfinite, r["losses"])),
+          f"xla: losses {r['losses']}")
+    check(r["launched"] == dict.fromkeys(r["launched"], 0),
+          f"xla: launches {r['launched']}, want none")
+    lines.append(f"--attention-impl xla B={TB} S={TS}, {steps} steps: loss "
+                 + " ".join(f"{x:.4f}" for x in r["losses"])
+                 + f"; median step {statistics.median(r['step_ms'][1:]):.1f} "
+                 f"ms; launches {r['launched']}")
+    del r
+
+    # the host time to make a batch, plain and binned
+    host = {}
+    for name, binned, b, s, p in (("plain b64 s128", False, TB, TS, 20),
+                                  ("binned b64 s128", True, TB, TS, 20),
+                                  ("binned b16 s512", True, P2_B, 512, 76)):
+        cfg = cli_main.BertCliConfig(data_backend="corpus", data_dir=shards,
+                                     batch_size=b, seq_len=s,
+                                     max_predictions=p, binned=binned,
+                                     mode="benchmark-training",
+                                     steps_per_epoch=20)
+        loader, _ = cli_main._corpus_loaders(cfg,
+                                             BERT_CONFIGS["large"].vocab_size)
+        t1 = time.perf_counter()
+        n = sum(1 for _ in loader)
+        host[name] = (time.perf_counter() - t1) * 1e3 / n
+    lines.append("host time to make a batch: " + ", ".join(
+        f"{k} {v:.2f} ms" for k, v in host.items()))
+
+    # the step and idle share, corpus (made on the main thread, and on a
+    # worker thread) against synthetic, B=64 S=128, tree LAMB: every host-clock
+    # reading in turns first, then the card's busy time under the profiler
+    # (a profiled loop slows the loops after it)
+    n = 2 + IDLE_STEPS
+    cfg = cli_main.BertCliConfig(data_backend="corpus", data_dir=shards,
+                                 batch_size=TB, seq_len=TS, lr=0.006,
+                                 mode="benchmark-training", steps_per_epoch=n)
+    run = cli_main.build_bert_pretrain(cfg)
+    synth = SyntheticBertLoader(TB, TS, BERT_CONFIGS["large"].vocab_size, 20,
+                                steps=n)
+    sources = {
+        "synthetic": lambda: iter(cli_main.to_device(synth, DEV)),
+        "corpus": lambda: iter(cli_main.to_device(run.loader, DEV)),
+        "corpus on a worker thread": lambda: iter(cli_main.to_device(
+            _on_a_worker_thread(run.loader), DEV)),
+    }
+    state = run.state
+    step_ms = {k: [] for k in sources}
+    for _ in range(2):
+        for name, make in sources.items():
+            state, ms = _loop_ms(state, run.train_step, make(), IDLE_STEPS)
+            step_ms[name].append(ms)
+    busy = {}
+    for name in ("synthetic", "corpus"):  # the same kernels either way
+        state, busy[name] = _loop_busy_ms(state, run.train_step,
+                                          sources[name](), IDLE_TRACED)
+    busy["corpus on a worker thread"] = busy["corpus"]
+    del run, state
+    lines.append("B=64 S=128 tree LAMB in the loop's overlap, two readings "
+                 "each in turns: " + ", ".join(
+                     f"{k} {' '.join(f'{x:.1f}' for x in v)} ms a step, device "
+                     f"busy {busy[k]:.1f} ms, idle "
+                     + " ".join(f"{100 * (1 - busy[k] / x):.1f}%" for x in v)
+                     for k, v in step_ms.items()))
+    shutil.rmtree(work, ignore_errors=True)
+    say("24c corpus", f"bert-pretrain BERT-Large bf16 on a written corpus "
+        "through the CLI: " + "; ".join(lines)
+        + f" ({time.perf_counter() - t0:.1f} s)")
+    return total
+
+
+def _distill_train(task, teacher, student, lr=1e-4):
+    """(train step, state) of ``task``'s hidden-state loss under AdamW."""
+    params = dict(student.named_parameters())
+    tx = adamw(lr, weight_decay=0.01)
+    state = create_train_state(student, tx, SEED, params=params)
+    return make_train_step(task.loss_fn(teacher), tx), state
+
+
+def phase_distill() -> str:
+    """24d: one distillation step (hidden MSE, AdamW) of the 4l-312 and
+    6l-768 students under a BERT-Large teacher at B=32 S=128 bf16, timed;
+    the same loss and gradients at B=2 in fp32 (dropout off) on the card
+    against the CPU in float64."""
+    t0 = time.perf_counter()
+    tcfg = BERT_CONFIGS["large"]
+    t_init = BertModel(tcfg)
+    init_bert_weights_(t_init, torch.Generator().manual_seed(SEED),
+                       tcfg.initializer_range)
+    t_sd = t_init.state_dict()
+    batch = {k: torch.from_numpy(v) for k, v in _pretrain_batch(
+        DISTILL_B, TS, 20).items() if k in INPUTS}
+    small = {k: v[:2] for k, v in batch.items()}
+    lines = []
+    for name in ("4l-312", "6l-768"):
+        scfg = STUDENT_CONFIGS[name]
+        # bf16, timed
+        task = DistillationTask(tcfg, scfg, torch.bfloat16)
+        teacher = task.teacher(DEV)
+        teacher.load_state_dict(t_sd)
+        student = task.init(torch.Generator().manual_seed(SEED + 1), DEV)
+        step, state = _distill_train(task, teacher, student)
+        dev_batch = {k: v.to(DEV) for k, v in batch.items()}
+        before = dict(_counts())
+        ms = []
+        for _ in range(DISTILL_STEPS):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            state, m = step(state, dev_batch)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t1) * 1e3)
+        n = {k: (v - before[k]) // DISTILL_STEPS for k, v in _counts().items()}
+        check(n["flash_fwd"] == tcfg.num_layers + scfg.num_layers
+              and n["flash_bwd_dq"] == scfg.num_layers
+              and n["flash_bwd_dkv"] == scfg.num_layers,
+              f"{name}: launches a step {n}")
+        check(math.isfinite(float(m["loss"])), f"{name}: loss {m['loss']}")
+        bf16_loss = float(m["loss"])
+        del teacher, student, state, step
+        # fp32 on the card against float64 on the CPU, dropout off
+        scfg0 = dataclasses.replace(scfg, hidden_dropout=0.0,
+                                    attention_dropout=0.0)
+        task = DistillationTask(tcfg, scfg0, torch.float32)
+        s_init = task.init(torch.Generator().manual_seed(SEED + 1), "cpu")
+        got = []
+        for dev, f64 in ((DEV, False), ("cpu", True)):
+            teacher = BertModel(tcfg, torch.float32)
+            teacher.load_state_dict(t_sd)
+            student = copy.deepcopy(s_init)
+            if f64:
+                teacher, student = _float64(teacher), _float64(student)
+            teacher.to(dev).requires_grad_(False)
+            student.to(dev)
+            loss, _ = task.loss_fn(teacher)(
+                student, {}, {k: v.to(dev) for k, v in small.items()},
+                torch.Generator())
+            loss.backward()
+            got.append((float(loss), {n: p.grad.detach().cpu().double()
+                                      for n, p in student.named_parameters()
+                                      if p.grad is not None}))
+            del teacher, student
+        (l32, g32), (l64, g64) = got
+        top = max(float(g.abs().max()) for g in g64.values())
+        worst, wname = max((float((g32[k] - g).abs().max()) / top, k)
+                           for k, g in g64.items())
+        rel = abs(l32 - l64) / abs(l64)
+        lines.append(f"{name} (head dim {scfg.head_dim}): bf16 B={DISTILL_B} "
+                     f"S={TS} step {statistics.median(ms[1:]):.1f} ms median, "
+                     f"{min(ms[1:]):.1f} least (host clock), loss "
+                     f"{bf16_loss:.6f}, per step K1 {n['flash_fwd']} K2 "
+                     f"{n['flash_bwd_dq']}+{n['flash_bwd_dkv']}; fp32 B=2 card "
+                     f"vs float64 CPU: loss {l32:.8f} vs {l64:.8f} ({rel:.2e}), "
+                     f"worst gradient {wname} {worst:.2e} of the largest entry")
+        check(rel <= TOL_DISTILL["loss"], f"{name}: loss {l32} vs {l64}")
+        check(worst <= TOL_DISTILL["grad"], f"{name}: gradient {wname} "
+              f"{worst:.3e} of the largest entry")
+    say("24d distillation", "BERT-Large teacher, hidden MSE through "
+        "distill_proj, AdamW: " + "; ".join(lines)
+        + f" ({time.perf_counter() - t0:.1f} s)")
+    return "; ".join(lines)
+
+
+def phase_dlrm_binary() -> int:
+    """24e: ``dlrm --data-backend binary`` through the CLI's runner at
+    B=65,536 on a Criteo binary set the phase writes (26 unequal tables,
+    2.6M rows in all, 4M records): 20 steps at lr 0.1, AUC over the trailing
+    2%, the step time beside the synthetic backend's. Returns K4's
+    launches."""
+    t0 = time.perf_counter()
+    work = ROOT / "workspace" / "chip_smoke" / "criteo"
+    shutil.rmtree(work, ignore_errors=True)
+    t1 = time.perf_counter()
+    criteo.write_synthetic_dataset(
+        str(work / "data"), criteo.FeatureSpec(
+            categorical_cardinalities=list(DLRM_BIN_CARDS)),
+        DLRM_BIN_ROWS, seed=SEED)
+    write_s = time.perf_counter() - t1
+    size_mb = sum(f.stat().st_size for f in (work / "data").iterdir()) / 1e6
+    spec = criteo.FeatureSpec.from_yaml(str(work / "data" / "feature_spec.yaml"))
+    check(sum(spec.categorical_cardinalities) == sum(DLRM_BIN_CARDS)
+          and spec.categorical_cardinalities != list(DLRM_BIN_CARDS),
+          f"the spec's cardinalities {spec.categorical_cardinalities}")
+    n_eval = DLRM_BIN_ROWS - int(DLRM_BIN_ROWS * 0.98)
+    eval_batches = -(-n_eval // DLRM_B)
+    runs = {}
+    for name, args in (
+            ("binary", ["--data-backend", "binary", "--data-dir",
+                        str(work / "data"), "--prof", str(DLRM_BIN_STEPS)]),
+            ("synthetic", ["--steps-per-epoch", str(DLRM_BIN_STEPS)])):
+        r = _cli_run(["dlrm", "--batch-size", str(DLRM_B), "--lr",
+                      DLRM_LR_STABLE, *args], work / name)
+        check(r["state"].step == DLRM_BIN_STEPS, f"dlrm {name}: "
+              f"{r['state'].step} steps")
+        losses = r["losses"]
+        check(len(losses) == DLRM_BIN_STEPS and all(map(math.isfinite, losses)),
+              f"dlrm {name}: losses {losses}")
+        evals = eval_batches if name == "binary" else 5
+        want = {**dict.fromkeys(r["launched"], 0),
+                "gather_rows": DLRM_BIN_STEPS + evals}
+        check(r["launched"] == want, f"dlrm {name}: launches {r['launched']}")
+        check(len(r["val"]) == 1 and 0.0 <= r["val"][0]["val.auc"] <= 1.0,
+              f"dlrm {name}: eval {r['val']}")
+        r.pop("state")
+        runs[name] = r
+    shutil.rmtree(work, ignore_errors=True)
+    say("24e DLRM binary", f"dlrm --data-backend binary, {len(DLRM_BIN_CARDS)} "
+        f"tables of {min(DLRM_BIN_CARDS)}-{max(DLRM_BIN_CARDS)} rows "
+        f"({sum(DLRM_BIN_CARDS)} in all, read in the spec's sorted key order), "
+        f"{DLRM_BIN_ROWS} records ({size_mb:.0f} MB written in {write_s:.1f} "
+        f"s), B={DLRM_B} bf16, lr {DLRM_LR_STABLE}, {DLRM_BIN_STEPS} steps "
+        f"then the trailing {n_eval} records in {eval_batches} batches: "
+        + "; ".join(
+            f"{k}: loss {v['losses'][0]:.4f} -> {v['losses'][-1]:.4f}, "
+            f"val.auc {v['val'][0]['val.auc']:.6f}, median step "
+            f"{statistics.median(v['step_ms'][1:]):.2f} ms, data "
+            f"{statistics.median(v['data_ms'][1:]):.2f} ms (the loop's host "
+            f"clock), peak {v['peak_gb']:.2f} GB, run {v['wall']:.1f} s, K4 "
+            f"{v['launched']['gather_rows']}" for k, v in runs.items())
+        + f" ({time.perf_counter() - t0:.1f} s)")
+    return runs["binary"]["launched"]["gather_rows"]
+
+
+def phase_bert_data() -> tuple[float, float, dict[str, int]]:
+    """Phase 24: this slice's kernels, remat, the corpus paths,
+    distillation and DLRM's binary backend. Returns K1's and K2's worst
+    errors against their plain versions and the main paths' launches."""
+    fwd_err, bwd_err, _ = phase_bert_data_kernels()
+    phase_remat()
+    launched = phase_bert_corpus()  # counts set to 0 there
+    phase_distill()
+    launched["gather_rows"] += phase_dlrm_binary()  # counts set to 0 there
+    return fwd_err, bwd_err, launched
+
+
 def main() -> None:
     name = phase_device()
     phase_build()
@@ -3781,6 +4382,13 @@ def main() -> None:
     _reset_counts()  # the decoding path starts here
     launched["flash_fwd"] += phase_s2s_decode()["flash_fwd"]
     for k, v in phase_s2s().items():  # counts set to 0 there
+        launched[k] += v
+    data_fwd, data_bwd, data_launched = phase_bert_data()
+    results["flash_fwd"]["max_abs_err"] = max(
+        results["flash_fwd"]["max_abs_err"], data_fwd)
+    for k in ("flash_bwd_dq", "flash_bwd_dkv"):
+        results[k]["max_abs_err"] = max(results[k]["max_abs_err"], data_bwd)
+    for k, v in data_launched.items():
         launched[k] += v
     check(set(launched) == set(results), f"{sorted(launched)} vs {sorted(results)}")
     for k, v in launched.items():

@@ -17,15 +17,18 @@ on the card unless ``--device cpu`` is given. Flags whose machinery is not
 ported yet exit with a message that says so, rather than being ignored: for
 the ConvNets and ``ssd300`` ``--data-backend`` other than synthetic and
 ``--mesh-*``; for
-``bert-pretrain`` ``--zero``, ``--remat``, ``--attention-impl xla|ring``,
-``--binned``, ``--mesh-*`` and ``--data-backend corpus``; for the
-fine-tuning commands ``--mesh-*`` and an ``--init-checkpoint`` in TF
-format; for ``dlrm`` ``--data-backend binary`` and ``--mesh-model`` above
-1; for ``tacotron2``, ``waveglow``, ``transformer``, ``bart`` and ``gnmt``
-``--mesh-*``. ``--config-file``,
-``--platform`` and ``--precision`` (the YAML layers) are not flags here yet, so argparse refuses
-them, as it refuses ``--zero`` for the fine-tuning commands, which
-``dlx-train`` does not give them either.
+``bert-pretrain`` ``--zero``, ``--attention-impl ring`` and
+``--mesh-*``; for the fine-tuning commands ``--mesh-*`` and an
+``--init-checkpoint`` in TF format; for ``dlrm`` ``--mesh-model`` above 1
+and ``--mesh-*``; for ``tacotron2``, ``waveglow``, ``transformer``, ``bart`` and ``gnmt``
+``--mesh-*``. argparse refuses ``--zero`` for the fine-tuning commands,
+which ``dlx-train`` does not give them either.
+
+Every command takes ``--config-file`` (a ``configs.yml``-style file),
+``--platform`` and ``--precision``, resolved as ``dlx-train`` does: the
+config class's defaults, then the file's precision, platform and model
+layers for the command (``core.config.resolve``), then the flags. A key of
+the file that the command's config lacks raises ``KeyError``.
 """
 
 from __future__ import annotations
@@ -144,15 +147,14 @@ def _unported(model: str, todo: list[tuple[bool, str]]) -> None:
 def _unported_bert(cfg: BertCliConfig) -> None:
     _unported("bert-pretrain", [
         (cfg.zero, "--zero (ZeRO-1 optimizer sharding)"),
-        (cfg.remat, "--remat (activation checkpointing)"),
-        (cfg.attention_impl != "flash",
-         f"--attention-impl {cfg.attention_impl} (only flash is ported)"),
-        (cfg.binned, "--binned (sequence-length binning needs the corpus "
-                     "loader)"),
+        (cfg.attention_impl not in ("flash", "xla"),
+         f"--attention-impl {cfg.attention_impl} (flash and xla are "
+         "ported)"),
         (cfg.mesh_data not in (-1, 1) or cfg.mesh_model != 1
          or cfg.mesh_sequence != 1, "--mesh-* (one card only so far)"),
-        (cfg.data_backend != "synthetic",
-         f"--data-backend {cfg.data_backend} (only synthetic is ported)"),
+        (cfg.data_backend not in ("synthetic", "corpus"),
+         f"--data-backend {cfg.data_backend} (synthetic and corpus are "
+         "ported)"),
     ])
 
 
@@ -367,8 +369,42 @@ class BertPretrainRun:
     val_loader: Any
 
 
+def _corpus_loaders(cfg: BertCliConfig, vocab_size: int):
+    """``--data-backend corpus``, as JAX's ``run_bert_pretrain``: documents
+    from the ``shard_*.npz`` files in ``--data-dir`` (``prepare_corpus``),
+    the last ``max(2, len(docs) // 100)`` held out for validation (10
+    batches at ``seed + 7``), the rest masked online, batches padded to
+    ``seq_len`` or, with ``--binned``, to their length bucket (a multiple of
+    64). An epoch covers the corpus unless ``--mode`` is not train, when it
+    is ``--steps-per-epoch`` batches."""
+    from ..data.bert_prep import load_corpus_shards
+    from ..data.bert_pretrain import (
+        BertPretrainLoader,
+        BinnedBertPretrainLoader,
+        MaskingConfig,
+    )
+
+    docs = load_corpus_shards(cfg.data_dir)
+    n_eval = max(2, len(docs) // 100)
+    mcfg = MaskingConfig(vocab_size=vocab_size,
+                         max_predictions_per_seq=cfg.max_predictions)
+    loader_cls = BinnedBertPretrainLoader if cfg.binned else BertPretrainLoader
+    loader = loader_cls(
+        docs[:-n_eval], cfg.batch_size, cfg.seq_len, mcfg, seed=cfg.seed,
+        steps_per_epoch=cfg.steps_per_epoch if cfg.mode != "train" else None)
+    val_loader = BertPretrainLoader(docs[-n_eval:], cfg.batch_size,
+                                    cfg.seq_len, mcfg, seed=cfg.seed + 7,
+                                    steps_per_epoch=10)
+    return loader, val_loader
+
+
 def build_bert_pretrain(cfg: BertCliConfig) -> BertPretrainRun:
-    """The model, optimizer, state, step and loaders of ``bert-pretrain``."""
+    """The model, optimizer, state, step and loaders of ``bert-pretrain``:
+    synthetic batches, or with ``--data-backend corpus`` a tokenized corpus
+    (``_corpus_loaders``; ``--binned`` bins only its batches, as in JAX);
+    ``--remat`` checkpoints each encoder layer (recomputed whole) and
+    ``--attention-impl xla`` runs attention in plain ops, as JAX's config
+    fields do."""
     from ..data.synthetic import SyntheticBertLoader
     from ..models.bert import BERT_CONFIGS, BertPretrainTask
     from ..ops.lamb import lamb
@@ -376,14 +412,19 @@ def build_bert_pretrain(cfg: BertCliConfig) -> BertPretrainRun:
     _unported_bert(cfg)
     if cfg.phase2:
         cfg.seq_len, cfg.max_predictions = 512, 76
-    bcfg = BERT_CONFIGS[cfg.bert_model]
+    bcfg = dataclasses.replace(BERT_CONFIGS[cfg.bert_model], remat=cfg.remat,
+                               attention_impl=cfg.attention_impl)
     task = BertPretrainTask(bcfg, _dtype(cfg), max_predictions=cfg.max_predictions)
     model = task.init(torch.Generator().manual_seed(cfg.seed), device=cfg.device)
-    loader = SyntheticBertLoader(cfg.batch_size, cfg.seq_len, bcfg.vocab_size,
-                                 cfg.max_predictions, steps=cfg.steps_per_epoch)
-    val_loader = SyntheticBertLoader(cfg.batch_size, cfg.seq_len,
+    if cfg.data_backend == "corpus":
+        loader, val_loader = _corpus_loaders(cfg, bcfg.vocab_size)
+    else:
+        loader = SyntheticBertLoader(cfg.batch_size, cfg.seq_len,
                                      bcfg.vocab_size, cfg.max_predictions,
-                                     steps=5)
+                                     steps=cfg.steps_per_epoch)
+        val_loader = SyntheticBertLoader(cfg.batch_size, cfg.seq_len,
+                                         bcfg.vocab_size, cfg.max_predictions,
+                                         steps=5)
     total = cfg.epochs * len(loader)
     sched = lr_poly_warmup(cfg.lr, max(total // 100, 1), total)
     mdt = torch.bfloat16 if cfg.lamb_moments == "bf16" else torch.float32
@@ -413,8 +454,9 @@ def build_bert_pretrain(cfg: BertCliConfig) -> BertPretrainRun:
 
 
 def run_bert_pretrain(cfg: BertCliConfig):
-    """Train BERT with MLM + NSP on synthetic data; returns ``(state,
-    best mlm_acc)``."""
+    """Train BERT with MLM + NSP on synthetic data or a tokenized corpus;
+    returns ``(state, best mlm_acc)``. Corpus batches are made on the main
+    thread between steps, as JAX makes them."""
     logger = _common_setup(cfg, "bert_pretrain")
     run = build_bert_pretrain(cfg)
     ckpt = CheckpointManager(f"{cfg.workspace}/bert_ckpt")
@@ -823,21 +865,33 @@ class DlrmRun:
 
 
 def build_dlrm(cfg: DlrmCliConfig) -> DlrmRun:
-    """The model, dual SGD, state, step and loaders of ``dlrm``: the
-    synthetic Criteo-like loader over ``num_tables`` tables of
-    ``cardinality`` rows, and 5 eval batches drawn with seed 1."""
+    """The model, dual SGD, state, step and loaders of ``dlrm``. With
+    ``--data-backend binary``, the Criteo binary split in ``--data-dir``
+    (``feature_spec.yaml``'s cardinalities, read in JAX's order): train on it
+    and evaluate on its ``test/`` split if there is one, else train on the
+    first 98% of its rows and evaluate on the trailing 2% with the short
+    tail batch. Otherwise the synthetic Criteo-like loader over
+    ``num_tables`` tables of ``cardinality`` rows, and 5 eval batches drawn
+    with seed 1."""
     from ..data.synthetic import SyntheticDlrmLoader
     from ..models.dlrm import DlrmConfig, DlrmTask, make_dlrm_optimizer
 
     _unported("dlrm", [
-        (cfg.data_backend != "synthetic",
-         f"--data-backend {cfg.data_backend} (the Criteo binary reader needs "
-         "a feature-spec reader without yaml; only synthetic is ported)"),
+        (cfg.data_backend not in ("synthetic", "binary"),
+         f"--data-backend {cfg.data_backend} (synthetic and binary are "
+         "ported)"),
         (cfg.mesh_model > 1, "--mesh-model > 1 (the row-sharded table)"),
         (cfg.mesh_data not in (-1, 1) or cfg.mesh_sequence != 1,
          "--mesh-* (one card only so far)"),
     ])
-    cards = tuple([int(cfg.cardinality)] * cfg.num_tables)
+    spec = None
+    if cfg.data_backend == "binary":
+        from ..data.criteo import FeatureSpec
+
+        spec = FeatureSpec.from_yaml(f"{cfg.data_dir}/feature_spec.yaml")
+        cards = tuple(spec.categorical_cardinalities)
+    else:
+        cards = tuple([int(cfg.cardinality)] * cfg.num_tables)
     task = DlrmTask(
         DlrmConfig(categorical_cardinalities=cards,
                    embedding_dim=cfg.embedding_dim,
@@ -847,17 +901,33 @@ def build_dlrm(cfg: DlrmCliConfig) -> DlrmRun:
     params = dict(model.named_parameters())
     tx = make_dlrm_optimizer(mlp_lr=cfg.lr, embedding_lr=cfg.lr)
     state = create_train_state(model, tx, cfg.seed + 1, params=params)
-    loader = SyntheticDlrmLoader(cfg.batch_size, list(cards),
-                                 steps=cfg.steps_per_epoch)
-    val_loader = SyntheticDlrmLoader(cfg.batch_size, list(cards), steps=5,
-                                     seed=1)
+    if spec is not None:
+        from ..data.criteo import CriteoBinaryDataset
+
+        test_dir = os.path.join(cfg.data_dir, "test")
+        if os.path.isdir(test_dir):
+            loader = CriteoBinaryDataset(cfg.data_dir, spec, cfg.batch_size)
+            val_loader = CriteoBinaryDataset(test_dir, spec, cfg.batch_size,
+                                             drop_last=False)
+        else:
+            loader = CriteoBinaryDataset(cfg.data_dir, spec, cfg.batch_size,
+                                         row_range=(0.0, 0.98))
+            val_loader = CriteoBinaryDataset(
+                cfg.data_dir, spec, cfg.batch_size, row_range=(0.98, 1.0),
+                drop_last=False)
+    else:
+        loader = SyntheticDlrmLoader(cfg.batch_size, list(cards),
+                                     steps=cfg.steps_per_epoch)
+        val_loader = SyntheticDlrmLoader(cfg.batch_size, list(cards), steps=5,
+                                         seed=1)
     train_step = make_train_step(task.loss_fn, tx)
     return DlrmRun(task, tx, state, train_step, loader, val_loader)
 
 
 def run_dlrm(cfg: DlrmCliConfig):
-    """Train DLRM with BCE and dual SGD on synthetic data, evaluating AUC
-    over the whole eval set; returns ``(state, best auc)``."""
+    """Train DLRM with BCE and dual SGD on synthetic data or a Criteo binary
+    split, evaluating AUC over the whole eval set; returns ``(state, best
+    auc)``."""
     logger = _common_setup(cfg, "dlrm")
     run = build_dlrm(cfg)
     ckpt = CheckpointManager(f"{cfg.workspace}/dlrm_ckpt")
@@ -1227,10 +1297,20 @@ def cli(argv=None):
             bare = {"nargs": "?", "const": "true"} if str(f.type) == "bool" else {}
             p.add_argument(f"--{f.name.replace('_', '-')}", dest=f.name,
                            default=None, type=str, **bare)
+        # the YAML layers: a configs.yml-style file and the names of its
+        # precision and platform sections (e.g. bf16, v5e-1)
+        p.add_argument("--config-file", default=None)
+        p.add_argument("--platform", default=None)
+        p.add_argument("--precision", default=None)
 
     ns = parser.parse_args(argv)
     cls = _CONFIG_CLS[ns.model]
     cfg = cls()
+    if ns.config_file:
+        # defaults -> the file's layers for this command -> the flags
+        cfg = cfgmod.resolve(cfg, yaml_path=ns.config_file,
+                             precision=ns.precision, platform=ns.platform,
+                             model=ns.model, mode=None)
     overrides = {}
     for f in dataclasses.fields(cls):
         v = getattr(ns, f.name, None)

@@ -1,8 +1,11 @@
 """Copy of the parts of ``deeplearningexamples_tpu/core/config.py`` that the
-CLI uses: dataclass configs and CLI overrides. The YAML layers
-(``--config-file``) are not ported yet.
+CLI uses: dataclass configs, the YAML layers and CLI overrides.
 
 - configs are plain ``@dataclass`` trees, one per model family
+- YAML layers (``--config-file``) compose in the reference's order,
+  ``precision x platform x model x mode`` (reference
+  ``PyTorch/Classification/ConvNets/launch.py:35-45``), read with the
+  port's own ``core/yaml_subset.py``
 - CLI values are parsed with ``parse_value`` and applied with ``merge``
 """
 
@@ -13,7 +16,9 @@ import json
 from dataclasses import fields, is_dataclass
 from typing import Any, Mapping
 
-__all__ = ["merge", "parse_value", "to_dict"]
+from . import yaml_subset
+
+__all__ = ["load_yaml_layers", "merge", "parse_value", "resolve", "to_dict"]
 
 
 def to_dict(cfg: Any) -> dict:
@@ -65,3 +70,67 @@ def parse_value(s: str) -> Any:
     if low in ("null", "none"):
         return None
     return s
+
+
+def load_yaml_layers(
+    path: str,
+    *,
+    precision: str | None = None,
+    platform: str | None = None,
+    model: str | None = None,
+    mode: str | None = None,
+) -> dict:
+    """Compose override layers from a configs.yml-style file.
+
+    The file holds top-level sections ``precision``, ``platform``, ``models``
+    (keyed by model, then platform, then precision), and ``mode``; they merge
+    in that order, later layers winning.
+    """
+    doc = yaml_subset.load(path) or {}
+    out: dict = {}
+
+    def deep_update(dst: dict, src: Mapping) -> None:
+        for k, v in src.items():
+            if isinstance(v, Mapping) and isinstance(dst.get(k), dict):
+                deep_update(dst[k], v)
+            else:
+                dst[k] = v if not isinstance(v, Mapping) else dict(v)
+
+    if precision and precision in doc.get("precision", {}):
+        deep_update(out, doc["precision"][precision])
+    if platform and platform in doc.get("platform", {}):
+        deep_update(out, doc["platform"][platform])
+    if model and model in doc.get("models", {}):
+        node = doc["models"][model]
+        # model section may itself be layered by platform then precision
+        if platform and platform in node:
+            node = node[platform]
+        if precision and isinstance(node, Mapping) and precision in node:
+            node = node[precision]
+        if isinstance(node, Mapping):
+            deep_update(out, node)
+    if mode and mode in doc.get("mode", {}):
+        deep_update(out, doc["mode"][mode])
+    return out
+
+
+def resolve(
+    cfg: Any,
+    *,
+    yaml_path: str | None = None,
+    precision: str | None = None,
+    platform: str | None = None,
+    model: str | None = None,
+    mode: str | None = None,
+) -> Any:
+    """``cfg`` with the YAML layers of ``yaml_path`` merged over it; the CLI
+    applies its flags on top."""
+    if yaml_path:
+        cfg = merge(
+            cfg,
+            load_yaml_layers(
+                yaml_path, precision=precision, platform=platform, model=model,
+                mode=mode,
+            ),
+        )
+    return cfg

@@ -16,6 +16,8 @@ optax that the ported recipes use:
   (``optax.adamw``), the two optimizers of BERT fine-tuning.
 - ``clip_by_global_norm`` and ``chain`` (optax's), which Tacotron2 and
   WaveGlow train under: ``chain(clip_by_global_norm(1.0), adam(lr))``.
+- ``rmsprop`` (EfficientNet's RMSprop) and ``dlrm_lr_schedule`` (DLRM's
+  warmup and polynomial decay): no command calls them, as in JAX.
 
 Each is a ``Transform`` over a dict name -> tensor; a schedule is read at the
 update count before the update, as optax's ``scale_by_schedule``. The
@@ -33,10 +35,11 @@ import torch
 
 from ..ops.lamb import Transform, global_norm, norms
 
-__all__ = ["AdamState", "SgdState", "adam", "adamw", "bert_adam", "chain",
-           "clip_by_global_norm", "lr_cosine_policy", "lr_exponential_policy",
-           "lr_linear_policy", "lr_poly_warmup", "lr_step_policy", "no_decay_mask", "partition",
-           "sgd"]
+__all__ = ["AdamState", "RmspropState", "SgdState", "adam", "adamw",
+           "bert_adam", "chain", "clip_by_global_norm", "dlrm_lr_schedule",
+           "lr_cosine_policy", "lr_exponential_policy", "lr_linear_policy",
+           "lr_poly_warmup", "lr_step_policy", "no_decay_mask", "partition",
+           "rmsprop", "sgd"]
 
 _F = np.float32
 
@@ -60,6 +63,31 @@ def lr_poly_warmup(base_lr: float, warmup_steps: int, total_steps: int,
         frac = _F(step - warmup_steps) / _F(max(total_steps - warmup_steps, 1))
         frac = min(max(frac, _F(0.0)), _F(1.0))
         return float(_F(base_lr) * (_F(1.0) - frac) ** _F(power))
+
+    return sched
+
+
+def dlrm_lr_schedule(base_lr: float, warmup_steps: int, warmup_factor: float,
+                     decay_start_step: int, decay_steps: int,
+                     decay_power: float = 2.0, end_lr_factor: float = 0.0
+                     ) -> Callable[[int], float]:
+    """DLRM polynomial decay with stepped warmup (reference
+    ``dlrm/scripts/utils.py`` ``LearningRateScheduler``; JAX
+    ``dlrm_lr_schedule``): ``base_lr * (step + 1) / warmup_steps`` during
+    warmup, ``base_lr`` until ``decay_start_step``, then ``base_lr *
+    max((1 - frac) ** decay_power, end_lr_factor)`` over ``decay_steps``.
+    ``warmup_factor`` is taken and unused, as in JAX."""
+
+    def sched(step: int) -> float:
+        warm = (_F(base_lr) * (_F(step + 1) / _F(max(warmup_steps, 1)))
+                if warmup_steps else _F(base_lr))
+        frac = _F(step - decay_start_step) / _F(max(decay_steps, 1))
+        frac = min(max(frac, _F(0.0)), _F(1.0))
+        decayed = _F(base_lr) * max((_F(1.0) - frac) ** _F(decay_power),
+                                    _F(end_lr_factor))
+        if step >= decay_start_step:
+            return float(decayed)
+        return float(warm if step < warmup_steps else _F(base_lr))
 
     return sched
 
@@ -190,6 +218,54 @@ def sgd(learning_rate: LearningRate, momentum: float = 0.0,
         upd = torch._foreach_mul(g, -_lr(learning_rate, count))
         return dict(zip(names, upd)), (SgdState(count + 1, state.trace)
                                        if momentum else count + 1)
+
+    return Transform(init, update)
+
+
+class RmspropState(NamedTuple):
+    count: int
+    nu: dict[str, torch.Tensor]
+    trace: dict[str, torch.Tensor] | None
+
+
+def rmsprop(learning_rate: LearningRate, alpha: float = 0.9,
+            momentum: float = 0.9, eps: float = 1e-3, weight_decay: float = 0.0,
+            mask: Mapping[str, bool] | None = None) -> Transform:
+    """RMSprop as EfficientNet uses it (reference ``optimizers.py:69-90``;
+    JAX ``rmsprop``): ``g + weight_decay * p`` where ``mask`` (name -> bool,
+    every tensor without one) says so, then optax's ``scale_by_rms`` with eps
+    outside the square root (``torch.optim.RMSprop``'s placement): ``nu =
+    (1 - alpha) * g^2 + alpha * nu`` (zeros at first), ``g / (sqrt(nu) +
+    eps)``; then ``optax.trace``'s ``t = u + momentum * t``; times
+    ``-lr(count)``. The state's tensors are updated in place."""
+
+    def init(params: Mapping[str, torch.Tensor]) -> RmspropState:
+        zeros = lambda: {n: torch.zeros_like(p) for n, p in params.items()}
+        return RmspropState(0, zeros(), zeros() if momentum else None)
+
+    def update(grads, state: RmspropState, params=None):
+        names = list(grads)
+        if not names:
+            return {}, state._replace(count=state.count + 1)
+        g = [grads[n] for n in names]
+        if weight_decay:
+            g = [gi + params[n] * weight_decay
+                 if mask is None or mask[n] else gi
+                 for gi, n in zip(g, names)]
+        nu = [state.nu[n] for n in names]
+        torch._foreach_mul_(nu, alpha)
+        torch._foreach_add_(nu, torch._foreach_mul(torch._foreach_mul(g, g),
+                                                   1 - alpha))
+        scaling = torch._foreach_reciprocal(
+            torch._foreach_add(torch._foreach_sqrt(nu), eps))
+        u = torch._foreach_mul(scaling, g)
+        if momentum:
+            t = [state.trace[n] for n in names]
+            torch._foreach_mul_(t, momentum)
+            torch._foreach_add_(t, u)
+            u = t
+        upd = torch._foreach_mul(u, -_lr(learning_rate, state.count))
+        return dict(zip(names, upd)), state._replace(count=state.count + 1)
 
     return Transform(init, update)
 

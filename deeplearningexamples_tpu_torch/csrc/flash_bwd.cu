@@ -67,9 +67,15 @@
 // against the CPU, and TF32 mma keeps about three decimal digits; the main
 // paths run in bf16.
 //
+// Head dims other than 32, 64 and 128 (up to 128), and bf16 views whose
+// strides are not whole 16 bytes, run the next tile width's non-FULL
+// instance with narrower copies and zero columns past the head dim, as in
+// the forward (flash_fwd.cu).
+//
 // Both instances skip, under causal masking, the tiles past the diagonal
 // unless a row of the tile has every key masked (the forward's rule).
 
+#include <algorithm>
 #include <type_traits>
 
 #include "flash_common.cuh"
@@ -104,6 +110,8 @@ struct Params {
   uint32_t threshold;    // keep iff hash >= threshold (int(rate * 2**31))
   float one_minus_rate;  // fp32(1 - rate); kept values scale by 1/this
   uint32_t seed;         // the int32 seed's bits
+  int Dv;                // the head dim, <= the instance's tile width D
+  int unit;              // bf16: bytes a copy (copy_unit in flash_common.cuh)
 };
 
 // p for a masked score, -1e30, is exp(-1e30 - lse): 0 unless every key of
@@ -119,7 +127,9 @@ constexpr size_t dq_smem_bytes() {
          sizeof(int) * BK;
 }
 
-template <int D>
+// FULL: the head dim is D. Otherwise it is p.Dv < D: the columns past it
+// load as zeros and are not stored (in every kernel of this file).
+template <int D, bool FULL>
 __global__ void __launch_bounds__(NTHREADS) flash_bwd_dq_kernel(const Params p) {
   constexpr int RLD = D + 1;   // padded row stride of Qs and dOs
   constexpr int KLD = BK + 1;  // padded row stride of Kt, Vt and Ps
@@ -155,7 +165,7 @@ __global__ void __launch_bounds__(NTHREADS) flash_bwd_dq_kernel(const Params p) 
   for (int i = tid; i < BQ * D; i += NTHREADS) {
     const int r = i / D, d = i % D;
     const int row = q0 + r;
-    const bool in = row < p.Sq;
+    const bool in = row < p.Sq && (FULL || d < p.Dv);
     Qs[r * RLD + d] = in ? qp[row * p.sq.s + d * p.sq.d] : 0.0f;
     dOs[r * RLD + d] = in ? dop[row * p.sdo.s + d * p.sdo.d] : 0.0f;
   }
@@ -166,7 +176,7 @@ __global__ void __launch_bounds__(NTHREADS) flash_bwd_dq_kernel(const Params p) 
     const int row = q0 + r;
     float acc = 0.0f;
     if (row < p.Sq)
-      for (int d = part; d < D; d += 4)
+      for (int d = part; d < (FULL ? D : p.Dv); d += 4)
         acc += dOs[r * RLD + d] * op[row * p.so.s + d * p.so.d];
     acc += __shfl_xor_sync(0xffffffffu, acc, 1);
     acc += __shfl_xor_sync(0xffffffffu, acc, 2);
@@ -205,7 +215,7 @@ __global__ void __launch_bounds__(NTHREADS) flash_bwd_dq_kernel(const Params p) 
     for (int i = tid; i < BK * D; i += NTHREADS) {
       const int c = i / D, d = i % D;
       const int col = k0 + c;
-      const bool in = col < p.Sk;
+      const bool in = col < p.Sk && (FULL || d < p.Dv);
       Kt[d * KLD + c] = in ? kp[col * p.sk.s + d * p.sk.d] : 0.0f;
       Vt[d * KLD + c] = in ? vp[col * p.sv.s + d * p.sv.d] : 0.0f;
     }
@@ -289,7 +299,8 @@ __global__ void __launch_bounds__(NTHREADS) flash_bwd_dq_kernel(const Params p) 
     if (row >= p.Sq) continue;
 #pragma unroll
     for (int j = 0; j < DJ; ++j)
-      dqp[row * p.sdq.s + (tx + 16 * j) * p.sdq.d] = acc[i][j];
+      if (FULL || tx + 16 * j < p.Dv)
+        dqp[row * p.sdq.s + (tx + 16 * j) * p.sdq.d] = acc[i][j];
   }
 }
 
@@ -300,7 +311,7 @@ constexpr size_t dkv_smem_bytes() {
          sizeof(int) * BK;
 }
 
-template <int D>
+template <int D, bool FULL>
 __global__ void __launch_bounds__(NTHREADS) flash_bwd_dkv_kernel(const Params p) {
   constexpr int RLD = D + 1;   // padded row stride of Ks and Vs
   constexpr int QLD = BQ + 1;  // padded row stride of Qt, dOt, Pt and St
@@ -337,7 +348,7 @@ __global__ void __launch_bounds__(NTHREADS) flash_bwd_dkv_kernel(const Params p)
   for (int i = tid; i < BK * D; i += NTHREADS) {
     const int c = i / D, d = i % D;
     const int col = k0 + c;
-    const bool in = col < p.Sk;
+    const bool in = col < p.Sk && (FULL || d < p.Dv);
     Ks[c * RLD + d] = in ? kp[col * p.sk.s + d * p.sk.d] : 0.0f;
     Vs[c * RLD + d] = in ? vp[col * p.sv.s + d * p.sv.d] : 0.0f;
   }
@@ -371,7 +382,7 @@ __global__ void __launch_bounds__(NTHREADS) flash_bwd_dkv_kernel(const Params p)
     for (int i = tid; i < BQ * D; i += NTHREADS) {
       const int r = i / D, d = i % D;
       const int row = q0 + r;
-      const bool in = row < p.Sq;
+      const bool in = row < p.Sq && (FULL || d < p.Dv);
       Qt[d * QLD + r] = in ? qp[row * p.sq.s + d * p.sq.d] : 0.0f;
       dOt[d * QLD + r] = in ? dop[row * p.sdo.s + d * p.sdo.d] : 0.0f;
     }
@@ -465,6 +476,7 @@ __global__ void __launch_bounds__(NTHREADS) flash_bwd_dkv_kernel(const Params p)
 #pragma unroll
     for (int j = 0; j < DJ; ++j) {
       const int d = tx + 16 * j;
+      if (!FULL && d >= p.Dv) continue;
       dkp[col * p.sdk.s + d * p.sdk.d] = dk[i][j];
       dvp[col * p.sdv.s + d * p.sdv.d] = dv[i][j];
     }
@@ -514,7 +526,7 @@ constexpr size_t dq_mma_smem_bytes() {
          sizeof(int) * 2 * BK + sizeof(float) * 2 * BQ;
 }
 
-template <int D>
+template <int D, bool FULL>
 __global__ void __launch_bounds__(MMA_THREADS)
     flash_bwd_dq_mma_kernel(const Params p) {
   constexpr bool KEEP = D <= 64;  // Q and dO stay in registers
@@ -550,8 +562,10 @@ __global__ void __launch_bounds__(MMA_THREADS)
 
   auto load_kv = [&](int kt, int buf) {
     const int k0 = kt * BK;
-    load_tile<BK, D>(Ks + buf * BK * LD, kp, p.sk.s, k0, p.Sk);
-    load_tile<BK, D>(Vs + buf * BK * LD, vp, p.sv.s, k0, p.Sk);
+    load_tile<BK, D, FULL>(Ks + buf * BK * LD, kp, p.sk.s, k0, p.Sk, p.Dv,
+                           p.unit);
+    load_tile<BK, D, FULL>(Vs + buf * BK * LD, vp, p.sv.s, k0, p.Sk, p.Dv,
+                           p.unit);
     if (p.mask && tid < BK) {  // in the tile's group: no load stalls a warp
       const int col = k0 + tid;
       cp_async_4(Ms + buf * BK + tid, p.mask + b * p.Sk + min(col, p.Sk - 1),
@@ -560,8 +574,8 @@ __global__ void __launch_bounds__(MMA_THREADS)
     cp_async_commit();
   };
 
-  load_tile<BQ, D>(Qs, qp, p.sq.s, q0, p.Sq);
-  load_tile<BQ, D>(dOs, dop, p.sdo.s, q0, p.Sq);
+  load_tile<BQ, D, FULL>(Qs, qp, p.sq.s, q0, p.Sq, p.Dv, p.unit);
+  load_tile<BQ, D, FULL>(dOs, dop, p.sdo.s, q0, p.Sq, p.Dv, p.unit);
   cp_async_commit();
   load_kv(0, 0);
   cp_async_wait<1>();  // Q and dO
@@ -573,14 +587,19 @@ __global__ void __launch_bounds__(MMA_THREADS)
     float acc = 0.0f;
     if (row < p.Sq) {
       const bf16* orow = op + row * p.so.s;
-      for (int c = half * (D / 16); c < (half + 1) * (D / 16); ++c) {
-        const uint4 ov = *reinterpret_cast<const uint4*>(orow + c * 8);
-        const uint4 gv = *reinterpret_cast<const uint4*>(dOs + r * LD + c * 8);
-        const bf16* o8 = reinterpret_cast<const bf16*>(&ov);
-        const bf16* g8 = reinterpret_cast<const bf16*>(&gv);
+      if constexpr (FULL) {
+        for (int c = half * (D / 16); c < (half + 1) * (D / 16); ++c) {
+          const uint4 ov = *reinterpret_cast<const uint4*>(orow + c * 8);
+          const uint4 gv = *reinterpret_cast<const uint4*>(dOs + r * LD + c * 8);
+          const bf16* o8 = reinterpret_cast<const bf16*>(&ov);
+          const bf16* g8 = reinterpret_cast<const bf16*>(&gv);
 #pragma unroll
-        for (int e = 0; e < 8; ++e)
-          acc += __bfloat162float(g8[e]) * __bfloat162float(o8[e]);
+          for (int e = 0; e < 8; ++e)
+            acc += __bfloat162float(g8[e]) * __bfloat162float(o8[e]);
+        }
+      } else {  // out may sit on any 2-byte boundary: one bf16 at a time
+        for (int d = half * (D / 2); d < min((half + 1) * (D / 2), p.Dv); ++d)
+          acc += __bfloat162float(dOs[r * LD + d]) * __bfloat162float(orow[d]);
       }
     }
     acc += __shfl_xor_sync(0xffffffffu, acc, 1);
@@ -717,7 +736,7 @@ __global__ void __launch_bounds__(MMA_THREADS)
 
   stage_c<D>(Qs, warp * 16, dq, 1.0f, 1.0f);
   __syncthreads();
-  store_tile<BQ, D>(dqp, p.sdq.s, Qs, q0, p.Sq);
+  store_tile<BQ, D, FULL>(dqp, p.sdq.s, Qs, q0, p.Sq, p.Dv, p.unit);
 }
 
 template <int D>
@@ -727,7 +746,7 @@ constexpr size_t dkv_mma_smem_bytes() {
   return sizeof(bf16) * (D + PAD) * (2 * BK + 4 * BQ) + sizeof(float) * 4 * BQ;
 }
 
-template <int D>
+template <int D, bool FULL>
 __global__ void __launch_bounds__(MMA_THREADS)
     flash_bwd_dkv_mma_kernel(const Params p) {
   constexpr bool KEEP = D <= 64;  // K and V stay in registers
@@ -774,8 +793,10 @@ __global__ void __launch_bounds__(MMA_THREADS)
 
   auto load_q = [&](int qt, int buf) {
     const int q0 = qt * BQ;
-    load_tile<BQ, D>(Qs + buf * BQ * LD, qp, p.sq.s, q0, p.Sq);
-    load_tile<BQ, D>(dOs + buf * BQ * LD, dop, p.sdo.s, q0, p.Sq);
+    load_tile<BQ, D, FULL>(Qs + buf * BQ * LD, qp, p.sq.s, q0, p.Sq, p.Dv,
+                           p.unit);
+    load_tile<BQ, D, FULL>(dOs + buf * BQ * LD, dop, p.sdo.s, q0, p.Sq, p.Dv,
+                           p.unit);
     if (tid < BQ) {
       const int row = q0 + tid;
       const bool in = row < p.Sq;
@@ -786,8 +807,8 @@ __global__ void __launch_bounds__(MMA_THREADS)
     cp_async_commit();
   };
 
-  load_tile<BK, D>(Ks, kp, p.sk.s, k0, p.Sk);
-  load_tile<BK, D>(Vs, vp, p.sv.s, k0, p.Sk);
+  load_tile<BK, D, FULL>(Ks, kp, p.sk.s, k0, p.Sk, p.Dv, p.unit);
+  load_tile<BK, D, FULL>(Vs, vp, p.sv.s, k0, p.Sk, p.Dv, p.unit);
   cp_async_commit();
 
   const int nq = (p.Sq + BQ - 1) / BQ;
@@ -927,26 +948,33 @@ __global__ void __launch_bounds__(MMA_THREADS)
   stage_c<D>(Ks, warp * 16, dk, 1.0f, 1.0f);
   stage_c<D>(Vs, warp * 16, dv, 1.0f, 1.0f);
   __syncthreads();
-  store_tile<BK, D>(dkp, p.sdk.s, Ks, k0, p.Sk);
-  store_tile<BK, D>(dvp, p.sdv.s, Vs, k0, p.Sk);
+  store_tile<BK, D, FULL>(dkp, p.sdk.s, Ks, k0, p.Sk, p.Dv, p.unit);
+  store_tile<BK, D, FULL>(dvp, p.sdv.s, Vs, k0, p.Sk, p.Dv, p.unit);
 }
 
-template <int D>
+template <int D, bool FULL>
 cudaError_t launch_d(const Params& p, bool dq, bool bf16_in,
                      cudaStream_t stream) {
   const dim3 grid(dq ? (p.Sq + BQ - 1) / BQ : (p.Sk + BK - 1) / BK, p.H, p.B);
   if (bf16_in)
-    return dq ? dlx_flash::launch_kernel(flash_bwd_dq_mma_kernel<D>, grid,
+    return dq ? dlx_flash::launch_kernel(flash_bwd_dq_mma_kernel<D, FULL>, grid,
                                          MMA_THREADS, dq_mma_smem_bytes<D>(),
                                          stream, p)
-              : dlx_flash::launch_kernel(flash_bwd_dkv_mma_kernel<D>, grid,
-                                         MMA_THREADS, dkv_mma_smem_bytes<D>(),
-                                         stream, p);
-  return dq ? dlx_flash::launch_kernel(flash_bwd_dq_kernel<D>, grid,
+              : dlx_flash::launch_kernel(flash_bwd_dkv_mma_kernel<D, FULL>,
+                                         grid, MMA_THREADS,
+                                         dkv_mma_smem_bytes<D>(), stream, p);
+  return dq ? dlx_flash::launch_kernel(flash_bwd_dq_kernel<D, FULL>, grid,
                                        NTHREADS, dq_smem_bytes<D>(), stream, p)
-            : dlx_flash::launch_kernel(flash_bwd_dkv_kernel<D>, grid,
+            : dlx_flash::launch_kernel(flash_bwd_dkv_kernel<D, FULL>, grid,
                                        NTHREADS, dkv_smem_bytes<D>(), stream,
                                        p);
+}
+
+template <int D>
+cudaError_t launch_w(const Params& p, bool dq, bool bf16_in, bool full,
+                     cudaStream_t stream) {
+  return full ? launch_d<D, true>(p, dq, bf16_in, stream)
+              : launch_d<D, false>(p, dq, bf16_in, stream);
 }
 
 int run(bool dq, const void* q, const void* k, const void* v, const void* out,
@@ -981,20 +1009,24 @@ int run(bool dq, const void* q, const void* k, const void* v, const void* out,
   p.threshold = threshold;
   p.one_minus_rate = one_minus_rate;
   p.seed = seed;
+  p.Dv = D;
+  p.unit = 16;
   if (is_bf16) {
     const void* ptrs[8] = {q, k, v, out, dout, dqp, dkp, dvp};
     for (int t = 0; t < 8; ++t) {
       const int S = (t == 1 || t == 2 || t >= 6) ? Sk : Sq;  // k, v, dk, dv
-      if (!dlx_flash::aligned_16(ptrs[t], *st[t], B, S, H))
-        return dlx_flash::kMisaligned;
+      p.unit = std::min(p.unit, dlx_flash::copy_unit(ptrs[t], *st[t], B, S, H, D));
     }
+    if (p.unit == 0) return dlx_flash::kMisaligned;
   }
+  const int width = dlx_flash::tile_width(D);
+  const bool full = D == width && p.unit == 16;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
-  switch (D) {
-    case 32: err = launch_d<32>(p, dq, is_bf16, s); break;
-    case 64: err = launch_d<64>(p, dq, is_bf16, s); break;
-    case 128: err = launch_d<128>(p, dq, is_bf16, s); break;
+  switch (width) {
+    case 32: err = launch_w<32>(p, dq, is_bf16, full, s); break;
+    case 64: err = launch_w<64>(p, dq, is_bf16, full, s); break;
+    case 128: err = launch_w<128>(p, dq, is_bf16, full, s); break;
     default: err = cudaErrorInvalidValue;
   }
   return static_cast<int>(err);
@@ -1006,9 +1038,9 @@ int run(bool dq, const void* q, const void* k, const void* v, const void* out,
 // strides holds 32 element strides, (batch, seq, head, dim) for q, k, v, out,
 // dout, dq, dk and dv in that order. dlx_flash_bwd_dq writes dq and delta;
 // dlx_flash_bwd_dkv reads delta and writes dk and dv, so it is launched
-// second on the same stream. Each returns its launch's cudaError_t, or
-// kMisaligned (flash_common.cuh) without launching when a bf16 tensor is not
-// 16-byte aligned.
+// second on the same stream; D is the head dim, 1 to 128. Each returns its
+// launch's cudaError_t, or kMisaligned (flash_common.cuh) without launching
+// when a bf16 pointer is off a 2-byte boundary.
 extern "C" int dlx_flash_bwd_dq(
     const void* q, const void* k, const void* v, const void* out,
     const void* dout, const float* lse, const int* mask, void* dq, void* dk,

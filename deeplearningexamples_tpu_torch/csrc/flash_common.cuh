@@ -72,20 +72,35 @@ constexpr int MMA_WARPS = 4;  // warps of a tensor-core block
 constexpr int MMA_THREADS = 32 * MMA_WARPS;
 constexpr int PAD = 8;        // bf16 of padding at the end of a tile's row
 
-// Whether a bf16 tensor suits these kernels, which move it 16 bytes at a
-// time (cp.async, ldmatrix-ready tiles, the epilogue's stores): its pointer
-// and the element strides of its batch, seq and head dims (those longer than
-// 1) are whole 16 bytes. The entry points return kMisaligned, before any
-// launch, for a tensor that is not.
+// The widest copy, in bytes (16, 8, 4 or 2), that a bf16 tensor allows: its
+// pointer, the element strides of its batch, seq and head dims (those longer
+// than 1) and the head dim itself (a copy never crosses past D) are whole
+// copies. A tensor of 16 at a head dim of 32, 64 or 128 runs the kernels'
+// FULL instances (16-byte copies, no column predicate); any other D up to
+// 128 runs the instance of the next tile width with copies of this size, the
+// columns past D zero-filled in shared memory and never stored. 0 for a
+// pointer off a 2-byte boundary, which the entry points refuse with
+// kMisaligned before any launch.
 constexpr int kMisaligned = cudaErrorMisalignedAddress;
 
-inline bool aligned_16(const void* ptr, const Strides& st, int B, int S,
-                       int H) {
-  const auto whole = [](long long stride, int n) {
-    return n == 1 || stride % 8 == 0;  // 8 bf16 = 16 bytes
+inline int copy_unit(const void* ptr, const Strides& st, int B, int S, int H,
+                     int D) {
+  unsigned long long bits = reinterpret_cast<uintptr_t>(ptr) |
+                            static_cast<unsigned long long>(2 * D);
+  const auto add = [&](long long stride, int n) {
+    if (n > 1) bits |= static_cast<unsigned long long>(2 * stride);
   };
-  return reinterpret_cast<uintptr_t>(ptr) % 16 == 0 && whole(st.b, B) &&
-         whole(st.s, S) && whole(st.h, H);
+  add(st.b, B);
+  add(st.s, S);
+  add(st.h, H);
+  for (int unit = 16; unit >= 2; unit /= 2)
+    if (bits % unit == 0) return unit;
+  return 0;
+}
+
+// The tile width (an instantiated D) that runs head dim D, or 0 above 128.
+inline int tile_width(int D) {
+  return D <= 32 ? 32 : D <= 64 ? 64 : D <= 128 ? 128 : 0;
 }
 
 // PTX wrappers.
@@ -103,12 +118,34 @@ __device__ __forceinline__ void cp_async_16(void* dst, const void* src,
                "l"(src), "r"(valid ? 16 : 0));
 }
 
-// 4 bytes likewise (one fp32 of lse or delta).
+// 4 bytes likewise (one fp32 of lse or delta, or two bf16).
 __device__ __forceinline__ void cp_async_4(void* dst, const void* src,
                                            bool valid) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
                    smem_u32(dst)),
                "l"(src), "r"(valid ? 4 : 0));
+}
+
+// 8 bytes likewise (four bf16).
+__device__ __forceinline__ void cp_async_8(void* dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(valid ? 8 : 0));
+}
+
+// One copy of `unit` bytes (16, 8, 4 or 2), zero-filled when not valid; a
+// 2-byte copy has no cp.async form and is a plain load and store.
+__device__ __forceinline__ void copy_async(void* dst, const void* src,
+                                           bool valid, int unit) {
+  switch (unit) {
+    case 16: cp_async_16(dst, src, valid); break;
+    case 8: cp_async_8(dst, src, valid); break;
+    case 4: cp_async_4(dst, src, valid); break;
+    default:
+      *static_cast<unsigned short*>(dst) =
+          valid ? *static_cast<const unsigned short*>(src) : 0;
+  }
 }
 
 __device__ __forceinline__ void cp_async_commit() {
@@ -204,35 +241,68 @@ __device__ __forceinline__ void a_from_c(uint32_t (&a)[4], const float (&c0)[4],
 }
 
 // Tiles between device and shared memory.
+//
+// FULL: the tile's width D is the head dim and every copy is 16 bytes.
+// Otherwise the head dim is dv <= D and a copy is `unit` bytes (which
+// divides 2 * dv): columns at or past dv are zero-filled, so they add
+// nothing to a product over the head dim, and are never stored.
 
 // Rows [row0, row0+ROWS) of a (seq, D) bf16 matrix whose rows are `stride`
-// elements apart into a [ROWS][D+PAD] shared tile, 16 bytes a copy, rows at
-// or past n_rows zero-filled. Asynchronous: the caller commits and waits.
-template <int ROWS, int D>
+// elements apart into a [ROWS][D+PAD] shared tile, rows at or past n_rows
+// zero-filled. Asynchronous: the caller commits and waits.
+template <int ROWS, int D, bool FULL>
 __device__ __forceinline__ void load_tile(bf16* tile, const bf16* src,
                                           long long stride, int row0,
-                                          int n_rows) {
-  constexpr int CH = D / 8;  // 16-byte chunks per row
-  for (int i = threadIdx.x; i < ROWS * CH; i += MMA_THREADS) {
-    const int r = i / CH, c = i % CH;
-    const bool in = row0 + r < n_rows;
-    cp_async_16(tile + r * (D + PAD) + c * 8,
-                in ? src + (row0 + r) * stride + c * 8 : src, in);
+                                          int n_rows, int dv, int unit) {
+  if constexpr (FULL) {
+    constexpr int CH = D / 8;  // 16-byte chunks per row
+    for (int i = threadIdx.x; i < ROWS * CH; i += MMA_THREADS) {
+      const int r = i / CH, c = i % CH;
+      const bool in = row0 + r < n_rows;
+      cp_async_16(tile + r * (D + PAD) + c * 8,
+                  in ? src + (row0 + r) * stride + c * 8 : src, in);
+    }
+  } else {
+    const int ue = unit / 2;  // bf16 per copy
+    const int ch = D / ue;
+    for (int i = threadIdx.x; i < ROWS * ch; i += MMA_THREADS) {
+      const int r = i / ch, c = (i % ch) * ue;
+      const bool in = row0 + r < n_rows && c < dv;
+      copy_async(tile + r * (D + PAD) + c,
+                 in ? src + (row0 + r) * stride + c : src, in, unit);
+    }
   }
 }
 
-// The reverse, synchronously: rows of the shared tile before n_rows go to
-// device memory, 16 bytes a store.
-template <int ROWS, int D>
+// The reverse, synchronously: rows of the shared tile before n_rows, and
+// their columns before dv, go to device memory, `unit` bytes a store.
+template <int ROWS, int D, bool FULL>
 __device__ __forceinline__ void store_tile(bf16* dst, long long stride,
                                            const bf16* tile, int row0,
-                                           int n_rows) {
-  constexpr int CH = D / 8;
-  for (int i = threadIdx.x; i < ROWS * CH; i += MMA_THREADS) {
-    const int r = i / CH, c = i % CH;
-    if (row0 + r < n_rows)
-      *reinterpret_cast<uint4*>(dst + (row0 + r) * stride + c * 8) =
-          *reinterpret_cast<const uint4*>(tile + r * (D + PAD) + c * 8);
+                                           int n_rows, int dv, int unit) {
+  if constexpr (FULL) {
+    constexpr int CH = D / 8;
+    for (int i = threadIdx.x; i < ROWS * CH; i += MMA_THREADS) {
+      const int r = i / CH, c = i % CH;
+      if (row0 + r < n_rows)
+        *reinterpret_cast<uint4*>(dst + (row0 + r) * stride + c * 8) =
+            *reinterpret_cast<const uint4*>(tile + r * (D + PAD) + c * 8);
+    }
+  } else {
+    const int ue = unit / 2;
+    const int ch = (dv + ue - 1) / ue;
+    for (int i = threadIdx.x; i < ROWS * ch; i += MMA_THREADS) {
+      const int r = i / ch, c = (i % ch) * ue;
+      if (row0 + r >= n_rows) continue;
+      bf16* d = dst + (row0 + r) * stride + c;
+      const bf16* s = tile + r * (D + PAD) + c;
+      switch (unit) {
+        case 16: *reinterpret_cast<uint4*>(d) = *reinterpret_cast<const uint4*>(s); break;
+        case 8: *reinterpret_cast<uint2*>(d) = *reinterpret_cast<const uint2*>(s); break;
+        case 4: *reinterpret_cast<uint32_t*>(d) = *reinterpret_cast<const uint32_t*>(s); break;
+        default: *reinterpret_cast<unsigned short*>(d) = *reinterpret_cast<const unsigned short*>(s);
+      }
+    }
   }
 }
 

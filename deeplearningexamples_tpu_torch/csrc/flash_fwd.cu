@@ -45,6 +45,18 @@
 // specialisation, which overlap one tile's softmax with the next tile's
 // products, are the next step.
 //
+// Head dims: each kernel is instantiated at tile widths D = 32, 64 and 128.
+// A head dim of one of those, in bf16 tensors whose pointers and batch, seq
+// and head strides are whole 16 bytes, runs the FULL instance (16-byte
+// copies, no column predicate). Any other head dim up to 128 (BERT's
+// 4l-312 student has 312 / 12 = 26), or a bf16 view with narrower
+// alignment, runs the instance of the next tile width: Q, K and V load with
+// the widest copy every pointer and stride allow (16, 8, 4 or 2 bytes; 52
+// bytes a head at D = 26 take 4), the columns past the head dim are zero in
+// shared memory, so they add nothing to Q K^T and give zero output columns,
+// and only the head dim's columns are stored. The caller's scale is the true
+// head dim's.
+//
 // fp32, flash_fwd_kernel, the FMA pipe: each thread keeps a 4x4 score tile
 // and a 4 x D/16 output tile in registers, so every shared-memory load
 // feeds four FMAs. It stays on the FMA pipe because the fp32 path is the
@@ -52,6 +64,8 @@
 // BERT step's worst fp32 gradient 1.42e-6 of the largest entry, while TF32
 // mma keeps about three decimal digits and would lose that; the main paths
 // run in bf16.
+
+#include <algorithm>
 
 #include "flash_common.cuh"
 
@@ -80,6 +94,8 @@ struct Params {
   uint32_t threshold;    // keep iff hash >= threshold (int(rate * 2**31))
   float one_minus_rate;  // fp32(1 - rate); kept values scale by 1/this
   uint32_t seed;         // the int32 seed's bits
+  int Dv;                // the head dim, <= the instance's tile width D
+  int unit;              // bf16: bytes a copy (copy_unit in flash_common.cuh)
 };
 
 template <int D>
@@ -89,7 +105,9 @@ constexpr size_t smem_bytes() {
          sizeof(int) * BK;
 }
 
-template <int D>
+// FULL: the head dim is D. Otherwise it is p.Dv < D: the columns past it
+// load as zeros and are not stored.
+template <int D, bool FULL>
 __global__ void __launch_bounds__(NTHREADS) flash_fwd_kernel(const Params p) {
   constexpr int QLD = D + 1;   // padded row stride of Qs
   constexpr int KLD = BK + 1;  // padded row stride of Kt (K transposed)
@@ -119,8 +137,9 @@ __global__ void __launch_bounds__(NTHREADS) flash_fwd_kernel(const Params p) {
   for (int i = tid; i < BQ * D; i += NTHREADS) {
     const int r = i / D, d = i % D;
     const int row = q0 + r;
-    Qs[r * QLD + d] =
-        row < p.Sq ? qp[row * p.sq.s + d * p.sq.d] : 0.0f;
+    Qs[r * QLD + d] = row < p.Sq && (FULL || d < p.Dv)
+                          ? qp[row * p.sq.s + d * p.sq.d]
+                          : 0.0f;
   }
 
   float m[4], l[4], acc[4][DJ];
@@ -152,7 +171,7 @@ __global__ void __launch_bounds__(NTHREADS) flash_fwd_kernel(const Params p) {
     for (int i = tid; i < BK * D; i += NTHREADS) {
       const int c = i / D, d = i % D;
       const int col = k0 + c;
-      const bool in = col < p.Sk;
+      const bool in = col < p.Sk && (FULL || d < p.Dv);
       Kt[d * KLD + c] = in ? kp[col * p.sk.s + d * p.sk.d] : 0.0f;
       Vs[c * D + d] = in ? vp[col * p.sv.s + d * p.sv.d] : 0.0f;
     }
@@ -246,7 +265,8 @@ __global__ void __launch_bounds__(NTHREADS) flash_fwd_kernel(const Params p) {
     if (row >= p.Sq) continue;
 #pragma unroll
     for (int j = 0; j < DJ; ++j)
-      op[row * p.so.s + (tx + 16 * j) * p.so.d] = acc[i][j] / l[i];
+      if (FULL || tx + 16 * j < p.Dv)
+        op[row * p.so.s + (tx + 16 * j) * p.so.d] = acc[i][j] / l[i];
     if (tx == 0)
       p.lse[(static_cast<long long>(b) * p.H + h) * p.Sq + row] = m[i] + logf(l[i]);
   }
@@ -278,7 +298,7 @@ constexpr size_t mma_smem_bytes() {
   return sizeof(bf16) * (D + PAD) * (BQ + 4 * BK) + sizeof(int) * 2 * BK;
 }
 
-template <int D>
+template <int D, bool FULL>
 __global__ void __launch_bounds__(MMA_THREADS)
     flash_fwd_mma_kernel(const Params p) {
   constexpr int LD = D + PAD;
@@ -308,8 +328,10 @@ __global__ void __launch_bounds__(MMA_THREADS)
 
   auto load_kv = [&](int kt, int buf) {
     const int k0 = kt * BK;
-    load_tile<BK, D>(Ks + buf * BK * LD, kp, p.sk.s, k0, p.Sk);
-    load_tile<BK, D>(Vs + buf * BK * LD, vp, p.sv.s, k0, p.Sk);
+    load_tile<BK, D, FULL>(Ks + buf * BK * LD, kp, p.sk.s, k0, p.Sk, p.Dv,
+                           p.unit);
+    load_tile<BK, D, FULL>(Vs + buf * BK * LD, vp, p.sv.s, k0, p.Sk, p.Dv,
+                           p.unit);
     if (p.mask && tid < BK) {  // in the tile's group: no load stalls a warp
       const int col = k0 + tid;
       cp_async_4(Ms + buf * BK + tid, p.mask + b * p.Sk + min(col, p.Sk - 1),
@@ -318,7 +340,7 @@ __global__ void __launch_bounds__(MMA_THREADS)
     cp_async_commit();
   };
 
-  load_tile<BQ, D>(Qs, qp, p.sq.s, q0, p.Sq);
+  load_tile<BQ, D, FULL>(Qs, qp, p.sq.s, q0, p.Sq, p.Dv, p.unit);
   load_kv(0, 0);  // one group with Q
 
   float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.0f, 0.0f};
@@ -472,26 +494,33 @@ __global__ void __launch_bounds__(MMA_THREADS)
             m[r] + logf(l[r]);
   }
   __syncthreads();
-  store_tile<BQ, D>(op, p.so.s, Qs, q0, p.Sq);
+  store_tile<BQ, D, FULL>(op, p.so.s, Qs, q0, p.Sq, p.Dv, p.unit);
 }
 
-template <int D>
+template <int D, bool FULL>
 cudaError_t launch_d(const Params& p, bool bf16_in, cudaStream_t stream) {
   const dim3 grid((p.Sq + BQ - 1) / BQ, p.H, p.B);
   if (bf16_in)
-    return dlx_flash::launch_kernel(flash_fwd_mma_kernel<D>, grid, MMA_THREADS,
-                                    mma_smem_bytes<D>(), stream, p);
-  return dlx_flash::launch_kernel(flash_fwd_kernel<D>, grid, NTHREADS,
+    return dlx_flash::launch_kernel(flash_fwd_mma_kernel<D, FULL>, grid,
+                                    MMA_THREADS, mma_smem_bytes<D>(), stream, p);
+  return dlx_flash::launch_kernel(flash_fwd_kernel<D, FULL>, grid, NTHREADS,
                                   smem_bytes<D>(), stream, p);
+}
+
+template <int D>
+cudaError_t launch_w(const Params& p, bool bf16_in, bool full,
+                     cudaStream_t stream) {
+  return full ? launch_d<D, true>(p, bf16_in, stream)
+              : launch_d<D, false>(p, bf16_in, stream);
 }
 
 }  // namespace
 
 // Plain C entry point, bound with ctypes. strides holds 16 element strides:
-// (batch, seq, head, dim) for q, k, v and out, in that order. Returns the
-// launch's cudaError_t, or kMisaligned (flash_common.cuh) without launching
-// when a bf16 tensor is not 16-byte aligned; the kernel runs asynchronously
-// on `stream`.
+// (batch, seq, head, dim) for q, k, v and out, in that order; D is the head
+// dim, 1 to 128. Returns the launch's cudaError_t, or kMisaligned
+// (flash_common.cuh) without launching when a bf16 pointer is off a 2-byte
+// boundary; the kernel runs asynchronously on `stream`.
 extern "C" int dlx_flash_fwd(const void* q, const void* k, const void* v,
                              const int* mask, void* out, float* lse,
                              const long long* strides, int B, int H, int Sq,
@@ -520,17 +549,24 @@ extern "C" int dlx_flash_fwd(const void* q, const void* k, const void* v,
   p.threshold = threshold;
   p.one_minus_rate = one_minus_rate;
   p.seed = seed;
-  using dlx_flash::aligned_16;
-  if (is_bf16 &&
-      !(aligned_16(q, p.sq, B, Sq, H) && aligned_16(k, p.sk, B, Sk, H) &&
-        aligned_16(v, p.sv, B, Sk, H) && aligned_16(out, p.so, B, Sq, H)))
-    return dlx_flash::kMisaligned;
+  p.Dv = D;
+  p.unit = 16;
+  using dlx_flash::copy_unit;
+  if (is_bf16) {
+    p.unit = std::min({copy_unit(q, p.sq, B, Sq, H, D),
+                       copy_unit(k, p.sk, B, Sk, H, D),
+                       copy_unit(v, p.sv, B, Sk, H, D),
+                       copy_unit(out, p.so, B, Sq, H, D)});
+    if (p.unit == 0) return dlx_flash::kMisaligned;
+  }
+  const int width = dlx_flash::tile_width(D);
+  const bool full = D == width && p.unit == 16;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
-  switch (D) {
-    case 32: err = launch_d<32>(p, is_bf16, s); break;
-    case 64: err = launch_d<64>(p, is_bf16, s); break;
-    case 128: err = launch_d<128>(p, is_bf16, s); break;
+  switch (width) {
+    case 32: err = launch_w<32>(p, is_bf16, full, s); break;
+    case 64: err = launch_w<64>(p, is_bf16, full, s); break;
+    case 128: err = launch_w<128>(p, is_bf16, full, s); break;
     default: err = cudaErrorInvalidValue;
   }
   return static_cast<int>(err);

@@ -24,17 +24,29 @@ Dropout is on when a forward is given a ``torch.Generator`` (JAX
 attention output, FFN output) through ``ops.dropout``, and attention-
 probability dropout inside the flash kernel with a fresh int32 seed per call,
 both drawn from that generator.
+
+``BertConfig.attention_impl`` is ``"flash"`` (K1/K2, the default) or
+``"xla"`` (JAX's plain path, in plain torch ops: fp32 scores, -1e9 masking,
+softmax, ``RegenDropout`` on the probabilities, the PV product in the
+compute dtype). ``remat`` checkpoints each ``BertLayer`` while gradients are
+on and recomputes the whole layer in the backward (JAX's
+``remat_policy="full"``; JAX's default "dots" is not kept, see ROADMAP). The
+recompute replays the layer's dropout seeds from a copy of the generator's
+state taken before the layer, so it regenerates the forward's masks and the
+gradients equal those without remat.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
 
+import numpy as np
 import torch
+import torch.utils.checkpoint as ckpt
 import torch.nn.functional as F
 from torch import nn
 
-from ...ops.dropout import RegenDropout
+from ...ops.dropout import RegenDropout, regen_dropout
 from ...ops.flash_attention import flash_attention
 
 __all__ = [
@@ -55,7 +67,8 @@ __all__ = [
 
 @dataclass(frozen=True)
 class BertConfig:
-    """The JAX ``BertConfig``'s fields and defaults."""
+    """The JAX ``BertConfig``'s fields and defaults, less ``remat_policy``:
+    ``remat`` always recomputes whole layers (JAX's "full")."""
 
     vocab_size: int = 30528  # 30522 padded up; pad further to %128 at embed
     hidden_size: int = 768
@@ -70,7 +83,6 @@ class BertConfig:
     initializer_range: float = 0.02
     remat: bool = False
     gelu_approximate: bool = True  # tanh GELU, as the reference BERT
-    remat_policy: str = "dots"
     attention_impl: str = "flash"
 
     @property
@@ -155,8 +167,12 @@ class BertSelfAttention(nn.Module):
 
     def __init__(self, cfg: BertConfig, dtype: torch.dtype | None = None):
         super().__init__()
+        if cfg.attention_impl not in ("flash", "xla"):
+            raise ValueError(f"attention_impl {cfg.attention_impl!r} is not "
+                             "ported (flash or xla)")
         self.num_heads, self.head_dim = cfg.num_heads, cfg.head_dim
         self.attention_dropout = cfg.attention_dropout
+        self.impl = cfg.attention_impl
         self.query = Dense(cfg.hidden_size, cfg.hidden_size, dtype)
         self.key = Dense(cfg.hidden_size, cfg.hidden_size, dtype)
         self.value = Dense(cfg.hidden_size, cfg.hidden_size, dtype)
@@ -165,6 +181,8 @@ class BertSelfAttention(nn.Module):
         b, s, hidden = x.shape
         q, k, v = (proj(x).view(b, s, self.num_heads, self.head_dim)
                    for proj in (self.query, self.key, self.value))
+        if self.impl == "xla":
+            return self._plain(q, k, v, key_mask, generator).reshape(b, s, hidden)
         rate, seed = 0.0, 0
         if generator is not None and self.attention_dropout > 0.0:
             # a fresh int32 seed per call, as jax.random.randint(-2**31, 2**31-1)
@@ -174,6 +192,20 @@ class BertSelfAttention(nn.Module):
         ctx = flash_attention(q, k, v, key_mask=key_mask, layout="bshd",
                               dropout_rate=rate, dropout_seed=seed)
         return ctx.reshape(b, s, hidden)
+
+    def _plain(self, q, k, v, key_mask, generator):
+        """JAX's ``attention_impl == "xla"`` branch: scores from the
+        compute-dtype products summed in fp32, scaled, masked to -1e9,
+        softmax in fp32, probability dropout, then P (in the compute dtype)
+        times V."""
+        scale = float(np.float32(1.0 / np.sqrt(self.head_dim)))
+        logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+        logits = logits.masked_fill(~key_mask.bool()[:, None, None, :],
+                                    -1e9)
+        p = torch.softmax(logits, dim=-1)
+        if generator is not None and self.attention_dropout > 0.0:
+            p = regen_dropout(p, self.attention_dropout, generator)
+        return torch.einsum("bhqk,bkhd->bqhd", p.to(v.dtype), v)
 
 
 class _DenseLayerNorm(nn.Module):
@@ -225,13 +257,41 @@ class BertLayer(nn.Module):
 class _Encoder(nn.Module):
     def __init__(self, cfg: BertConfig, dtype=None):
         super().__init__()
+        self.remat = cfg.remat
         self.layer = nn.ModuleList(BertLayer(cfg, dtype)
                                    for _ in range(cfg.num_layers))
 
     def forward(self, x, key_mask, generator=None):
         for layer in self.layer:
-            x = layer(x, key_mask, generator)
+            if self.remat and torch.is_grad_enabled():
+                x = self._checkpointed(layer, x, key_mask, generator)
+            else:
+                x = layer(x, key_mask, generator)
         return x
+
+    def _checkpointed(self, layer, x, key_mask, generator):
+        """``layer`` under ``torch.utils.checkpoint`` (non-reentrant). Its
+        dropout seeds come from a generator restored to ``generator``'s
+        state before the layer, in the forward and again in the recompute
+        (checkpoint restores only the default generators); ``generator``
+        then moves on as far as the layer drew from it."""
+        start = generator.get_state() if generator is not None else None
+        end = []
+
+        def run(x, key_mask):
+            gen = None
+            if start is not None:
+                gen = torch.Generator()
+                gen.set_state(start)
+            out = layer(x, key_mask, gen)
+            if gen is not None and not end:
+                end.append(gen.get_state())
+            return out
+
+        out = ckpt.checkpoint(run, x, key_mask, use_reentrant=False)
+        if end:
+            generator.set_state(end[0])
+        return out
 
 
 class _Pooler(nn.Module):

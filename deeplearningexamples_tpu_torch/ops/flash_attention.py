@@ -10,12 +10,13 @@ it runs ``mha_reference`` and ``mha_backward_reference``, the plain PyTorch
 versions of the same functions, which are also the kernels' oracles. A
 ``torch.autograd.Function`` joins the two, as ``_flash``'s custom VJP does in
 JAX: the forward saves q, k, v, the key mask, the seed, out and lse, and the
-backward recomputes the probabilities from lse. In bf16 the kernels run on
-the tensor cores and copy 16 bytes at a time, so bf16 tensors must start on
-a 16-byte boundary with batch, seq and head strides of whole 16 bytes
-(the kernels' entry points check it, and a ``ValueError`` is raised
-otherwise); fp32 runs on the FMA pipe and takes any strides whose last is
-1.
+backward recomputes the probabilities from lse. The kernels take any head
+dim from 1 to 128, as JAX's do (BERT's ``4l-312`` student has 26), and any
+strides whose last is 1. In bf16 they run on the tensor cores with 16-byte
+copies at a head dim of 32, 64 or 128 when every pointer and batch, seq and
+head stride is whole 16 bytes, and otherwise on the next tile width with the
+widest copy the tensors allow, the columns past the head dim zero-filled;
+fp32 runs on the FMA pipe.
 
 Semantics follow the JAX kernels exactly: scale, then mask to ``NEG_INF``
 (-1e30, so a row with every key masked averages V uniformly); causal masking
@@ -51,7 +52,7 @@ __all__ = [
 ]
 
 NEG_INF = -1e30
-SUPPORTED_HEAD_DIMS = (32, 64, 128)
+MAX_HEAD_DIM = 128
 SUPPORTED_DTYPES = (torch.float32, torch.bfloat16)
 
 # Kernel launches since the count was last set to 0 (by a caller that wants
@@ -226,18 +227,16 @@ def _bshd_strides(t: torch.Tensor, layout: str) -> tuple[int, int, int, int]:
     return s if layout == "bshd" else (s[0], s[2], s[1], s[3])
 
 
-# What an entry point returns, before any launch, when a bf16 tensor does not
-# start on a 16-byte boundary or has a batch, seq or head stride that is not
-# whole 16 bytes (cudaErrorMisalignedAddress): the bf16 kernels copy 16 bytes
-# at a time.
+# What an entry point returns, before any launch, when a bf16 pointer is off a
+# 2-byte boundary (cudaErrorMisalignedAddress): the narrowest copy the bf16
+# kernels make is one element.
 _MISALIGNED = 716
 
 
 def _raise_on(err: int, kernel: str) -> None:
     if err == _MISALIGNED:
         raise ValueError(
-            "bf16 q, k, v, out and dout must start on a 16-byte boundary with "
-            "batch, seq and head strides of whole 16 bytes")
+            "bf16 q, k, v, out and dout must start on a 2-byte boundary")
     if err != 0:
         raise RuntimeError(f"{kernel} kernel launch failed: CUDA error {err}")
 
@@ -262,8 +261,8 @@ def _check(q, k, v, key_mask, layout, rate):
         b, h, sq, d = q.shape
         sk = k.shape[2]
         kv_shape = (b, h, sk, d)
-    if d not in SUPPORTED_HEAD_DIMS:
-        raise ValueError(f"head dim {d} not in {SUPPORTED_HEAD_DIMS}")
+    if not 1 <= d <= MAX_HEAD_DIM:
+        raise ValueError(f"head dim {d} not in [1, {MAX_HEAD_DIM}]")
     if tuple(k.shape) != kv_shape or tuple(v.shape) != kv_shape:
         raise ValueError(f"k and v must have shape {kv_shape}, got "
                          f"{tuple(k.shape)} and {tuple(v.shape)}")

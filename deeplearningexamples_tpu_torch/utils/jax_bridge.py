@@ -4,7 +4,8 @@ The JAX package keeps flax parameter trees; the port keeps the NVIDIA/HF
 ``state_dict`` names. This is the inverse of the JAX package's
 ``utils/torch_import.convert_bert`` (which maps HF names onto the JAX tree),
 extended to the QA head, the pretraining heads and the classifier of the
-GLUE and SWAG heads, of DLRM's tree into the port's ``Dlrm`` names, and of
+GLUE and SWAG heads, of a bare ``BertModel`` tree (a distillation teacher)
+and of a distillation student with its ``distill_proj``, of DLRM's tree into the port's ``Dlrm`` names, and of
 ``convert_resnet50`` and ``convert_efficientnet`` for the ConvNets and of
 ``convert_ssd300`` for SSD300 (their ``batch_stats`` too), and of
 ``convert_tacotron2`` and ``convert_waveglow`` for Tacotron2 and WaveGlow,
@@ -23,9 +24,11 @@ import numpy as np
 __all__ = [
     "bart_state_dict_from_jax",
     "bert_classifier_state_dict_from_jax",
+    "bert_model_state_dict_from_jax",
     "bert_pretrain_jax_order",
     "bert_pretrain_state_dict_from_jax",
     "bert_qa_state_dict_from_jax",
+    "distill_student_state_dict_from_jax",
     "dlrm_state_dict_from_jax",
     "efficientnet_state_dict_from_jax",
     "gnmt_state_dict_from_jax",
@@ -116,6 +119,27 @@ def bert_pretrain_state_dict_from_jax(tree: Mapping[str, Any]) -> dict[str, np.n
     "mlm_transform", "mlm_ln", "mlm_bias", "nsp"}``) -> the port's
     ``BertForPreTraining`` ``state_dict`` names, as numpy arrays."""
     return _convert(tree, _pretrain_entries(_num_layers(tree)))
+
+
+def bert_model_state_dict_from_jax(tree: Mapping[str, Any]) -> dict[str, np.ndarray]:
+    """A bare JAX ``BertModel`` tree (``{"embeddings", "layer_i", "pooler"}``,
+    e.g. a distillation teacher), or its gradients -> the port's
+    ``BertModel`` ``state_dict`` names, as numpy arrays."""
+    wrapped = {"bert": tree}
+    return {name[len("bert."):]: v for name, v in _convert(
+        wrapped, _encoder_entries(_num_layers(wrapped))).items()}
+
+
+def distill_student_state_dict_from_jax(tree: Mapping[str, Any]) -> dict[str, np.ndarray]:
+    """JAX ``DistillationTask`` student params (a bare ``BertModel`` tree
+    plus ``distill_proj`` when the widths differ), or their gradients -> the
+    port's ``DistillationStudent`` names (``bert.*``, ``distill_proj`` kept
+    (student width, teacher width), as JAX applies it)."""
+    body = {k: v for k, v in tree.items() if k != "distill_proj"}
+    sd = {f"bert.{k}": v for k, v in bert_model_state_dict_from_jax(body).items()}
+    if "distill_proj" in tree:
+        sd["distill_proj"] = np.asarray(tree["distill_proj"])
+    return sd
 
 
 def bert_pretrain_jax_order(num_layers: int) -> list[str]:

@@ -343,8 +343,11 @@ def test_cli_trains_the_tiny_config_on_the_cpu(tmp_path):
     with pytest.raises(SystemExit, match="not ported"):
         cli(["bert-pretrain", "--device", "cpu", "--workspace", str(tmp_path),
              "--attention-impl", "ring"])
-    with pytest.raises(SystemExit):  # the YAML layers are not ported
-        cli(["bert-pretrain", "--device", "cpu", "--config-file", "configs.yml"])
+    # the YAML layers: a key the command's config lacks raises, as JAX's merge
+    bad = tmp_path / "bad.yml"
+    bad.write_text("models:\n  bert-pretrain:\n    no_such_key: 1\n")
+    with pytest.raises(KeyError, match="no_such_key"):
+        cli(["bert-pretrain", "--device", "cpu", "--config-file", str(bad)])
 
 
 def test_task_init_defaults_to_the_card():

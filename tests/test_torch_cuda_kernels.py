@@ -48,6 +48,17 @@ CASES = [
     dict(layout="bshd", d=64, s=63, sk=64),
     dict(layout="bshd", d=64, s=1, sk=64),
     dict(layout="bshd", d=64, s=1, sk=1024, h=16),
+    # head dims off the tile widths run the next width with narrower copies:
+    # BERT's 4l-312 student (26: 52-byte heads, 4-byte copies), 80 (8-byte
+    # copies at h=3) and 1
+    dict(layout="bshd", d=26, s=128, h=12, rate=0.1, seed=5),
+    dict(layout="bhsd", d=26, s=200, causal=True, dead=70),
+    dict(layout="bshd", d=80, s=130, h=3),
+    dict(layout="bshd", d=1, s=96, sk=130),
+    # the binned pretraining loader's bucket lengths at BERT-Large's heads
+    dict(layout="bshd", d=64, s=64, h=16),
+    dict(layout="bshd", d=64, s=192, h=16),
+    dict(layout="bshd", d=64, s=448, h=16),
 ]
 
 
@@ -110,8 +121,9 @@ def test_flash_fwd_matches_plain(cuda, dtype, case):
 @pytest.mark.cuda
 def test_flash_fwd_raises_on_what_it_does_not_take(cuda):
     q, k, v, mask = _inputs("bshd", 2, 4, 64, 64, torch.bfloat16, cuda)
+    wide = torch.zeros((2, 64, 4, 136), dtype=torch.bfloat16, device=cuda)
     with pytest.raises(ValueError, match="head dim"):
-        fa.flash_attention(q[..., :48], k[..., :48], v[..., :48], layout="bshd")
+        fa.flash_attention(wide, wide, wide, layout="bshd")
     with pytest.raises(ValueError, match="dtype"):
         fa.flash_attention(q.half(), k.half(), v.half(), layout="bshd")
     with pytest.raises(ValueError, match="contiguous"):
@@ -145,6 +157,12 @@ BWD_CASES = [
     dict(layout="bshd", d=64, s=63, causal=True, masked=False),
     dict(layout="bshd", d=64, s=63, sk=64),
     dict(layout="bshd", d=64, s=1, sk=64),
+    dict(layout="bshd", d=26, s=128, h=12, rate=0.1, seed=5),
+    dict(layout="bhsd", d=26, s=200, causal=True, dead=70),
+    dict(layout="bshd", d=80, s=130, h=3),
+    dict(layout="bshd", d=1, s=96, sk=130),
+    dict(layout="bshd", d=64, s=64, h=16),
+    dict(layout="bshd", d=64, s=448, h=16),
 ]
 
 
@@ -196,35 +214,46 @@ def test_flash_bwd_is_deterministic(cuda, dtype):
 
 
 @pytest.mark.cuda
-def test_flash_bf16_misaligned_views_raise(cuda):
-    """The bf16 kernels copy 16 bytes at a time: a view that starts off a
-    16-byte boundary, or whose head stride is not whole 16 bytes, is
-    refused; the fp32 kernel reads the same views in place."""
+def test_flash_misaligned_views_and_sliced_head_dims_match_plain(cuda):
+    """Views whose start or head stride is not whole 16 bytes, and a head
+    dim sliced out of a wider one, are read in place with narrower copies
+    (2 bytes off a 16-byte start, 8 at a head stride of 68 bf16), forward
+    and backward, in bf16 and fp32, and agree with the plain versions; only
+    a head dim above 128 raises, before any launch."""
     b, s, h, d = 2, 64, 4, 64
     flat_buf = torch.randn(b * s * h * d + 1, device=cuda)
     wide = torch.randn(b, s, h, d + 4, device=cuda)
     views = {"offset": lambda t: t[1:].view(b, s, h, d),
-             "head stride": lambda t: t[..., :d]}
+             "head stride": lambda t: t[..., :d],
+             "head dim 40 of 68": lambda t: t[..., :40]}
     for what, view in views.items():
         src = flat_buf if what == "offset" else wide
-        q = view(src.to(torch.bfloat16))
-        good = torch.randn(b, s, h, d, device=cuda, dtype=torch.bfloat16)
-        with pytest.raises(ValueError, match="16-byte"):
-            fa.flash_attention(q, good, good, layout="bshd")
-        with pytest.raises(ValueError, match="16-byte"):
-            fa.flash_attention(good, good, q, layout="bshd")
-        out, lse = fa.flash_attention_with_lse(good, good, good, layout="bshd")
-        before = (fa.launches, fa.launches_bwd_dq, fa.launches_bwd_dkv)
-        with pytest.raises(ValueError, match="16-byte"):
-            fa._flash_bwd_cuda(good, good, good, None, out, lse, q, False,
-                               0.125, "bshd", 0.0, 0)
-        # refused before any launch
-        assert (fa.launches, fa.launches_bwd_dq, fa.launches_bwd_dkv) == before
-        q32 = view(src)
-        got = fa.flash_attention(q32, q32, q32, layout="bshd")
-        want, _ = fa.mha_reference(q32, q32, q32, layout="bshd")
-        torch.testing.assert_close(got, want, atol=TOL[torch.float32][0],
-                                   rtol=0)
+        for dtype in (torch.bfloat16, torch.float32):
+            q = view(src.to(dtype)).detach().requires_grad_()
+            good = torch.randn(q.shape, device=cuda, dtype=dtype)
+            good.requires_grad_()
+            out = fa.flash_attention(q, good, good, layout="bshd")
+            want, lse = fa.mha_reference(q.detach(), good.detach(),
+                                         good.detach(), layout="bshd")
+            torch.testing.assert_close(out.float(), want.float(),
+                                       atol=TOL[dtype][0], rtol=0)
+            dout = view(src.to(dtype))
+            out.backward(dout)
+            ref = fa.mha_backward_reference(q.detach(), good.detach(),
+                                            good.detach(), None, want, lse,
+                                            dout, layout="bshd")
+            got = (q.grad, good.grad)
+            for name, g, r in (("dq", got[0], ref[0]),
+                               ("dk + dv", got[1],
+                                ref[1].float() + ref[2].float())):
+                err = float((g.float() - r.float()).abs().max())
+                scale = float(r.float().abs().max())
+                assert err <= 2 * TOL_BWD[dtype] * scale, f"{what} {name}"
+    big = torch.zeros((b, s, h, 136), device=cuda, dtype=torch.bfloat16)
+    before = (fa.launches, fa.launches_bwd_dq, fa.launches_bwd_dkv)
+    with pytest.raises(ValueError, match="head dim"):
+        fa.flash_attention(big, big, big, layout="bshd")
+    assert (fa.launches, fa.launches_bwd_dq, fa.launches_bwd_dkv) == before
 
 
 @pytest.mark.cuda

@@ -345,7 +345,7 @@ def test_cli_trains_dlrm_on_the_cpu(tmp_path):
                     "--epochs", "3", "--auc-threshold", "0.01", "--device",
                     "cpu", "--workspace", str(tmp_path / "t")])
     assert state.step == 2
-    for flags in (["--data-backend", "binary"], ["--mesh-model", "2"]):
+    for flags in (["--data-backend", "parquet"], ["--mesh-model", "2"]):
         with pytest.raises(SystemExit, match="not ported"):
             cli(["dlrm", "--device", "cpu", "--workspace", str(tmp_path), *flags])
 

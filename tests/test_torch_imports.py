@@ -35,7 +35,9 @@ for name in ("core.train", "core.flat", "core.loop", "core.checkpoint",
              "tools.profile_tts", "models.translation",
              "models.translation.transformer",
              "models.translation.beam_search", "models.translation.gnmt",
-             "models.bart", "data.summarization", "tools.profile_seq2seq"):
+             "models.bart", "data.summarization", "tools.profile_seq2seq",
+             "data.bert_pretrain", "data.bert_prep", "data.criteo",
+             "core.yaml_subset", "models.bert.distillation"):
     assert f"deeplearningexamples_tpu_torch.{name}" in names, name
 import chip_smoke
 print(len(names))
@@ -55,8 +57,9 @@ def test_port_imports_with_jax_blocked():
     # Tacotron2 + WaveGlow (frontends, layers, models, tasks, the pipeline,
     # the synthetic and LJSpeech loaders, the profiling tool), and the
     # encoder-decoder family (the Transformer NMT, beam search, BART, GNMT,
-    # the summarization data path, the profiling tool)
-    assert int(res.stdout.strip()) >= 83
+    # the summarization data path, the profiling tool), and BERT's corpus
+    # loaders and distillation, the Criteo binary reader and the YAML reader
+    assert int(res.stdout.strip()) >= 88
 
 
 def test_chip_smoke_fails_without_a_card():
