@@ -125,16 +125,30 @@ and it imports nothing of JAX. Phases, one line each:
     --data-backend binary`` at B=65,536 on 4M records the script writes (26
     unequal tables, 2.6M rows), 20 steps and AUC over the trailing 2%,
     beside the synthetic backend
+25. speech: K1 and K2 against their plain versions at FastPitch's shapes
+    (B=32, one head, S=32 and 900, masked, attention dropout 0.1) and
+    wav2vec2's (B=32, 12 heads, S=49, unmasked), bf16 and fp32, with times;
+    one fp32 step of FastPitch, HiFi-GAN's generator and discriminators,
+    wav2vec2 BASE, JASPER_10x5DR and QUARTZNET_15x5 at full width, B=2, on
+    the card against the CPU in float64 (the CPU's fp32 step beside it, the
+    bf16 step the control); ``fastpitch``, ``hifigan``, ``wav2vec2`` and
+    ``jasper`` through the CLI's runners, bf16, B=32, 10 steps each;
+    ``fastpitch_hifigan_endpoint`` and ``jasper_offline_endpoint`` behind
+    the HTTP server, 8 concurrent requests each against direct calls; one
+    bf16 ``Wav2Vec2CtcTask`` step with its greedy decode
 
 Each main path (serving: phases 5-6; BERT training: phase 10; DLRM
 training: phase 13; ``int8_matmul``: phase 14; ``fused_lamb``: phase 15;
 ``hot_gather``: phase 16; BERT fine-tuning: phase 18; each ConvNets run of
 phase 20; SSD300's training, resume and inference in phase 21; Tacotron2's
 and WaveGlow's training and the TTS pipeline in phase 22; the beam searches
-and each encoder-decoder run of phase 23; each CLI run of phase 24) runs with the
-launch counts set to 0 just before it and read just after; on the
-ConvNets, SSD300, TTS, GNMT and ``--attention-impl xla`` paths every count must stay 0, and on the
-Transformer and BART paths K1 and K2 must launch and K3-K6 must not. Then one JSON
+and each encoder-decoder run of phase 23; each CLI run of phase 24; each
+speech command, both speech endpoints and the CTC step of phase 25) runs
+with the launch counts set to 0 just before it and read just after; on the
+ConvNets, SSD300, TTS, GNMT, ``--attention-impl xla``, HiFi-GAN and Jasper
+paths every count must stay 0, on the Transformer and BART paths K1 and K2
+must launch and K3-K6 must not, and FastPitch and wav2vec2 launch K1 12 and
+K2 12 + 12 times a step. Then one JSON
 line with each kernel's launches on those paths, its error against the plain
 version, its time, the plain version's, its bound on this card and the time
 of the PyTorch call that computes the same function (where there is one),
@@ -158,6 +172,7 @@ import threading
 import time
 import urllib.request
 from pathlib import Path
+from typing import Any
 from unittest import mock
 
 import numpy as np
@@ -236,6 +251,24 @@ from deeplearningexamples_tpu_torch.models.tts import (
 from deeplearningexamples_tpu_torch.models.tts.layers import (
     Dropout as TtsDropout,
 )
+from deeplearningexamples_tpu_torch.models.tts import (
+    FastPitchConfig,
+    FastPitchTask,
+    HiFiGanTask,
+)
+from deeplearningexamples_tpu_torch.models.asr import (
+    JASPER_10x5DR,
+    QUARTZNET_15x5,
+    JasperTask,
+    greedy_ctc_decode,
+)
+from deeplearningexamples_tpu_torch.models.wav2vec2 import (
+    Wav2Vec2Config,
+    Wav2Vec2CtcTask,
+    Wav2Vec2Task,
+    sample_spans_mask,
+)
+from deeplearningexamples_tpu_torch.serving import recipes as speech_recipes
 from deeplearningexamples_tpu_torch.models.bart import BartConfig, BartTask
 from deeplearningexamples_tpu_torch.models.translation import (
     GnmtConfig,
@@ -363,8 +396,13 @@ def _counts() -> dict[str, int]:
             "hot_gather": emb.launches_hot}
 
 
+T_START = time.perf_counter()
+
+
 def say(phase: str, msg: str) -> None:
-    print(f"[{phase}] {msg}", flush=True)
+    """One line of a phase, after the seconds since the script started."""
+    print(f"[{phase}] ({time.perf_counter() - T_START:.1f} s) {msg}",
+          flush=True)
 
 
 def check(ok: bool, what: str) -> None:
@@ -1078,8 +1116,10 @@ def _train_one_step(model, dtype, batch, device):
 
 
 def phase_train_parity() -> None:
+    # BERT-Large's width, 12 of its 24 layers (24 before PR 12)
     cfg = dataclasses.replace(BERT_CONFIGS["large"], hidden_dropout=0.0,
-                              attention_dropout=0.0)
+                              attention_dropout=0.0,
+                              num_layers=FT_PARITY_LAYERS)
     t0 = time.perf_counter()
     init = BertPretrainTask(cfg, torch.float32).init(
         torch.Generator().manual_seed(SEED), device="cpu")
@@ -1089,9 +1129,11 @@ def phase_train_parity() -> None:
     m_gpu, g_gpu, d_gpu = _train_one_step(gpu, torch.float32, batch, DEV)
     torch.cuda.synchronize()
     launched = {k: v - before[k] for k, v in _counts().items()}
-    check(launched["flash_fwd"] == LAYERS and launched["flash_bwd_dq"] == LAYERS
-          and launched["flash_bwd_dkv"] == LAYERS,
-          f"one step launched {launched}, want {LAYERS} of each flash kernel")
+    n_layers = cfg.num_layers
+    check(launched["flash_fwd"] == n_layers
+          and launched["flash_bwd_dq"] == n_layers
+          and launched["flash_bwd_dkv"] == n_layers,
+          f"one step launched {launched}, want {n_layers} of each flash kernel")
     del gpu
     cpu = copy.deepcopy(init)
     m_cpu, g_cpu, d_cpu = _train_one_step(cpu, torch.float32, batch, "cpu")
@@ -1115,7 +1157,8 @@ def phase_train_parity() -> None:
     cos = float(a @ b / (a.norm() * b.norm()))
     # the control of the gradient check: the bf16 step read the same way
     g16_rel = max((max_err(g16[n], g_cpu[n]) / g_top, n) for n in g_cpu)
-    say("9 train parity", f"BERT-Large pretraining b2 s{TS} fp32, one LAMB "
+    say("9 train parity", f"BERT-Large pretraining ({cfg.num_layers} layers) "
+        f"b2 s{TS} fp32, one LAMB "
         f"step, card vs CPU: loss {m_gpu['loss']:.6f} vs {m_cpu['loss']:.6f} "
         f"({rel['loss']:.2e}), grad_norm {m_gpu['grad_norm']:.6f} vs "
         f"{m_cpu['grad_norm']:.6f} ({rel['grad_norm']:.2e}), worst gradients "
@@ -1882,6 +1925,7 @@ def phase_hot_gather() -> tuple[dict, int]:
 # SQuAD fine-tuning at bench.py's bert_squad_finetune shape (B=32, S=384) and
 # configs.yml's rate (the CLI's own default is CommonConfig's 0.1)
 FT_B, FT_LR = 32, "3e-5"
+FT_PARITY_LAYERS = 12  # phase 9's and phase 17's fp32 steps
 # GLUE's and SWAG's CLI defaults: BERT-Base, B=32, S=128, SWAG's 4 choices
 # folded into the batch (B=128), and the JAX runners' fallback rate
 GLUE_B, GLUE_S, GLUE_LR = 32, 128, "2e-5"
@@ -1958,8 +2002,10 @@ def phase_finetune_parity() -> float:
         f"{c['err'][2]:.2e}, dq/dk/dv {c['err'][0]:.2e} ({c['rel']:.2e} of "
         "the largest entry)" for c in cases)
 
+    # BERT-Large's width, 12 of its 24 layers (24 before PR 12)
     cfg = dataclasses.replace(BERT_CONFIGS["large"], hidden_dropout=0.0,
-                              attention_dropout=0.0)
+                              attention_dropout=0.0,
+                              num_layers=FT_PARITY_LAYERS)
     init = BertForQuestionAnswering(cfg, torch.float32)
     init_bert_weights_(init, torch.Generator().manual_seed(SEED),
                        cfg.initializer_range)
@@ -1972,11 +2018,11 @@ def phase_finetune_parity() -> float:
                                                   DEV, optimizer)
         torch.cuda.synchronize()
         launched = {k: v - before[k] for k, v in _counts().items()}
-        check(launched["flash_fwd"] == LAYERS
-              and launched["flash_bwd_dq"] == LAYERS
-              and launched["flash_bwd_dkv"] == LAYERS,
-              f"one SQuAD step launched {launched}, want {LAYERS} of each "
-              "flash kernel")
+        check(launched["flash_fwd"] == cfg.num_layers
+              and launched["flash_bwd_dq"] == cfg.num_layers
+              and launched["flash_bwd_dkv"] == cfg.num_layers,
+              f"one SQuAD step launched {launched}, want {cfg.num_layers} of "
+              "each flash kernel")
         del gpu
         m_cpu, g_cpu, d_cpu, mu_cpu = _squad_step(
             copy.deepcopy(init), torch.float32, batch, "cpu", optimizer)
@@ -2051,7 +2097,8 @@ def phase_finetune_parity() -> float:
           f"bf16 SQuAD step: loss {m16['loss']}, gradient cosine {cos:.5f}")
     say("17 finetune parity", f"K1/K2 vs plain at the fine-tuning shapes "
         f"(bshd, bf16, masked, dropout 0.1), max abs err: {kernels}; "
-        f"BERT-Large SQuAD b2 s{S} fp32, one step, card vs CPU: "
+        f"BERT-Large SQuAD ({cfg.num_layers} layers) b2 s{S} fp32, one step, "
+        f"card vs CPU: "
         + "; ".join(lines) + f"; bf16 card step (adamw): loss "
         f"{m16['loss']:.6f}, gradient cosine vs fp32 CPU {cos:.6f}, worst "
         f"gradient {g16_rel[1]} {g16_rel[0]:.2e} of the largest entry (the "
@@ -2161,7 +2208,7 @@ def phase_finetune() -> dict[str, int]:
 
 # -- phase 19 ----------------------------------------------------------------
 
-CN_B, CN_EFF_B = 8, 4
+CN_B, CN_EFF_B = 8, 2  # EfficientNet-B0 at B=4 before PR 12
 # bench.py's ResNet-50 recipe (bench.py:72-94), the CLI's flags for it
 CN_LR, CN_MOM, CN_WD, CN_LS = 0.256, 0.875, 3.0517578125e-05, 0.1
 CN_FLAGS = ["--lr", str(CN_LR), "--momentum", str(CN_MOM), "--weight-decay",
@@ -2426,10 +2473,13 @@ CN_RUNS = [
     ("resnext101-32x4d", 64, 5, QAT),
     ("se-resnext101-32x4d", 64, 5, []),
     ("se-resnext101-32x4d", 64, 5, QAT),
-    ("efficientnet-b0", 256, 5, ["--ema", "0.9999"]),
-    ("efficientnet-b0", 256, 5, QAT),
-    ("efficientnet-b4", 32, 5, ["--ema", "0.9999"]),
-    ("efficientnet-b4", 32, 5, QAT),
+    # the EfficientNets' first runs are mostly cuDNN's autotuning of their
+    # depthwise convolutions at the run's batch (about 48 s each at B=256
+    # and B=32, PR 12 run 1); smaller batches keep every layer and flag
+    ("efficientnet-b0", 64, 5, ["--ema", "0.9999"]),
+    ("efficientnet-b0", 64, 5, QAT),
+    ("efficientnet-b4", 8, 5, ["--ema", "0.9999"]),
+    ("efficientnet-b4", 8, 5, QAT),
 ]
 # NVIDIA's A100 80GB figures for the reference (bench.py BASELINES; another
 # card): ResNet-50 training img/s at B=256, inference img/s at B=256, ms at
@@ -2771,11 +2821,11 @@ def phase_ssd() -> dict[str, int]:
 # bench.py's shapes (bench.py:326-363): Tacotron2 B=128 (text 128, mel 600),
 # WaveGlow B=10 (segment 8000), bf16, and their rates (the CLI's own default
 # is CommonConfig's 0.1, ROADMAP quirk 8h)
-T2_B, T2_STEPS, T2_LR = 128, 10, "1e-3"
+T2_B, T2_STEPS, T2_LR = 128, 3, "1e-3"  # 10 steps before PR 12
 WG_B, WG_STEPS, WG_LR = 10, 20, "1e-4"
 # the fp32 parity steps: Tacotron2 at B=4, text length 64, mel length 96;
 # WaveGlow at B=2, segment 8000
-T2_PARITY, WG_PARITY_B = (4, 64, 96), 2
+T2_PARITY, WG_PARITY_B = (4, 64, 48), 2  # mel 96 before PR 12
 # One fp32 step of each on the card (TF32 off) against the CPU in float64,
 # every dropout at 0, under clip + Adam: the loss to 1e-5 relative, the BN
 # running statistics to 1e-4 of each tensor's largest entry, each gradient
@@ -3170,15 +3220,18 @@ TOL_S2S_RESCORE = 1e-4
 # target 128, and a cached beam decode at B=4, beam 4, source 1024
 S2S_T_B, S2S_T_STEPS = 128, 20
 S2S_BART_B = 8
-# bart summarize trains 40 epochs of the synthetic set's 8 batches: after 8
-# steps every best hypothesis was empty (EOS first) and ROUGE 0, after 96 on
-# the CPU (bf16) the hypotheses had 6 tokens and after 320 they depended on
-# the source. The card's bf16 best scores against float64 teacher forcing:
+# bart summarize trains 24 epochs of the synthetic set's 8 batches (192
+# steps; 40 epochs before PR 12): after 8 steps every best hypothesis was
+# empty (EOS first) and ROUGE 0, after 96 on the CPU (bf16) the hypotheses
+# had 6 tokens and after 320 they depended on the source. The card's bf16 best scores against float64 teacher forcing:
 # the CPU's bf16 decode read 3.3e-3 after 320 steps, so the limit is 3e-2
-S2S_BART_EPOCHS = 40
+S2S_BART_EPOCHS = 24  # 40 before PR 12
 TOL_S2S_ROUGE_RESCORE = 3e-2
 S2S_GNMT_B, S2S_GNMT_STEPS = 128, 5
 S2S_DECODE = (4, 4, 1024, 64)  # B, beam, source, max_len
+# 23a's bart-large step at bart-large's width and 4 + 4 of its 12 + 12 layers
+# (the CPU's float64 step of all 24 took most of 23a's 72 s, PR 12 run 1)
+S2S_BART_PARITY_LAYERS = 4
 
 
 def _s2s_init(kind: str):
@@ -3190,9 +3243,12 @@ def _s2s_init(kind: str):
         model = TransformerTask(TransformerConfig(dropout=0.0),
                                 torch.float32).init(gen, "cpu")
     elif kind == "bart":
-        model = BartTask(BartConfig(dropout=0.0), torch.float32).init(gen, "cpu")
-    else:
-        model = GnmtTask(GnmtConfig(dropout=0.0), torch.float32).init(gen, "cpu")
+        cfg = BartConfig(dropout=0.0, encoder_layers=S2S_BART_PARITY_LAYERS,
+                         decoder_layers=S2S_BART_PARITY_LAYERS)
+        model = BartTask(cfg, torch.float32).init(gen, "cpu")
+    else:  # 3 of GNMT's 4 layers (4 before PR 12): one residual layer
+        model = GnmtTask(GnmtConfig(dropout=0.0, num_layers=3),
+                         torch.float32).init(gen, "cpu")
     with torch.no_grad():
         for name, p in model.named_parameters():
             leaf = name.rsplit(".", 1)[-1]
@@ -3372,14 +3428,15 @@ def _s2s_attn_inputs(b, sq, sk, h, dtype, masked, seed=SEED):
     return q, k, v, mask
 
 
-def _s2s_attn_case(b, sq, sk, h, causal, masked, dtype):
-    """K1 and K2 against their plain versions at one shape (raises past TOL
-    and TOL_BWD): (K1's out error, K2's worst error over its largest entry,
-    K2's worst error)."""
+def _s2s_attn_case(b, sq, sk, h, causal, masked, dtype, rate=0.0, seed=0):
+    """K1 and K2 against their plain versions at one shape, with dropout at
+    ``rate`` (raises past TOL and TOL_BWD): (K1's out error, K2's worst
+    error over its largest entry, K2's worst error)."""
     q, k, v, mask = _s2s_attn_inputs(b, sq, sk, h, dtype, masked)
     for t in (q, k, v):
         t.requires_grad_()
-    kw = dict(causal=causal, layout="bshd")
+    kw = dict(causal=causal, layout="bshd", dropout_rate=rate,
+              dropout_seed=seed)
     before = (fa.launches, fa.launches_bwd_dq, fa.launches_bwd_dkv)
     out, lse = fa.flash_attention_with_lse(q, k, v, mask, **kw)
     ref, ref_lse = fa.mha_reference(q.detach(), k.detach(), v.detach(), mask,
@@ -3396,7 +3453,8 @@ def _s2s_attn_case(b, sq, sk, h, causal, masked, dtype):
           == tuple(n + 1 for n in before), "K1/K2 not launched")
     want = fa.mha_backward_reference(q.detach(), k.detach(), v.detach(), mask,
                                      out.detach(), lse, dout, causal,
-                                     layout="bshd")
+                                     layout="bshd", dropout_rate=rate,
+                                     dropout_seed=seed)
     rel = worst = 0.0
     for name, got, ref in zip("qkv", (q.grad, k.grad, v.grad), want):
         err, scale = max_err(got, ref), float(ref.float().abs().max())
@@ -3407,9 +3465,9 @@ def _s2s_attn_case(b, sq, sk, h, causal, masked, dtype):
     return e_out, rel, worst
 
 
-def _s2s_time(b, sq, sk, h, causal, masked) -> str:
-    """bf16 K1, its plain version and SDPA at one shape, in turns, with the
-    bound: one line."""
+def _s2s_time(b, sq, sk, h, causal, masked, rate=0.0, seed=0) -> str:
+    """bf16 K1 (with dropout at ``rate``), its plain version and SDPA
+    (without) at one shape, in turns, with the bound: one line."""
     q, k, v, mask = _s2s_attn_inputs(b, sq, sk, h, torch.bfloat16, masked)
     sdpa_mask = None
     if mask is not None:
@@ -3420,10 +3478,12 @@ def _s2s_time(b, sq, sk, h, causal, masked) -> str:
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     with torch.inference_mode():
         ms = _clocks({
-            "ms": (lambda: fa.flash_attention(q, k, v, mask, causal=causal,
-                                              layout="bshd"), 30),
-            "plain_ms": (lambda: fa.mha_reference(q, k, v, mask, causal,
-                                                  layout="bshd"), 10),
+            "ms": (lambda: fa.flash_attention(
+                q, k, v, mask, causal=causal, layout="bshd", dropout_rate=rate,
+                dropout_seed=seed), 30),
+            "plain_ms": (lambda: fa.mha_reference(
+                q, k, v, mask, causal, layout="bshd", dropout_rate=rate,
+                dropout_seed=seed), 10),
             "library_ms": (lambda: torch.nn.functional.scaled_dot_product_attention(
                 qt, kt, vt, attn_mask=sdpa_mask), 30)}, turns=2)
     pairs = b * h * (sq * (sq + 1) // 2 if causal else sq * sk)
@@ -3755,8 +3815,8 @@ BUCKETS = tuple(range(64, 513, 64))
 TIMED_BUCKETS = (64, 192, 320, 512)
 P2_B = 16
 CORPUS_DOCS = 240  # documents of the corpus phase 24 writes
-CORPUS_STEPS = 20  # --config-file run
-IDLE_STEPS, IDLE_TRACED = 6, 2
+CORPUS_STEPS = 10  # --config-file run (20 before PR 12)
+IDLE_STEPS, IDLE_TRACED, IDLE_TURNS = 6, 2, 1  # 2 turns before PR 12
 TOL_REMAT = 1e-6  # remat vs not, fp32 on the card: of the largest entry
 # the distillation step card fp32 vs CPU float64 (dropout off): the loss,
 # and each gradient against the largest gradient entry of all
@@ -4136,7 +4196,7 @@ def phase_bert_corpus() -> dict[str, int]:
     }
     state = run.state
     step_ms = {k: [] for k in sources}
-    for _ in range(2):
+    for _ in range(IDLE_TURNS):
         for name, make in sources.items():
             state, ms = _loop_ms(state, run.train_step, make(), IDLE_STEPS)
             step_ms[name].append(ms)
@@ -4146,8 +4206,8 @@ def phase_bert_corpus() -> dict[str, int]:
                                           sources[name](), IDLE_TRACED)
     busy["corpus on a worker thread"] = busy["corpus"]
     del run, state
-    lines.append("B=64 S=128 tree LAMB in the loop's overlap, two readings "
-                 "each in turns: " + ", ".join(
+    lines.append(f"B=64 S=128 tree LAMB in the loop's overlap, {IDLE_TURNS} "
+                 "reading(s) each in turns: " + ", ".join(
                      f"{k} {' '.join(f'{x:.1f}' for x in v)} ms a step, device "
                      f"busy {busy[k]:.1f} ms, idle "
                      + " ".join(f"{100 * (1 - busy[k] / x):.1f}%" for x in v)
@@ -4321,6 +4381,452 @@ def phase_bert_data() -> tuple[float, float, dict[str, int]]:
     launched["gather_rows"] += phase_dlrm_binary()  # counts set to 0 there
     return fwd_err, bwd_err, launched
 
+# -- phase 25 ----------------------------------------------------------------
+
+# 25a: K1/K2 at the speech models' shapes, (B, S, H, masked, dropout rate):
+# FastPitch's one head of 64 over the runner's 32 symbols and 900 mel
+# frames, with its attention dropout, and wav2vec2 BASE's 12 unmasked heads
+# over one second's 49 frames, at the CLI's B=32
+SPEECH_ATTN = {
+    "fastpitch encoder": (32, 32, 1, True, 0.1),
+    "fastpitch decoder": (32, 900, 1, True, 0.1),
+    "wav2vec2": (32, 49, 12, False, 0.0),
+}
+# 25b: one fp32 step of each model at full width, B=2, on the card (TF32
+# off, every hidden dropout at 0, the draws the same on both sides) against
+# the same step on the CPU in float64: the loss to TOL_CONV["loss"]
+# relative, each gradient to limits (of its own largest entry, or FLOOR
+# times the largest of all where that is more; of the largest of all)
+# fixed per model from the CPU's own fp32 step (PERF.md, PR 12); the bf16
+# step is the control and must miss them
+SPEECH_B = 2
+FP_TEXT, FP_MEL = 32, 900  # the JAX runner's shapes
+W2V_AUDIO = 16000  # one second: 49 frames
+JASPER_FRAMES, JASPER_LABELS = 256, 32
+# (loss relative; of a tensor's own largest entry, of the largest of all),
+# between PR 12 run 1's readings (NVIDIA H100 80GB HBM3) of the card's fp32
+# step and of the bf16 control: FastPitch 2.04e-6, 4.45e-7 (bf16 8.81e-2,
+# 1.19e-2); HiFi-GAN's generator 5.14e-3, 5.00e-4 (2.35e-1, 1.39e-2) and
+# discriminators 4.91e-3, 2.20e-4 (7.20e-2, 1.67e-3); wav2vec2 1.08e-4,
+# 1.88e-6 (1.22, 1.55e-2); JASPER_10x5DR 2.25e-1, 1.25e-2 (1.32, 5.79e-1);
+# QUARTZNET_15x5 4.62e-1, 2.38e-1 (2.51, 1.25), its loss 6.75e-5 from
+# float64. The CPU's own fp32 steps read alike (QuartzNet 4.85e-1, 2.52e-1,
+# its loss 9.1e-5): a training-mode BN at every layer over B=2 x 128 frames
+# leaves the gradient badly conditioned, as ResNet-50's in phase 19
+TOL_SPEECH = {"fastpitch": (1e-5, 1e-4, 1e-5),
+              "hifigan generator": (1e-5, 3e-2, 3e-3),
+              "hifigan discriminators": (1e-5, 3e-2, 1e-3),
+              "wav2vec2": (1e-5, 1e-3, 1e-5),
+              "jasper 10x5dr": (1e-5, 1.0, 5e-2),
+              "quartznet 15x5": (5e-4, 1.0, 5e-1)}
+# 25c: the four commands through the CLI's runners, bf16, B=32, 5 batches
+# twice, at the JAX runners' fallback rates (without --lr each is 0.1)
+SPEECH_CLI = {"fastpitch": "1e-3", "hifigan": "2e-4", "wav2vec2": "5e-4",
+              "jasper": "1e-3"}
+SPEECH_CLI_B = 32
+# 25d: a request served in a batch of 1-8 against the same request alone,
+# fp32: GEMMs of other shapes sum in another order
+TOL_SPEECH_SERVED = 1e-4
+SPEECH_REQUESTS = 8
+
+
+def _speech_batch(kind: str) -> dict:
+    """25b's batch for one model, numpy, from SEED."""
+    rng = np.random.default_rng(SEED)
+    b = SPEECH_B
+    if kind == "fastpitch":
+        return {"text": rng.integers(1, 148, (b, FP_TEXT)).astype(np.int32),
+                "durations": rng.integers(1, 6, (b, FP_TEXT)).astype(np.int32),
+                "pitch": rng.normal(size=(b, FP_TEXT)).astype(np.float32),
+                "mel": rng.normal(size=(b, FP_MEL, 80)).astype(np.float32)}
+    if kind.startswith("hifigan"):
+        return {"mel": rng.normal(size=(b, 32, 80)).astype(np.float32),
+                "audio": (0.3 * rng.normal(size=(b, 8192))).astype(np.float32)}
+    if kind == "wav2vec2":
+        return {"audio": (0.1 * rng.normal(size=(b, W2V_AUDIO))).astype(
+                    np.float32),
+                "mask": sample_spans_mask(rng, b, 49, 0.5, 10)}
+    fpad = np.zeros((b, JASPER_FRAMES), np.float32)
+    fpad[1, 200:] = 1.0
+    labels = rng.integers(1, 29, (b, JASPER_LABELS)).astype(np.int32)
+    lpad = np.zeros((b, JASPER_LABELS), np.float32)
+    lpad[1, 20:], labels[1, 20:] = 1.0, 0
+    return {"feats": rng.normal(size=(b, JASPER_FRAMES, 64)).astype(np.float32),
+            "feat_paddings": fpad, "labels": labels, "label_paddings": lpad}
+
+
+_HIFIGAN_PAIR: list = []  # 25b's fp32 generator and discriminators
+
+
+def _speech_init(kind: str):
+    """A full-width fp32 model on the CPU from SEED, every hidden dropout at
+    0 (FastPitch keeps its attention dropout: K1's hash, seeded from the
+    step's CPU generator, drops the same probabilities on both devices).
+    HiFi-GAN's two networks are drawn once and copied."""
+    gen = torch.Generator().manual_seed(SEED)
+    if kind == "fastpitch":
+        cfg = FastPitchConfig(dropout=0.0, predictor_dropout=0.0)
+        return FastPitchTask(cfg, torch.float32).init(gen, "cpu")
+    if kind.startswith("hifigan"):
+        if not _HIFIGAN_PAIR:
+            _HIFIGAN_PAIR.extend(HiFiGanTask(dtype=torch.float32).init(
+                gen, "cpu"))
+        return copy.deepcopy(_HIFIGAN_PAIR[0 if kind.endswith("generator")
+                                           else 1])
+    if kind == "wav2vec2":
+        return Wav2Vec2Task(Wav2Vec2Config(dropout=0.0),
+                            torch.float32).init(gen, "cpu")
+    cfg = JASPER_10x5DR if kind == "jasper 10x5dr" else QUARTZNET_15x5
+    cfg = dataclasses.replace(cfg, blocks=tuple(
+        dataclasses.replace(b, dropout=0.0) for b in cfg.blocks))
+    return JasperTask(cfg, torch.float32).init(gen, "cpu")
+
+
+def _speech_grads(kind: str, model, batch: dict, device, draws: dict) -> dict:
+    """The loss and every gradient of one step of ``model`` (moved to
+    ``device``, in its own compute dtype), on the CPU. The HiFi-GAN
+    generator's step runs against the fp32 discriminators of 25b (on
+    ``device``, their weights fixed) and theirs against the fp32 generator."""
+    model = model.to(device).train()
+    t = {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+    gen = torch.Generator().manual_seed(SEED)
+    params = dict(model.named_parameters())
+    if kind.startswith("hifigan"):
+        task = HiFiGanTask(dtype=model.dtype if kind.endswith("generator")
+                           else torch.float32)
+        other = _speech_init("hifigan discriminators" if kind.endswith(
+            "generator") else "hifigan generator")
+        other = (_float64(other) if model.dtype == torch.float64 else other)
+        other = other.to(device).train()
+        if kind.endswith("generator"):
+            loss, _ = task.g_loss(model, other, t)
+        else:
+            loss = task.d_loss(other, model, t)
+    elif kind == "fastpitch":
+        task = FastPitchTask(model.cfg, model.dtype)
+        loss, _ = task.loss_fn(model, {}, t, gen)
+    elif kind == "wav2vec2":
+        task = Wav2Vec2Task(model.cfg, model.dtype)
+        with mock.patch.object(task, "draws", lambda *a: {
+                k: v.to(device) for k, v in draws.items()}):
+            loss, _ = task.loss_fn(model, {}, t, gen)
+    else:
+        task = JasperTask(model.cfg, model.dtype)
+        loss, _ = task.loss_fn(model, task.model_state(model), t, gen)
+    grads = torch.autograd.grad(loss, list(params.values()), allow_unused=True)
+    return {"loss": float(loss.detach()),
+            "grads": {n: (torch.zeros_like(p) if g is None else g).detach().cpu()
+                      for (n, p), g in zip(params.items(), grads)}}
+
+
+def _speech_parity(kind: str) -> None:
+    """25b for one model."""
+    t0 = time.perf_counter()
+    batch = _speech_batch(kind)
+    draws = Wav2Vec2Task().draws(torch.Generator().manual_seed(SEED), SPEECH_B,
+                                 49, "cpu") if kind == "wav2vec2" else {}
+    init = _speech_init(kind)
+    gpu = _speech_grads(kind, copy.deepcopy(init), batch, DEV, draws)
+    f64 = _speech_grads(kind, _float64(copy.deepcopy(init)), batch, "cpu",
+                        draws)
+    f32 = _speech_grads(kind, copy.deepcopy(init), batch, "cpu", draws)
+    b16 = _speech_grads(kind, _s2s_copy(init, torch.bfloat16), batch, DEV,
+                        draws)
+    del init
+    loss_lim, *lim = TOL_SPEECH[kind]
+    g64 = f64["grads"]
+    g_rel, g_cpu, w16 = (_worst(x["grads"], g64) for x in (gpu, f32, b16))
+    rel_loss = abs(gpu["loss"] - f64["loss"]) / abs(f64["loss"])
+    say("25 speech", f"parity: {kind} B={SPEECH_B}: one fp32 step, card vs "
+        f"CPU float64: loss {gpu['loss']:.7f} vs {f64['loss']:.7f} "
+        f"({rel_loss:.2e}, limit {loss_lim:.0e}); worst gradients: "
+        f"{_fmt(g_rel)} (limits {lim[0]:.0e}, {lim[1]:.0e}; the CPU's own "
+        f"fp32 step: {_fmt(g_cpu)},"
+        f" loss {f32['loss']:.7f}); bf16 card step (the control): loss "
+        f"{b16['loss']:.6f}, worst gradients {_fmt(w16)} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    check(rel_loss <= loss_lim, f"{kind} fp32 loss: card "
+          f"{gpu['loss']} vs CPU float64 {f64['loss']}")
+    check(_within(g_rel, lim), f"{kind} fp32 gradients: {g_rel}")
+    check(math.isfinite(b16["loss"]) and not _within(w16, lim),
+          f"{kind}: the bf16 control meets the fp32 limits: {b16['loss']} {w16}")
+
+
+def phase_speech_parity() -> None:
+    """25b: every model runs before the first failure is raised."""
+    flags = (torch.backends.cudnn.benchmark, torch.backends.cudnn.deterministic)
+    torch.backends.cudnn.benchmark, torch.backends.cudnn.deterministic = \
+        False, True
+    failed = []
+    try:
+        for kind in TOL_SPEECH:
+            try:
+                _speech_parity(kind)
+            except AssertionError as e:
+                failed.append(str(e))
+    finally:
+        torch.backends.cudnn.benchmark, torch.backends.cudnn.deterministic = \
+            flags
+        _HIFIGAN_PAIR.clear()
+    check(not failed, "; ".join(failed))
+
+
+def phase_speech_kernels() -> tuple[float, float]:
+    """25a: K1 and K2 against their plain versions at the speech shapes in
+    bf16 and fp32, with bf16 times. Returns the worst K1 out error and K2
+    error (max abs)."""
+    t0 = time.perf_counter()
+    worst_fwd = worst_bwd = 0.0
+    lines = []
+    for name, (b, s, h, masked, rate) in SPEECH_ATTN.items():
+        errs = []
+        for dtype in (torch.float32, torch.bfloat16):
+            e_out, rel, e_bwd = _s2s_attn_case(b, s, s, h, False, masked,
+                                               dtype, rate, seed=-7)
+            worst_fwd, worst_bwd = max(worst_fwd, e_out), max(worst_bwd, e_bwd)
+            errs.append(f"{'fp32' if dtype == torch.float32 else 'bf16'} "
+                        f"{e_out:.2e}/{rel:.2e}")
+        lines.append(f"{name} (B={b} S={s} H={h}{' masked' if masked else ''}"
+                     f"{f' dropout {rate}' if rate else ''}): K1 out err / K2 "
+                     f"err of its largest {', '.join(errs)}; bf16 "
+                     + _s2s_time(b, s, s, h, False, masked, rate, seed=-7)
+                     + "; K2 (no dropout) " + _fmt_bwd_times(
+                         _time_bwd(b, s, h, D, "bshd", masked=masked)))
+    say("25 speech", "K1/K2 at the slice's shapes vs plain (D=64, bshd): "
+        + "; ".join(lines) + " (CUDA events, least of 2 (K2: 3) in turns; "
+        f"[the card's clock alone]; {time.perf_counter() - t0:.1f} s)")
+    return worst_fwd, worst_bwd
+
+
+def _speech_cli(name: str, work: Path) -> tuple[dict, list, list, Any, float]:
+    """One command through the CLI's runner at B=32, 10 steps, with the
+    counts set to 0 just before it: (launches, the raport's LOG data,
+    host-clock step times, what the runner returned, seconds)."""
+    ws = work / name
+    shutil.rmtree(ws, ignore_errors=True)
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()  # this path starts here
+    t0 = time.perf_counter()
+    out = cli([name, "--batch-size", str(SPEECH_CLI_B), "--steps-per-epoch",
+               "5", "--epochs", "2", "--lr", SPEECH_CLI[name], "--workspace",
+               str(ws)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launched = _counts()
+    data = _raport_data(ws / f"{name}_raport.json")
+    shutil.rmtree(ws, ignore_errors=True)
+    times = [d["train.compute_time"] for d in data if "train.compute_time" in d]
+    return launched, data, times, out, wall
+
+
+def phase_speech() -> dict[str, int]:
+    """25c: fastpitch, hifigan, wav2vec2 and jasper through the CLI's runners
+    in bf16; returns the kernels' launches on these paths."""
+    t0 = time.perf_counter()
+    work = ROOT / "workspace" / "chip_smoke" / "speech"
+    total = dict.fromkeys(_counts(), 0)
+    lines = []
+    k12 = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+    for name in SPEECH_CLI:
+        launched, data, times, out, wall = _speech_cli(name, work)
+        others = {k: v for k, v in launched.items() if k not in k12}
+        check(others == dict.fromkeys(others, 0),
+              f"{name}: K3-K6 launched {launched}")
+        attention = name in ("fastpitch", "wav2vec2")
+        want = 12 * 10 if attention else 0
+        check(all(launched[k] == want for k in k12),
+              f"{name}: K1/K2 launches {launched}, want {want} each")
+        if name == "hifigan":
+            d_loss = [d["train.d_loss"] for d in data if "train.d_loss" in d]
+            g_loss = [d["train.g_loss"] for d in data if "train.g_loss" in d]
+            check(len(d_loss) == 2 and all(map(math.isfinite, d_loss + g_loss)),
+                  f"hifigan: d {d_loss} g {g_loss}")
+            lines.append(f"hifigan B={SPEECH_CLI_B} lr 2e-4, 10 d_step + g_step "
+                         f"pairs: d_loss {d_loss[0]:.4f} -> {d_loss[-1]:.4f}, "
+                         f"g_loss {g_loss[0]:.4f} -> {g_loss[-1]:.4f}, mel_l1 "
+                         f"{out[2]['train.mel_l1']:.4f}; {wall:.1f} s for the "
+                         f"run, init included ({wall / 10 * 1e3:.0f} ms a pair "
+                         "at most); launches 0")
+            continue
+        losses = [d["train.loss"] for d in data if "train.loss" in d]
+        check(len(losses) == 10 and all(map(math.isfinite, losses)),
+              f"{name}: losses {losses}")
+        if name in ("fastpitch", "jasper"):
+            check(losses[-1] < losses[0], f"{name}: losses {losses}")
+        med = statistics.median(times[2:])
+        lines.append(f"{name} B={SPEECH_CLI_B} lr {SPEECH_CLI[name]}, 10 "
+                     f"steps: loss {losses[0]:.4f} -> {losses[-1]:.4f}; median "
+                     f"step over steps 3-10 {med * 1e3:.1f} ms (host clock); "
+                     f"launches {launched['flash_fwd']} K1, "
+                     f"{launched['flash_bwd_dq']} + "
+                     f"{launched['flash_bwd_dkv']} K2")
+        for k, v in launched.items():
+            total[k] += v
+    shutil.rmtree(work, ignore_errors=True)
+    say("25 speech", f"commands on {card()}, bf16: " + "; ".join(lines)
+        + f" ({time.perf_counter() - t0:.1f} s)")
+    return total
+
+
+def _serve_speech(ep, reqs: list[dict]) -> tuple[list, int, dict]:
+    """``reqs`` sent at once, binary, to ``ep`` behind the HTTP server, with
+    the counts set to 0 just before: (answers, K1 launches, the batcher's
+    stats)."""
+    ep.batcher.warmup(reqs[0])  # first launches off the dispatcher
+    server = InferenceServer("127.0.0.1", 0)
+    server.register(ep)
+    server.start()
+    try:
+        results, errors = [None] * len(reqs), []
+
+        def client(i):
+            try:
+                results[i] = http_infer(server.addr, ep.name, reqs[i],
+                                        binary=True)
+            except Exception as e:  # noqa: BLE001 - re-raised below
+                errors.append(e)
+
+        _reset_counts()  # the serving path starts here
+        threads = [threading.Thread(target=client, args=(i,))
+                   for i in range(len(reqs))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        launched = _counts()
+        check(not any(t.is_alive() for t in threads), f"{ep.name}: hung")
+        if errors:
+            raise errors[0]
+        stats = ep.batcher.stats()
+    finally:
+        server.stop()
+    others = {k: v for k, v in launched.items() if k != "flash_fwd"}
+    check(others == dict.fromkeys(others, 0), f"{ep.name}: {launched}")
+    return [r["outputs"] for r in results], launched["flash_fwd"], stats
+
+
+def phase_speech_serving() -> int:
+    """25d: FastPitch -> HiFi-GAN and Jasper behind the HTTP server, fp32 at
+    full width, each answer against a direct call of the endpoint's function
+    on that request alone; returns K1's launches."""
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(SEED + 2)
+    gen = torch.Generator().manual_seed(SEED)
+    fp_task, hifi_task = FastPitchTask(dtype=torch.float32), \
+        HiFiGanTask(dtype=torch.float32)
+    fp = fp_task.init(gen, DEV)
+    with torch.no_grad():  # about 4 frames a symbol, not 0
+        fp.duration_predictor.fc.bias.fill_(math.log(5.0))
+    hifi, _ = hifi_task.init(gen, DEV)
+    ep = speech_recipes.fastpitch_hifigan_endpoint(fp_task, fp, hifi_task,
+                                                   hifi)
+    reqs = []
+    for _ in range(SPEECH_REQUESTS):
+        text = np.zeros(128, np.int32)
+        n = int(rng.integers(16, 129))
+        text[:n] = rng.integers(1, 148, n)
+        reqs.append({"text": text})
+    answers, launched, stats = _serve_speech(ep, reqs)
+    worst = 0.0
+    lens = []
+    for req, ans in zip(reqs, answers):
+        want = {k: np.asarray(v.cpu() if torch.is_tensor(v) else v)[0] for k, v
+                in ep.batcher.infer_fn({"text": req["text"][None]}).items()}
+        got = {k: np.asarray(ans[k]) for k in ("audio", "audio_len", "mel_len")}
+        check(got["audio"].shape == (832 * 256,), f"audio {got['audio'].shape}")
+        check(int(got["mel_len"]) == int(want["mel_len"])
+              and int(got["audio_len"]) == int(got["mel_len"]) * 256,
+              f"mel_len {got['mel_len']} vs {want['mel_len']}, audio_len "
+              f"{got['audio_len']}")
+        worst = max(worst, float(np.abs(got["audio"] - want["audio"]).max()))
+        lens.append(int(got["mel_len"]))
+    check(worst <= TOL_SPEECH_SERVED, f"tts served vs direct: {worst:.3e}")
+    check(launched == 12 * stats["dispatches"] and launched > 0,
+          f"tts: {launched} K1 launches for {stats['dispatches']} dispatches")
+    line = (f"fastpitch_hifigan_endpoint, {SPEECH_REQUESTS} requests of 16-128 "
+            f"symbols: mel_len {min(lens)}-{max(lens)} (audio_len = mel_len x "
+            f"256), max abs err vs direct {worst:.2e}; dispatches "
+            f"{stats['dispatches']}, mean_batch {stats['mean_batch']:.2f}, "
+            f"device_ms p50 {stats['device_ms_p50']:.1f}; K1 {launched}")
+    del ep, fp, hifi
+
+    j_task = JasperTask(dtype=torch.float32)
+    model = j_task.init(gen, DEV)
+    ep = speech_recipes.jasper_offline_endpoint(j_task, model)
+    reqs = [{"feats": rng.normal(size=(512, 64)).astype(np.float32),
+             "feat_len": np.array([int(rng.integers(64, 513))], np.int32)}
+            for _ in range(SPEECH_REQUESTS)]
+    answers, j_launched, stats = _serve_speech(ep, reqs)
+    n_tokens = []
+    for req, ans in zip(reqs, answers):
+        want = ep.batcher.infer_fn({k: v[None] for k, v in req.items()})
+        check(np.array_equal(np.asarray(ans["tokens"]), want["tokens"][0])
+              and np.array_equal(np.asarray(ans["n_tokens"]),
+                                 want["n_tokens"][0]),
+              f"jasper tokens {ans['n_tokens']} vs {want['n_tokens'][0]}")
+        n_tokens.append(int(want["n_tokens"][0, 0]))
+    check(j_launched == 0, f"jasper endpoint launched K1 {j_launched}")
+    say("25 speech", f"serving on {card()}: {line}; jasper_offline_endpoint, "
+        f"{SPEECH_REQUESTS} requests of 64-512 valid frames: tokens equal to "
+        f"the direct calls', {min(n_tokens)}-{max(n_tokens)} a request; "
+        f"dispatches {stats['dispatches']}, device_ms p50 "
+        f"{stats['device_ms_p50']:.1f}; K1-K6 0 "
+        f"({time.perf_counter() - t0:.1f} s)")
+    return launched
+
+
+def phase_speech_ctc() -> dict[str, int]:
+    """25e: one bf16 ``Wav2Vec2CtcTask`` step at B=4 on the card, then its
+    log-probabilities greedily decoded; returns the launches."""
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(SEED + 3)
+    task = Wav2Vec2CtcTask(dtype=torch.bfloat16)
+    model = task.init(torch.Generator().manual_seed(SEED), DEV)
+    b, frames = 4, 49
+    fpad = np.zeros((b, frames), np.float32)
+    lpad = np.zeros((b, 12), np.float32)
+    labels = rng.integers(1, task.vocab_size, (b, 12)).astype(np.int32)
+    for i, (f, n) in enumerate(zip((49, 40, 30, 20), (12, 8, 6, 4))):
+        fpad[i, f:], lpad[i, n:], labels[i, n:] = 1.0, 1.0, 0
+    batch = {"audio": (0.1 * rng.normal(size=(b, W2V_AUDIO))).astype(np.float32),
+             "frame_paddings": fpad, "labels": labels, "label_paddings": lpad}
+    t = {k: torch.from_numpy(v).to(DEV) for k, v in batch.items()}
+    tx = adamw(5e-5, weight_decay=0.01)
+    state = create_train_state(model, tx, SEED)
+    _reset_counts()  # this path starts here
+    state, m = make_train_step(task.loss_fn, tx)(state, t)
+    with torch.no_grad():
+        logp = model(t["audio"])
+    decoded = greedy_ctc_decode(logp.float().cpu().numpy())
+    torch.cuda.synchronize()
+    launched = _counts()
+    check(math.isfinite(float(m["loss"])), f"wav2vec2 ctc loss {m['loss']}")
+    check(logp.shape == (b, frames, task.vocab_size)
+          and bool(torch.isfinite(logp).all()), f"logp {logp.shape}")
+    check(len(decoded) == b and all(0 <= x < task.vocab_size
+                                    for row in decoded for x in row),
+          f"decoded {decoded}")
+    check(launched == {**dict.fromkeys(launched, 0), "flash_fwd": 24,
+                       "flash_bwd_dq": 12, "flash_bwd_dkv": 12},
+          f"wav2vec2 ctc launches {launched}")
+    say("25 speech", f"Wav2Vec2CtcTask bf16 B={b}: loss {float(m['loss']):.4f}, "
+        f"grad_norm {float(m['grad_norm']):.4f}; greedy decode of the eval "
+        f"forward: {[len(r) for r in decoded]} tokens; launches {launched} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    return launched
+
+
+def phase_speech_all() -> tuple[float, float, dict[str, int]]:
+    """Phase 25: (the worst K1 and K2 errors, the launches of the main
+    paths 25c-e)."""
+    fwd, bwd = phase_speech_kernels()
+    phase_speech_parity()
+    launched = phase_speech()
+    launched["flash_fwd"] += phase_speech_serving()
+    for k, v in phase_speech_ctc().items():
+        launched[k] += v
+    return fwd, bwd, launched
+
 
 def main() -> None:
     name = phase_device()
@@ -4389,6 +4895,13 @@ def main() -> None:
     for k in ("flash_bwd_dq", "flash_bwd_dkv"):
         results[k]["max_abs_err"] = max(results[k]["max_abs_err"], data_bwd)
     for k, v in data_launched.items():
+        launched[k] += v
+    sp_fwd, sp_bwd, sp_launched = phase_speech_all()
+    results["flash_fwd"]["max_abs_err"] = max(
+        results["flash_fwd"]["max_abs_err"], sp_fwd)
+    for k in ("flash_bwd_dq", "flash_bwd_dkv"):
+        results[k]["max_abs_err"] = max(results[k]["max_abs_err"], sp_bwd)
+    for k, v in sp_launched.items():
         launched[k] += v
     check(set(launched) == set(results), f"{sorted(launched)} vs {sorted(results)}")
     for k, v in launched.items():

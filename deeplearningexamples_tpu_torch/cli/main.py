@@ -2,8 +2,8 @@
 <model> [flags]`` for ``resnet50``, ``resnext101-32x4d``,
 ``se-resnext101-32x4d``, ``efficientnet-b0``, ``efficientnet-b4``,
 ``ssd300``, ``bert-pretrain``, ``bert-squad``, ``bert-glue``, ``bert-swag``,
-``dlrm``, ``tacotron2``, ``waveglow``, ``transformer``, ``bart`` and
-``gnmt``.
+``dlrm``, ``tacotron2``, ``waveglow``, ``transformer``, ``bart``,
+``gnmt``, ``fastpitch``, ``hifigan``, ``jasper`` and ``wav2vec2``.
 
 Port of ``deeplearningexamples_tpu/cli/main.py`` for the models the port
 trains so far, the ConvNets (``run_convnet``), SSD300 (``run_ssd``), BERT
@@ -11,7 +11,8 @@ pretraining (``run_bert_pretrain``), BERT fine-tuning on SQuAD, GLUE and SWAG
 (``run_bert_squad``, ``run_bert_glue``, ``run_bert_swag``), DLRM
 (``run_dlrm``), Tacotron2 and WaveGlow (``run_tts``), the Transformer NMT
 (``run_transformer``), BART (``run_bart``: denoising pretraining or
-summarization with beam-decoded ROUGE) and GNMT (``run_breadth``), with the
+summarization with beam-decoded ROUGE), GNMT, FastPitch, Jasper and
+wav2vec 2.0 (``run_breadth``) and HiFi-GAN (``run_hifigan``), with the
 flag names and defaults of ``dlx-train``. The run is
 on the card unless ``--device cpu`` is given. Flags whose machinery is not
 ported yet exit with a message that says so, rather than being ignored: for
@@ -20,8 +21,8 @@ the ConvNets and ``ssd300`` ``--data-backend`` other than synthetic and
 ``bert-pretrain`` ``--zero``, ``--attention-impl ring`` and
 ``--mesh-*``; for the fine-tuning commands ``--mesh-*`` and an
 ``--init-checkpoint`` in TF format; for ``dlrm`` ``--mesh-model`` above 1
-and ``--mesh-*``; for ``tacotron2``, ``waveglow``, ``transformer``, ``bart`` and ``gnmt``
-``--mesh-*``. argparse refuses ``--zero`` for the fine-tuning commands,
+and ``--mesh-*``; for ``tacotron2``, ``waveglow``, ``transformer``, ``bart``
+and the speech and breadth commands ``--mesh-*``. argparse refuses ``--zero`` for the fine-tuning commands,
 which ``dlx-train`` does not give them either.
 
 Every command takes ``--config-file`` (a ``configs.yml``-style file),
@@ -52,16 +53,17 @@ from ..core import optimizers as opt
 from ..core.optimizers import adamw, bert_adam, lr_poly_warmup
 from ..core.train import create_train_state, make_eval_step, make_train_step
 
-__all__ = ["BartCliConfig", "BertCliConfig", "BertPretrainRun",
+__all__ = ["BartCliConfig", "BertCliConfig", "BertPretrainRun", "BreadthRun",
            "CommonConfig", "ConvNetCliConfig", "ConvNetRun", "DlrmCliConfig",
            "DlrmRun", "FinetuneRun", "GlueCliConfig", "MODELS", "Seq2SeqRun",
            "SgdCliConfig", "SquadCliConfig", "SsdRun", "SwagCliConfig",
-           "TtsRun", "build_bert_pretrain", "build_bert_squad",
+           "TtsRun", "build_bert_pretrain", "build_bert_squad", "build_breadth",
            "build_convnet", "build_dlrm", "build_ssd", "build_transformer",
            "build_tts", "cli",
            "featurize_swag", "read_swag", "run_bert_glue",
            "run_bert_pretrain", "run_bert_squad", "run_bert_swag",
-           "run_bart", "run_breadth", "run_convnet", "run_dlrm", "run_ssd",
+           "run_bart", "run_breadth", "run_convnet", "run_dlrm",
+           "run_hifigan", "run_ssd",
            "run_transformer", "run_tts", "to_device"]
 
 INPUTS = ("input_ids", "attention_mask", "token_type_ids")
@@ -1218,19 +1220,54 @@ def run_bart(cfg: BartCliConfig):
 
 def _breadth_spec(name: str, cfg: CommonConfig):
     """(task, init, batch factory, optimizer) of JAX's ``_breadth_spec`` for
-    the families the port trains through ``run_breadth``: ``gnmt``
-    (``GnmtConfig()``, src (B, 48), tgt BOS + src[:, :46] + EOS, Adam at
-    ``cfg.lr or 1e-3``, which never falls back)."""
+    the families the port trains through ``run_breadth``, on its synthetic
+    batches, each rate ``cfg.lr or <default>`` (which never falls back from
+    ``CommonConfig.lr``):
+
+    - ``jasper``: Jasper 5x3, feats (B, 256, 64) N(0, 1), labels (B, 32) in
+      [1, vocab), no paddings; clip by global norm 1.0, then Adam (1e-3);
+    - ``wav2vec2``: BASE, one second of audio (B, 16000) 0.1 N(0, 1), span
+      masks at 0.5 over its 49 frames; AdamW (5e-4, weight decay 0.01);
+    - ``gnmt``: ``GnmtConfig()``, src (B, 48), tgt BOS + src[:, :46] + EOS;
+      Adam (1e-3);
+    - ``fastpitch``: text (B, 32) in [1, n_symbols), durations in [1, 6),
+      pitch N(0, 1), mel (B, 900, 80) N(0, 1); Adam (1e-3)."""
     rng = np.random.default_rng(cfg.seed)
     bs = cfg.batch_size
-    if name == "gnmt":
+    if name == "jasper":
+        from ..models.asr import JasperTask
+
+        task = JasperTask(dtype=_dtype(cfg))
+
+        def batch():
+            return {
+                "feats": rng.normal(size=(bs, 256, task.cfg.n_mels)
+                                    ).astype(np.float32),
+                "feat_paddings": np.zeros((bs, 256), np.float32),
+                "labels": rng.integers(
+                    1, task.cfg.vocab_size, (bs, 32)).astype(np.int32),
+                "label_paddings": np.zeros((bs, 32), np.float32),
+            }
+        tx = opt.chain(opt.clip_by_global_norm(1.0), opt.adam(cfg.lr or 1e-3))
+    elif name == "wav2vec2":
+        from ..models.wav2vec2 import Wav2Vec2Task, n_frames, sample_spans_mask
+
+        task = Wav2Vec2Task(dtype=_dtype(cfg))
+        audio_len = 16000
+        frames = n_frames(task.cfg, audio_len)
+
+        def batch():
+            return {
+                "audio": rng.normal(size=(bs, audio_len)
+                                    ).astype(np.float32) * 0.1,
+                "mask": sample_spans_mask(rng, bs, frames, 0.5,
+                                          task.cfg.mask_span),
+            }
+        tx = opt.adamw(cfg.lr or 5e-4, weight_decay=0.01)
+    elif name == "gnmt":
         from ..models.translation.gnmt import GnmtTask
 
         task = GnmtTask(dtype=_dtype(cfg))
-
-        def init():
-            return task.init(torch.Generator().manual_seed(cfg.seed),
-                             device=cfg.device)
 
         def batch():
             src = rng.integers(3, task.cfg.vocab_size, (bs, 48))
@@ -1239,31 +1276,110 @@ def _breadth_spec(name: str, cfg: CommonConfig):
                  np.full((bs, 1), task.cfg.eos_id)], axis=1)
             return {"src": src.astype(np.int32), "tgt": tgt.astype(np.int32)}
         tx = opt.adam(cfg.lr or 1e-3)
+    elif name == "fastpitch":
+        from ..models.tts import FastPitchTask
+
+        task = FastPitchTask(dtype=_dtype(cfg))
+        tl = 32
+
+        def batch():
+            dur = rng.integers(1, 6, (bs, tl)).astype(np.int32)
+            mel_len = task.cfg.max_mel_len
+            return {
+                "text": rng.integers(1, task.cfg.n_symbols,
+                                     (bs, tl)).astype(np.int32),
+                "durations": dur,
+                "pitch": rng.normal(size=(bs, tl)).astype(np.float32),
+                "mel": rng.normal(size=(bs, mel_len, task.cfg.n_mels)
+                                  ).astype(np.float32),
+            }
+        tx = opt.adam(cfg.lr or 1e-3)
     else:
         raise KeyError(name)
+
+    def init():
+        return task.init(torch.Generator().manual_seed(cfg.seed),
+                         device=cfg.device)
     return task, init, batch, tx
 
 
-def run_breadth(name: str, cfg: CommonConfig):
-    """JAX's ``run_breadth``: ``min(steps_per_epoch, 16)`` distinct synthetic
-    batches repeated to ``steps_per_epoch``, ``--resume`` from
-    ``{workspace}/{name}_ckpt``. Returns ``(state, best)``."""
-    logger = _common_setup(cfg, name.replace("-", "_"))
-    _unported_mesh(name, cfg)
+@dataclass
+class BreadthRun:
+    """What ``run_breadth`` trains with, built by ``build_breadth``."""
+
+    task: Any
+    tx: Any
+    state: Any
+    train_step: Any
+    loader: Any
+
+
+def build_breadth(name: str, cfg: CommonConfig) -> BreadthRun:
+    """The model, optimizer, state, step and loader of a ``run_breadth``
+    command: ``min(steps_per_epoch, 16)`` distinct synthetic batches
+    repeated to ``steps_per_epoch``, the task's BN statistics (Jasper's) in
+    the state."""
     task, init, batch_fn, tx = _breadth_spec(name, cfg)
     model = init()
     loader = [batch_fn() for _ in range(min(cfg.steps_per_epoch, 16))]
     loader = (loader * (-(-cfg.steps_per_epoch // len(loader))))[
         :cfg.steps_per_epoch]
-    state = create_train_state(model, tx, cfg.seed + 1)
-    ckpt = CheckpointManager(f"{cfg.workspace}/{name.replace('-', '_')}_ckpt")
-    state, start_epoch = _maybe_resume(cfg, ckpt, state, len(loader))
+    model_state = task.model_state(model) if hasattr(task, "model_state") \
+        else None
+    state = create_train_state(model, tx, cfg.seed + 1,
+                               model_state=model_state)
     train_step = make_train_step(task.loss_fn, tx, accum_steps=cfg.accum_steps)
+    return BreadthRun(task, tx, state, train_step, loader)
+
+
+def run_breadth(name: str, cfg: CommonConfig):
+    """JAX's ``run_breadth`` (``build_breadth``), ``--resume`` from
+    ``{workspace}/{name}_ckpt``. Returns ``(state, best)``."""
+    logger = _common_setup(cfg, name.replace("-", "_"))
+    _unported_mesh(name, cfg)
+    run = build_breadth(name, cfg)
+    ckpt = CheckpointManager(f"{cfg.workspace}/{name.replace('-', '_')}_ckpt")
+    state, start_epoch = _maybe_resume(cfg, ckpt, run.state, len(run.loader))
     return train_loop(
-        state, train_step, lambda: to_device(loader, cfg.device),
+        state, run.train_step, lambda: to_device(run.loader, cfg.device),
         cfg=_loop_cfg(cfg), logger=logger, checkpoints=ckpt,
         batch_size=cfg.batch_size, start_epoch=start_epoch)
 
+def run_hifigan(cfg: CommonConfig):
+    """HiFi-GAN, as JAX's ``run_hifigan``: one synthetic batch (mel (B, 32,
+    80) N(0, 1), audio (B, 8192) 0.3 N(0, 1)), two Adams (b1 0.8, b2 0.99,
+    ``cfg.lr or 2e-4``: without ``--lr`` it is 0.1), a ``d_step`` then a
+    ``g_step`` per step, and per epoch ``train.d_loss``, ``train.g_loss``
+    and ``train.mel_l1``. Returns ``(gen, disc, last metrics)``."""
+    from ..models.tts import HiFiGanTask
+
+    logger = _common_setup(cfg, "hifigan")
+    _unported_mesh("hifigan", cfg)
+    task = HiFiGanTask(dtype=_dtype(cfg))
+    gen, disc = task.init(torch.Generator().manual_seed(cfg.seed),
+                          device=cfg.device)
+    g_tx = opt.adam(cfg.lr or 2e-4, b1=0.8, b2=0.99)
+    d_tx = opt.adam(cfg.lr or 2e-4, b1=0.8, b2=0.99)
+    g_opt = g_tx.init(dict(gen.named_parameters()))
+    d_opt = d_tx.init(dict(disc.named_parameters()))
+    g_step, d_step = task.make_steps(g_tx, d_tx)
+    rng = np.random.default_rng(cfg.seed)
+    hcfg = task.cfg
+    t_mel = hcfg.segment_length // hcfg.hop_length
+    batch = next(to_device([{
+        "mel": rng.normal(size=(cfg.batch_size, t_mel, hcfg.n_mels)
+                          ).astype(np.float32),
+        "audio": (rng.normal(size=(cfg.batch_size, hcfg.segment_length))
+                  * 0.3).astype(np.float32)}], cfg.device))
+    out = {}
+    for epoch in range(cfg.epochs):
+        for _ in range(cfg.steps_per_epoch):
+            d_opt, dl = d_step(disc, d_opt, gen, batch)
+            g_opt, gl, aux = g_step(gen, g_opt, disc, batch)
+        out = {"train.d_loss": float(dl), "train.g_loss": float(gl),
+               "train.mel_l1": float(aux["mel_l1"])}
+        logger.log((epoch,), out)
+    return gen, disc, out
 
 CONVNETS = ("resnet50", "resnext101-32x4d", "se-resnext101-32x4d",
             "efficientnet-b0", "efficientnet-b4")
@@ -1275,7 +1391,9 @@ MODELS = {**{a: (lambda cfg, a=a: run_convnet(a, cfg)) for a in CONVNETS},
           **{m: (lambda cfg, m=m: run_tts(m, cfg))
              for m in ("tacotron2", "waveglow")},
           "transformer": run_transformer, "bart": run_bart,
-          "gnmt": lambda cfg: run_breadth("gnmt", cfg)}
+          **{m: (lambda cfg, m=m: run_breadth(m, cfg))
+             for m in ("gnmt", "jasper", "wav2vec2", "fastpitch")},
+          "hifigan": run_hifigan}
 _CONFIG_CLS = {**dict.fromkeys(CONVNETS, ConvNetCliConfig),
                "ssd300": SgdCliConfig, "bert-pretrain": BertCliConfig,
                "bert-squad": SquadCliConfig,
@@ -1283,7 +1401,8 @@ _CONFIG_CLS = {**dict.fromkeys(CONVNETS, ConvNetCliConfig),
                "dlrm": DlrmCliConfig,
                "tacotron2": CommonConfig, "waveglow": CommonConfig,
                "transformer": CommonConfig, "bart": BartCliConfig,
-               "gnmt": CommonConfig}
+               **dict.fromkeys(("gnmt", "jasper", "wav2vec2", "fastpitch",
+                                "hifigan"), CommonConfig)}
 
 
 def cli(argv=None):

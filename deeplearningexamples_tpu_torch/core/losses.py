@@ -1,4 +1,4 @@
-"""Classification losses, mixup and top-k accuracy.
+"""Classification losses, mixup, top-k accuracy and the CTC loss.
 
 Port of ``deeplearningexamples_tpu/core/losses.py`` (reference
 ``image_classification/smoothing.py:18``, ``mixup.py:17-48``,
@@ -12,6 +12,11 @@ the batch.
 - ``mixup`` draws its one Beta(alpha, alpha) lambda per batch on the host
   from the step's generator. JAX's ``jax.random.beta`` bits cannot be
   matched, so parity holds at a given lambda.
+- ``ctc_loss`` has ``optax.ctc_loss``'s meaning (per-sequence negative
+  log-likelihood, paddings 1 = pad, blank 0, log-softmax taken of the
+  logits first) through ``F.ctc_loss``. On a label sequence that no
+  alignment of the valid frames can emit, optax gives a large finite loss
+  (its ``log_epsilon`` is -1e5) and this one ``inf``.
 """
 
 from __future__ import annotations
@@ -20,7 +25,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-__all__ = ["cross_entropy", "mixup", "smoothed_cross_entropy",
+__all__ = ["ctc_loss", "cross_entropy", "mixup", "smoothed_cross_entropy",
            "top_k_accuracy"]
 
 
@@ -73,3 +78,18 @@ def top_k_accuracy(logits: torch.Tensor, labels: torch.Tensor,
         hit = (order[:, :k] == labels.long()[:, None]).any(-1)
         out[f"top{k}"] = hit.float().mean()
     return out
+
+
+def ctc_loss(logits: torch.Tensor, logit_paddings: torch.Tensor,
+             labels: torch.Tensor, label_paddings: torch.Tensor,
+             blank_id: int = 0) -> torch.Tensor:
+    """Per-sequence CTC loss (B,) of logits (B, T, C), fp32 or float64, as
+    ``optax.ctc_loss``: the paddings (B, T) and (B, L) are 1 at the pads,
+    which trail the valid steps. The log-softmax is taken here, so
+    log-probabilities may be passed again (their gradient is unchanged)."""
+    logp = F.log_softmax(
+        logits.to(torch.promote_types(logits.dtype, torch.float32)), -1)
+    in_len = (1.0 - logit_paddings.float()).sum(1).round().long()
+    tgt_len = (1.0 - label_paddings.float()).sum(1).round().long()
+    return F.ctc_loss(logp.transpose(0, 1), labels.long(), in_len, tgt_len,
+                      blank=blank_id, reduction="none")

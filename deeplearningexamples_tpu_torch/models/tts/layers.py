@@ -7,9 +7,13 @@ gradient of a weight used at every frame is summed in fp32.
 Convolutions run NCW (the reference's layout); flax's ``SAME`` padding of
 an odd kernel is ``(k - 1) // 2 * dilation`` on each side.
 
+- ``Conv1d``: ``nn.Conv`` over (B, C, T) with flax's padding (``"SAME"``,
+  which under a stride or an even kernel pads one more on the right,
+  ``"VALID"``, or symmetric), flax's lecun-normal kernel (truncated at two
+  standard deviations) and zero bias. FastPitch, HiFi-GAN, Jasper and
+  wav2vec2 build from it.
 - ``LinearNorm`` and ``ConvNorm``: the reference's wrappers (``linear_layer``,
-  ``conv``), flax's lecun-normal kernel (truncated at two standard
-  deviations) and zero bias.
+  ``conv``), with the same initialisers.
 - ``LSTMCell``: ``nn.LSTMCell``'s names and gate rows ``[i, f, g, o]``, with
   flax ``OptimizedLSTMCell``'s one bias: ``bias_hh`` is trained, ``bias_ih``
   is a buffer (zeros, or a reference checkpoint's value, added and never
@@ -38,10 +42,10 @@ from torch import nn
 from ...ops.dropout import draw_seed
 from ..convnets.layers import _TRUNC_STD, BatchNorm2d
 
-__all__ = ["BatchNorm1d", "ConvNorm", "Dropout", "LSTMCell", "LSTMLayer",
+__all__ = ["BatchNorm1d", "Conv1d", "ConvNorm", "Dropout", "LSTMCell", "LSTMLayer",
            "LinearNorm",
            "acc_dtype", "device_generator", "lecun_normal_",
-           "orthogonal_"]
+           "orthogonal_", "same_pads"]
 
 
 def acc_dtype(dtype: torch.dtype) -> torch.dtype:
@@ -105,31 +109,71 @@ class LinearNorm(nn.Module):
                 self.linear_layer.bias.zero_()
 
 
+def same_pads(n: int, k: int, stride: int = 1,
+              dilation: int = 1) -> tuple[int, int]:
+    """flax's ``"SAME"`` padding of a length-``n`` axis, (left, right): the
+    output has ``ceil(n / stride)`` steps and the right side takes the odd
+    one."""
+    out = -(-n // stride)
+    total = max((out - 1) * stride + (k - 1) * dilation + 1 - n, 0)
+    return total // 2, total - total // 2
+
+
+class Conv1d(nn.Conv1d):
+    """flax ``nn.Conv`` over (B, C, T) in ``dtype``: an fp32 (out, in /
+    groups, k) weight cast at each call. ``padding`` is ``"SAME"`` (from the
+    input's length), ``"VALID"`` or an int for both sides."""
+
+    def __init__(self, cin: int, cout: int, kernel_size: int,
+                 stride: int = 1, padding: str | int = "SAME",
+                 dilation: int = 1, groups: int = 1, bias: bool = True,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__(cin, cout, kernel_size, stride=stride,
+                         dilation=dilation, groups=groups, bias=bias)
+        self.dtype, self.pad = dtype, padding
+
+    def pads(self, n: int) -> tuple[int, int]:
+        if self.pad == "SAME":
+            return same_pads(n, self.kernel_size[0], self.stride[0],
+                             self.dilation[0])
+        p = 0 if self.pad == "VALID" else self.pad
+        return p, p
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        lo, hi = self.pads(x.shape[-1])
+        x = x.to(self.dtype)
+        if lo != hi:
+            x, lo = F.pad(x, (lo, hi)), 0
+        bias = None if self.bias is None else self.bias.to(self.dtype)
+        return F.conv1d(x, self.weight.to(self.dtype), bias, self.stride,
+                        lo, self.dilation, self.groups)
+
+    def init_(self, generator: torch.Generator) -> None:
+        _, cin_g, k = self.weight.shape
+        lecun_normal_(self.weight, cin_g * k, generator)
+        if self.bias is not None:
+            with torch.no_grad():
+                self.bias.zero_()
+
+
 class ConvNorm(nn.Module):
     """The reference's ``ConvNorm``: a 1-D ``nn.Conv`` in ``dtype`` with
-    flax's ``SAME`` padding."""
+    flax's ``SAME`` padding of an odd kernel."""
 
     def __init__(self, cin: int, cout: int, kernel_size: int = 1,
                  dilation: int = 1, bias: bool = True,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
         self.dtype = dtype
-        self.conv = nn.Conv1d(cin, cout, kernel_size, dilation=dilation,
-                              padding=(kernel_size - 1) // 2 * dilation,
-                              bias=bias)
+        self.conv = Conv1d(cin, cout, kernel_size, dilation=dilation,
+                           padding=(kernel_size - 1) // 2 * dilation,
+                           bias=bias, dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        c = self.conv
-        bias = None if c.bias is None else c.bias.to(self.dtype)
-        return F.conv1d(x.to(self.dtype), c.weight.to(self.dtype), bias,
-                        padding=c.padding, dilation=c.dilation)
+        return self.conv(x)
 
     def init_(self, generator: torch.Generator) -> None:
-        cout, cin, k = self.conv.weight.shape
-        lecun_normal_(self.conv.weight, cin * k, generator)
-        if self.conv.bias is not None:
-            with torch.no_grad():
-                self.conv.bias.zero_()
+        self.conv.init_(generator)
 
 
 class LSTMCell(nn.Module):

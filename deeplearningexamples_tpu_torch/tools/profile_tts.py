@@ -1,14 +1,19 @@
-"""Where one Tacotron2 or WaveGlow training step spends the card's time.
+"""Where one speech model's training step spends the card's time.
 
 ``python -m deeplearningexamples_tpu_torch.tools.profile_tts [--model
-tacotron2|waveglow] [--steps N] [--traced N] [--out F]`` builds the model
-as the CLI does, bf16, with ``bench.py``'s shapes and rates:
+tacotron2|waveglow|fastpitch|wav2vec2] [--steps N] [--traced N] [--out F]``
+builds the model as the CLI does, bf16:
 
 - ``tacotron2`` (the default): ``Tacotron2Config()``, B=128, text length
   128, mel length 600 (the synthetic loader's, lengths uniform in [300,
-  600) and [64, 128)), clip-by-global-norm 1.0 then Adam at lr 1e-3;
+  600) and [64, 128)), clip-by-global-norm 1.0 then Adam at lr 1e-3
+  (``bench.py``'s shapes and rates);
 - ``waveglow``: ``WaveGlowConfig()`` (12 flows, 8 WN layers of 256
-  channels), B=10, segment 8000, the same optimizer at lr 1e-4.
+  channels), B=10, segment 8000, the same optimizer at lr 1e-4;
+- ``fastpitch``: the ``fastpitch`` command's model and batch (6 + 6 FFT
+  blocks of d 384, text 32, mel 900), B=32, Adam at lr 1e-3;
+- ``wav2vec2``: the ``wav2vec2`` command's BASE model and batch (one
+  second of audio, 49 frames), B=32, AdamW at lr 5e-4.
 
 It times ``--steps`` steps (10) on the host clock, each ending in
 ``synchronize()``, then traces ``--traced`` steps (3) with
@@ -16,6 +21,7 @@ It times ``--steps`` steps (10) on the host clock, each ending in
 launched it. A backward kernel goes to the part of the forward op its
 autograd node came from (the profiler's sequence numbers link the two):
 
+- K1 and K2 (the flash kernels, by name);
 - LSTM cells (the decoder's two cells and the encoder's BiLSTM);
 - attention (the decoder step's ``attention`` span: the location
   convolution and dense layer, the energies, the softmax, the context);
@@ -28,8 +34,9 @@ autograd node came from (the profiler's sequence numbers link the two):
 It also reports kernel launches per step, the device idle share (the part
 of the unprofiled step time that the traced kernels do not cover) and the
 peak device memory. Tacotron2 steps are reported as frames/s (the sum of
-``mel_lengths``, as ``bench.py`` counts them), WaveGlow's as samples/s (B
-times the segment). It needs a CUDA card and prints one JSON object with
+``mel_lengths``, as ``bench.py`` counts them), FastPitch's as frames/s (the
+sum of the durations), WaveGlow's and wav2vec2's as samples/s (B times the
+segment). It needs a CUDA card and prints one JSON object with
 the card's name and power limit, and also writes it to ``--out`` when
 given.
 """
@@ -44,29 +51,33 @@ import time
 
 import torch
 
-from ..cli.main import CommonConfig, build_tts, to_device
+from ..cli.main import CommonConfig, build_breadth, build_tts, to_device
 from .profile_pretrain import _union_us, device_kernels
 
 SHAPES = {"tacotron2": dict(batch_size=128, lr=1e-3),
-          "waveglow": dict(batch_size=10, lr=1e-4)}
+          "waveglow": dict(batch_size=10, lr=1e-4),
+          "fastpitch": dict(batch_size=32, lr=1e-3),
+          "wav2vec2": dict(batch_size=32, lr=5e-4)}
 
 PARTS = [
-    ("clip + Adam update", lambda ops: "optimizer" in ops),
-    ("attention", lambda ops: "attention" in ops),
-    ("LSTM cells", lambda ops: any("lstm" in o.lower() or "rnn" in o.lower()
-                                   for o in ops)),
-    ("BN", lambda ops: any("batch_norm" in o.lower() for o in ops)),
-    ("convolutions", lambda ops: any("conv" in o.lower() for o in ops)),
-    ("other GEMMs", lambda ops: any(
+    ("K1 flash_fwd", lambda ops, k: "flash_fwd" in k),
+    ("K2 flash_bwd", lambda ops, k: "flash_bwd" in k),
+    ("clip + Adam update", lambda ops, k: "optimizer" in ops),
+    ("attention", lambda ops, k: "attention" in ops),
+    ("LSTM cells", lambda ops, k: any("lstm" in o.lower() or "rnn" in o.lower()
+                                      for o in ops)),
+    ("BN", lambda ops, k: any("batch_norm" in o.lower() for o in ops)),
+    ("convolutions", lambda ops, k: any("conv" in o.lower() for o in ops)),
+    ("other GEMMs", lambda ops, k: any(
         o.split("::")[-1] in ("mm", "addmm", "bmm", "linear", "matmul")
         or o.startswith(("MmBackward", "AddmmBackward", "BmmBackward"))
         for o in ops)),
 ]
 
 
-def _part(ops: list[str]) -> str:
+def _part(ops: list[str], kernel: str) -> str:
     for part, test in PARTS:
-        if test(ops):
+        if test(ops, kernel):
             return part
     return "elementwise and other"
 
@@ -85,7 +96,7 @@ def attribute(events, part=None) -> tuple[dict[str, float], dict[str, int]]:
     reading of ``ops``), where ``ops`` are the names of the op that
     launched it and the ops above it, and for a backward op also those of
     the forward op its autograd node came from."""
-    part = part or (lambda ops, kernel: _part(ops))
+    part = part or _part
     forward: dict[int, list[str]] = {}
     for e in events:
         if e.device_type == torch.autograd.DeviceType.CPU \
@@ -112,7 +123,8 @@ def attribute(events, part=None) -> tuple[dict[str, float], dict[str, int]]:
 
 def profile(model: str, steps: int = 10, traced: int = 3) -> dict:
     cfg = CommonConfig(**SHAPES[model], steps_per_epoch=steps)
-    run = build_tts(model, cfg)
+    build = build_breadth if model in ("fastpitch", "wav2vec2") else build_tts
+    run = build(model, cfg)
     batch = next(to_device(run.loader, cfg.device))
     state = run.state
     for _ in range(2):  # warm-up: kernel loads, cuDNN plans, allocator
@@ -142,6 +154,9 @@ def profile(model: str, steps: int = 10, traced: int = 3) -> dict:
     median = statistics.median(step_ms)
     if model == "tacotron2":
         items = int(batch["mel_lengths"].sum())
+        unit = "frames_per_s"
+    elif model == "fastpitch":
+        items = int(batch["durations"].sum())
         unit = "frames_per_s"
     else:
         items = batch["audio"].numel()

@@ -10,7 +10,10 @@ and of a distillation student with its ``distill_proj``, of DLRM's tree into the
 ``convert_ssd300`` for SSD300 (their ``batch_stats`` too), and of
 ``convert_tacotron2`` and ``convert_waveglow`` for Tacotron2 and WaveGlow,
 and of ``convert_nmt_transformer``, ``convert_bart`` and ``convert_gnmt`` for
-the encoder-decoder models. The word table keeps its ``padded_vocab`` rows, and the MLM decoder, tied to it, has no entry of its own. The mapping is
+the encoder-decoder models, and of ``convert_fastpitch``,
+``convert_hifigan_generator``, ``convert_wav2vec2`` and ``convert_jasper``
+for the speech models (with HiFi-GAN's discriminators, wav2vec2's CTC model
+and QuartzNet's separable blocks, which no JAX converter covers). The word table keeps its ``padded_vocab`` rows, and the MLM decoder, tied to it, has no entry of its own. The mapping is
 structural, so it carries any tree of that shape across:
 parameters, or the gradients ``jax.grad`` returns for them.
 """
@@ -31,12 +34,17 @@ __all__ = [
     "distill_student_state_dict_from_jax",
     "dlrm_state_dict_from_jax",
     "efficientnet_state_dict_from_jax",
+    "fastpitch_state_dict_from_jax",
     "gnmt_state_dict_from_jax",
+    "hifigan_discriminators_state_dict_from_jax",
+    "hifigan_generator_state_dict_from_jax",
+    "jasper_state_dict_from_jax",
     "resnet_state_dict_from_jax",
     "ssd300_state_dict_from_jax",
     "tacotron2_state_dict_from_jax",
     "transformer_state_dict_from_jax",
     "waveglow_state_dict_from_jax",
+    "wav2vec2_state_dict_from_jax",
 ]
 
 # (JAX path, port name, transpose): flax Dense kernels are (in, out), torch
@@ -528,4 +536,193 @@ def gnmt_state_dict_from_jax(tree: Mapping[str, Any]) -> dict[str, np.ndarray]:
     cls = tree["classifier"]
     sd["decoder.classifier.classifier.weight"] = _t(cls["kernel"])
     sd["decoder.classifier.classifier.bias"] = np.asarray(cls["bias"])
+    return sd
+
+
+def _dense_sd(tree: Mapping[str, Any], dst: str) -> dict:
+    """A flax ``Dense`` (kernel, optional bias) -> ``{dst}.weight`` (out,
+    in) and ``{dst}.bias``."""
+    sd = {f"{dst}.weight": _t(tree["kernel"])}
+    if "bias" in tree:
+        sd[f"{dst}.bias"] = np.asarray(tree["bias"])
+    return sd
+
+
+def _conv1d_sd(tree: Mapping[str, Any], dst: str) -> dict:
+    """A flax 1-D ``Conv`` -> ``{dst}.weight`` (out, in / groups, k) and
+    ``{dst}.bias``."""
+    sd = {f"{dst}.weight": _conv1d(tree["kernel"])}
+    if "bias" in tree:
+        sd[f"{dst}.bias"] = np.asarray(tree["bias"])
+    return sd
+
+
+def fastpitch_state_dict_from_jax(tree: Mapping[str, Any]
+                                  ) -> dict[str, np.ndarray]:
+    """JAX ``FastPitch`` params, or their gradients -> the port's
+    ``FastPitch`` ``state_dict`` (the reference's names), as numpy arrays:
+    the inverse of ``convert_fastpitch``."""
+    sd = {"encoder.word_emb.weight": np.asarray(tree["embed"]["embedding"])}
+    for key, src in tree.items():
+        side, _, i = key.partition("_")
+        if side in ("enc", "dec") and i.isdigit():
+            dst = f"{'encoder' if side == 'enc' else 'decoder'}.layers.{i}"
+            sd.update(_dense_sd(src["qkv"], f"{dst}.dec_attn.qkv_net"))
+            sd.update(_dense_sd(src["o_net"], f"{dst}.dec_attn.o_net"))
+            sd.update(_ln(src["ln1"], f"{dst}.dec_attn.layer_norm"))
+            sd.update(_conv1d_sd(src["conv1"], f"{dst}.pos_ff.CoreNet.0"))
+            sd.update(_conv1d_sd(src["conv2"], f"{dst}.pos_ff.CoreNet.2"))
+            sd.update(_ln(src["ln2"], f"{dst}.pos_ff.layer_norm"))
+        elif key.endswith("_predictor"):
+            sd.update(_dense_sd(src["fc"], f"{key}.fc"))
+            for name, sub in src.items():
+                if name.startswith("conv"):
+                    sd.update(_conv1d_sd(sub, f"{key}.layers.{name[4:]}.conv"))
+                elif name.startswith("ln"):
+                    sd.update(_ln(sub, f"{key}.layers.{name[2:]}.norm"))
+    for key, dst in (("pitch_embed", "pitch_emb"), ("energy_embed", "energy_emb")):
+        if key in tree:
+            sd.update(_conv1d_sd(tree[key], dst))
+    sd.update(_dense_sd(tree["mel_proj"], "proj"))
+    return sd
+
+
+def hifigan_generator_state_dict_from_jax(tree: Mapping[str, Any]
+                                          ) -> dict[str, np.ndarray]:
+    """JAX ``HiFiGanGenerator`` params, or their gradients -> the port's
+    generator ``state_dict``: the inverse of ``convert_hifigan_generator``.
+    An upsampling kernel (k, in, out) becomes ``ConvTranspose1d``'s (in,
+    out, k) reversed in time."""
+    sd = {**_conv1d_sd(tree["pre"], "conv_pre"),
+          **_conv1d_sd(tree["post"], "conv_post")}
+    for key, src in tree.items():
+        if key.startswith("up_"):
+            k = np.asarray(src["kernel"])[::-1]
+            sd[f"ups.{key[3:]}.weight"] = np.ascontiguousarray(
+                k.transpose(1, 2, 0))
+            sd[f"ups.{key[3:]}.bias"] = np.asarray(src["bias"])
+        elif key.startswith("mrf_"):
+            _, i, j = key.split("_")
+            for name, conv in src.items():  # c1_{m}, c2_{m}
+                c, m = name.split("_")
+                sd.update(_conv1d_sd(
+                    conv, f"resblocks.{i}.{j}.convs{c[1]}.{m}"))
+    return sd
+
+
+def hifigan_discriminators_state_dict_from_jax(tree: Mapping[str, Any]
+                                               ) -> dict[str, np.ndarray]:
+    """JAX ``HiFiGanDiscriminators`` params, or their gradients -> the
+    port's ``state_dict`` (the reference's ``mpd.discriminators.{k}`` and
+    ``msd.discriminators.{k}``, ``convs.{i}`` and ``conv_post``). The period
+    discriminators are taken in ascending period, as the configuration
+    lists them."""
+
+    def disc(src, dst, conv):
+        sd = {}
+        for name, sub in src.items():
+            out = f"{dst}.conv_post" if name == "out" else f"{dst}.convs.{name[1:]}"
+            sd[f"{out}.weight"] = conv(sub["kernel"])
+            sd[f"{out}.bias"] = np.asarray(sub["bias"])
+        return sd
+
+    def conv2d(k):  # (kh, kw, in, out) -> (out, in, kh, kw)
+        return np.ascontiguousarray(np.asarray(k).transpose(3, 2, 0, 1))
+
+    sd: dict[str, np.ndarray] = {}
+    periods = sorted((int(k[4:]) for k in tree if k.startswith("mpd_")))
+    for n, p in enumerate(periods):
+        sd.update(disc(tree[f"mpd_{p}"], f"mpd.discriminators.{n}", conv2d))
+    scales = sorted(int(k[4:]) for k in tree if k.startswith("msd_"))
+    for i in scales:
+        sd.update(disc(tree[f"msd_{i}"], f"msd.discriminators.{i}", _conv1d))
+    return sd
+
+
+def wav2vec2_state_dict_from_jax(tree: Mapping[str, Any]
+                                 ) -> dict[str, np.ndarray]:
+    """JAX ``Wav2Vec2`` params, or their gradients -> the port's
+    ``Wav2Vec2`` ``state_dict`` (the reference's names): the inverse of
+    ``convert_wav2vec2``. A ``Wav2Vec2ForCTC`` tree (``w2v`` and ``head``)
+    gives ``w2v.*`` and ``head.*``. The fused qkv splits into
+    ``q_proj``, ``k_proj`` and ``v_proj``."""
+    if "w2v" in tree:
+        sd = {f"w2v.{k}": v for k, v in
+              wav2vec2_state_dict_from_jax(tree["w2v"]).items()}
+        sd.update(_dense_sd(tree["head"], "head"))
+        return sd
+    sd: dict[str, np.ndarray] = {}
+    for name, sub in tree["encoder"].items():
+        dst = "feature_extractor.conv_layers"
+        if name.startswith("conv"):
+            sd[f"{dst}.{name[4:]}.0.weight"] = _conv1d(sub["kernel"])
+        elif name == "gn0":
+            sd.update(_ln(sub, f"{dst}.0.2"))
+        else:  # ln{i}
+            sd.update(_ln(sub, f"{dst}.{name[2:]}.2.1"))
+    sd.update(_ln(tree["feat_ln"], "layer_norm"))
+    sd.update(_dense_sd(tree["feat_proj"], "post_extract_proj"))
+    sd["mask_emb"] = np.asarray(tree["mask_embedding"])
+    sd.update(_conv1d_sd(tree["pos_conv"], "encoder.pos_conv.0"))
+    sd.update(_ln(tree["encoder_ln"], "encoder.layer_norm"))
+    for key in ("final_proj", "project_q"):
+        if key in tree:
+            sd.update(_dense_sd(tree[key], key))
+    if "quantizer" in tree:
+        sd.update(_dense_sd(tree["quantizer"]["proj"], "quantizer.weight_proj"))
+        cv = np.asarray(tree["quantizer"]["codevectors"])
+        sd["quantizer.vars"] = cv.reshape(1, -1, cv.shape[-1])
+    for key, src in tree.items():
+        if not key.startswith("block_"):
+            continue
+        dst = f"encoder.layers.{key[6:]}"
+        w = np.asarray(src["qkv"]["kernel"])
+        b = np.asarray(src["qkv"]["bias"])
+        d = w.shape[1] // 3
+        for n, name in enumerate("qkv"):
+            sd[f"{dst}.self_attn.{name}_proj.weight"] = _t(w[:, n * d:(n + 1) * d])
+            sd[f"{dst}.self_attn.{name}_proj.bias"] = b[n * d:(n + 1) * d].copy()
+        sd.update(_dense_sd(src["attn_out"], f"{dst}.self_attn.out_proj"))
+        sd.update(_ln(src["ln1"], f"{dst}.self_attn_layer_norm"))
+        sd.update(_ln(src["ln2"], f"{dst}.final_layer_norm"))
+        sd.update(_dense_sd(src["ff1"], f"{dst}.fc1"))
+        sd.update(_dense_sd(src["ff2"], f"{dst}.fc2"))
+    return sd
+
+
+def jasper_state_dict_from_jax(params: Mapping[str, Any],
+                               batch_stats: Mapping[str, Any] | None = None
+                               ) -> dict[str, np.ndarray]:
+    """JAX ``Jasper`` params (or their gradients) and ``batch_stats`` -> the
+    port's ``Jasper`` ``state_dict`` (the reference's names): the inverse of
+    ``convert_jasper``, and of its separable layout for QuartzNet (``dw``,
+    ``pw`` and ``bn`` at ``conv.{5r}`` .. ``conv.{5r + 2}``)."""
+
+    def bn(p, s, dst):
+        sd = {f"{dst}.weight": np.asarray(p["scale"]),
+              f"{dst}.bias": np.asarray(p["bias"])}
+        if s is not None:
+            sd[f"{dst}.running_mean"] = np.asarray(s["mean"])
+            sd[f"{dst}.running_var"] = np.asarray(s["var"])
+        return sd
+
+    sd = _conv1d_sd(params["head"], "decoder.layers.0")
+    for key, src in params.items():
+        if key == "head":
+            continue
+        b, _, r = key[1:].partition("_")
+        stats = None if batch_stats is None else batch_stats[key]["bn"]
+        dst = f"encoder.layers.{b}"
+        if r.startswith("res"):
+            sd[f"{dst}.res.{r[3:]}.0.weight"] = _conv1d(src["conv"]["kernel"])
+            sd.update(bn(src["bn"], stats, f"{dst}.res.{r[3:]}.1"))
+        elif "dw" in src:
+            first = 5 * int(r)
+            sd[f"{dst}.conv.{first}.weight"] = _conv1d(src["dw"]["kernel"])
+            sd[f"{dst}.conv.{first + 1}.weight"] = _conv1d(src["pw"]["kernel"])
+            sd.update(bn(src["bn"], stats, f"{dst}.conv.{first + 2}"))
+        else:
+            first = 4 * int(r)
+            sd[f"{dst}.conv.{first}.weight"] = _conv1d(src["conv"]["kernel"])
+            sd.update(bn(src["bn"], stats, f"{dst}.conv.{first + 1}"))
     return sd

@@ -22,6 +22,7 @@ from deeplearningexamples_tpu_torch.models.bert import (
 from deeplearningexamples_tpu_torch.utils.jax_bridge import (
     bert_qa_state_dict_from_jax,
 )
+from torch_threads import torch_one_thread  # noqa: F401
 
 # hidden 128 over 2 heads gives D=64, which reaches the JAX bshd kernel
 SMALL = dict(vocab_size=1024, hidden_size=128, num_layers=2, num_heads=2,

@@ -68,6 +68,7 @@ from deeplearningexamples_tpu_torch.utils.jax_bridge import (
     bert_qa_state_dict_from_jax,
 )
 from deeplearningexamples_tpu_torch.utils.torch_import import load_bert_encoder
+from torch_threads import torch_one_thread  # noqa: F401
 
 TINY = dict(vocab_size=1000, hidden_size=64, num_layers=2, num_heads=4,
             intermediate_size=128, max_position_embeddings=64,

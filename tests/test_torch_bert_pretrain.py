@@ -46,6 +46,7 @@ from deeplearningexamples_tpu_torch.utils.jax_bridge import (
     bert_pretrain_jax_order,
     bert_pretrain_state_dict_from_jax,
 )
+from torch_threads import torch_one_thread  # noqa: F401
 
 SMALL = dict(vocab_size=1000, hidden_size=128, num_layers=2, num_heads=2,
              intermediate_size=256, max_position_embeddings=64,

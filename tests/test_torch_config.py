@@ -34,6 +34,7 @@ from deeplearningexamples_tpu_torch.core.optimizers import (
     no_decay_mask,
     rmsprop,
 )
+from torch_threads import torch_one_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parent.parent
 CONFIGS = str(ROOT / "configs.yml")

@@ -92,6 +92,7 @@ from deeplearningexamples_tpu_torch.utils.jax_bridge import (
     efficientnet_state_dict_from_jax,
     resnet_state_dict_from_jax,
 )
+from torch_threads import torch_one_thread  # noqa: F401
 
 B, R, C = 4, 32, 10
 RTOL = 1e-5  # logits and loss, relative to the largest entry

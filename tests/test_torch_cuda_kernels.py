@@ -59,6 +59,12 @@ CASES = [
     dict(layout="bshd", d=64, s=64, h=16),
     dict(layout="bshd", d=64, s=192, h=16),
     dict(layout="bshd", d=64, s=448, h=16),
+    # the speech models: FastPitch's one head of 64 over 900 mel frames with
+    # attention dropout, its 32-symbol encoder, and wav2vec2's unmasked
+    # 12 heads over one second's 49 frames
+    dict(layout="bshd", d=64, s=900, h=1, rate=0.1, seed=-7),
+    dict(layout="bshd", d=64, s=32, h=1, rate=0.1, seed=3),
+    dict(layout="bhsd", d=64, s=49, h=12, masked=False),
 ]
 
 
@@ -163,6 +169,9 @@ BWD_CASES = [
     dict(layout="bshd", d=1, s=96, sk=130),
     dict(layout="bshd", d=64, s=64, h=16),
     dict(layout="bshd", d=64, s=448, h=16),
+    dict(layout="bshd", d=64, s=900, h=1, rate=0.1, seed=-7),
+    dict(layout="bshd", d=64, s=32, h=1, rate=0.1, seed=3),
+    dict(layout="bhsd", d=64, s=49, h=12, masked=False),
 ]
 
 

@@ -47,6 +47,7 @@ from deeplearningexamples_tpu_torch.models.dlrm import (
 )
 from deeplearningexamples_tpu_torch.ops import embedding as emb
 from deeplearningexamples_tpu_torch.utils.jax_bridge import dlrm_state_dict_from_jax
+from torch_threads import torch_one_thread  # noqa: F401
 
 CARDS = (100, 50, 200, 30)
 SMALL = dict(categorical_cardinalities=CARDS, embedding_dim=32,

@@ -24,6 +24,7 @@ from deeplearningexamples_tpu_torch.ops.dot_interaction import (
     dot_interaction_reference,
     interaction_output_dim,
 )
+from torch_threads import torch_one_thread  # noqa: F401
 
 V, D = 50, 8
 # indices in range, in [-V, 0) (wrap), below -V and at or past V (NaN rows)

@@ -16,6 +16,7 @@ from deeplearningexamples_tpu.ops.flash_attention import (
     flash_attention as jax_flash_attention,
 )
 from deeplearningexamples_tpu_torch.ops import flash_attention as fa
+from torch_threads import torch_one_thread  # noqa: F401
 
 # fp32 tolerances as tests/test_flash_attention.py:25; lse is one log away
 # from the row sums, so it is held tighter

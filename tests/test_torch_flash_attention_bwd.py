@@ -17,6 +17,7 @@ from deeplearningexamples_tpu.ops.flash_attention import (
     flash_attention as jax_flash_attention,
 )
 from deeplearningexamples_tpu_torch.ops import flash_attention as fa
+from torch_threads import torch_one_thread  # noqa: F401
 
 B, H, S, D = 2, 2, 64, 64
 # fp32 on both sides, as tests/test_flash_attention.py:51-54 compares grads:

@@ -35,6 +35,7 @@ from deeplearningexamples_tpu_torch.utils.jax_bridge import (
     bert_pretrain_state_dict_from_jax,
 )
 from test_torch_bert_pretrain import P, S, SMALL, _batch, _port_model, _torch_batch
+from torch_threads import torch_one_thread  # noqa: F401
 
 # tests/test_fused_lamb.py's tolerance: the same fp32 arithmetic, the norms
 # summed in another order

@@ -16,6 +16,7 @@ import torch
 
 from deeplearningexamples_tpu_torch.ops import embedding as emb
 from deeplearningexamples_tpu_torch.tools import dlrm_hotrow
+from torch_threads import torch_one_thread  # noqa: F401
 
 
 def _table(v, d, seed=0):

@@ -37,7 +37,9 @@ for name in ("core.train", "core.flat", "core.loop", "core.checkpoint",
              "models.translation.beam_search", "models.translation.gnmt",
              "models.bart", "data.summarization", "tools.profile_seq2seq",
              "data.bert_pretrain", "data.bert_prep", "data.criteo",
-             "core.yaml_subset", "models.bert.distillation"):
+             "core.yaml_subset", "models.bert.distillation",
+             "models.tts.fastpitch", "models.tts.hifigan", "models.asr",
+             "models.wav2vec2", "serving.recipes"):
     assert f"deeplearningexamples_tpu_torch.{name}" in names, name
 import chip_smoke
 print(len(names))
@@ -58,8 +60,10 @@ def test_port_imports_with_jax_blocked():
     # the synthetic and LJSpeech loaders, the profiling tool), and the
     # encoder-decoder family (the Transformer NMT, beam search, BART, GNMT,
     # the summarization data path, the profiling tool), and BERT's corpus
-    # loaders and distillation, the Criteo binary reader and the YAML reader
-    assert int(res.stdout.strip()) >= 88
+    # loaders and distillation, the Criteo binary reader and the YAML reader,
+    # and the speech families (FastPitch, HiFi-GAN, Jasper and QuartzNet,
+    # wav2vec2, the serving recipes)
+    assert int(res.stdout.strip()) >= 93
 
 
 def test_chip_smoke_fails_without_a_card():

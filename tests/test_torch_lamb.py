@@ -36,6 +36,7 @@ from deeplearningexamples_tpu_torch.core.train import (
 from deeplearningexamples_tpu_torch.models.bert import BertConfig, BertForPreTraining
 from deeplearningexamples_tpu_torch.ops.lamb import lamb
 from deeplearningexamples_tpu_torch.utils.jax_bridge import bert_pretrain_jax_order
+from torch_threads import torch_one_thread  # noqa: F401
 
 # fp32 moments: the same fp32 arithmetic, but the norms sum in another order
 # and torch may fuse a multiply-add that XLA rounds twice

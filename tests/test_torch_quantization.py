@@ -18,6 +18,7 @@ import torch
 
 from deeplearningexamples_tpu.ops import quantization as jq
 from deeplearningexamples_tpu_torch.ops import quantization as tq
+from torch_threads import torch_one_thread  # noqa: F401
 
 
 def _weights():

@@ -35,6 +35,7 @@ from deeplearningexamples_tpu_torch.serving import (
 from deeplearningexamples_tpu_torch.utils.jax_bridge import (
     bert_qa_state_dict_from_jax,
 )
+from torch_threads import torch_one_thread  # noqa: F401
 
 SMALL = dict(vocab_size=1024, hidden_size=128, num_layers=2, num_heads=2,
              intermediate_size=256, max_position_embeddings=64)

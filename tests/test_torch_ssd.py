@@ -97,6 +97,7 @@ from deeplearningexamples_tpu_torch.ops import (
 from deeplearningexamples_tpu_torch.utils.jax_bridge import (
     ssd300_state_dict_from_jax,
 )
+from torch_threads import torch_one_thread  # noqa: F401
 
 B, C, R = 2, 5, 300
 FTOL = {False: 1e-5, True: 1e-4}  # eval and training forward, of the largest

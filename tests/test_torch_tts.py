@@ -106,6 +106,7 @@ from deeplearningexamples_tpu_torch.utils.jax_bridge import (
     tacotron2_state_dict_from_jax,
     waveglow_state_dict_from_jax,
 )
+from torch_threads import torch_one_thread  # noqa: F401
 
 # tests/test_tts.py's widths, the dropouts at 0 on the JAX side
 T2_KW = dict(
