@@ -58,7 +58,7 @@ and it imports nothing of JAX. Phases, one line each:
     synthetic steps each, with their dev and validation accuracy
 19. ConvNets parity: one fp32 training step of full-width ResNet-50 at B=8
     (224x224) on the card, TF32 off, against the same step on the CPU in
-    float64 (and the CPU's fp32 step beside it), under bench.py's SGD
+    float64, under bench.py's SGD
     recipe (gradients, BN running statistics, updates), and the same step
     with BN on its running statistics, each gradient against its own
     largest entry and the largest of all; the same step in bf16 (the
@@ -69,7 +69,7 @@ and it imports nothing of JAX. Phases, one line each:
 20. ConvNets: ``resnet50`` through the CLI's runner at B=256 bf16 with
     bench.py's recipe, 20 steps and the 10-batch eval, then 5 steps with
     ``--mixup 0.2``; ``resnext101-32x4d`` and ``se-resnext101-32x4d`` at
-    B=64, ``efficientnet-b0`` at B=256 and ``efficientnet-b4`` at B=32 with
+    B=64, ``efficientnet-b0`` at B=64 and ``efficientnet-b4`` at B=8 with
     ``--ema 0.9999``, 5 steps each; each of the five also 5 steps with
     ``--quant-policy qat``; then
     ResNet-50's bf16 eval forward at B=256 and B=1 on CUDA events and on
@@ -86,8 +86,8 @@ and it imports nothing of JAX. Phases, one line each:
 22. Tacotron2 + WaveGlow: one fp32 Tacotron2 step (full width, B=4, text
     64, mel 96) and one fp32 WaveGlow step (full width, B=2, segment 8000,
     every WN ``end`` randomised) on the card, TF32 off, every dropout at 0,
-    under clip + Adam, against the same steps on the CPU in float64 (the
-    CPU's fp32 steps beside them), the bf16 steps the controls; WaveGlow's
+    under clip + Adam, against the same steps on the CPU in float64, the
+    bf16 steps the controls; WaveGlow's
     ``infer`` at sigma 0 card against CPU float64; ``tacotron2`` (B=128,
     text 128, mel 600) and ``waveglow`` (B=10, segment 8000) through the
     CLI's runner, bf16 at bench.py's rates, with frames/s and samples/s;
@@ -96,8 +96,8 @@ and it imports nothing of JAX. Phases, one line each:
 23. encoder-decoder: one fp32 step of Transformer-base (B=4, source 64
     left-padded, target 64), bart-large (B=2, source 64, target 32) and
     GNMT (B=2, 48) on the card, TF32 off, dropout 0, under the CLI's
-    optimizers, against the same steps on the CPU in float64 (the CPU's
-    fp32 steps beside them), the bf16 steps the controls; K1 and K2 against
+    optimizers, against the same steps on the CPU in float64, the bf16
+    steps the controls; K1 and K2 against
     their plain versions at the slice's shapes (the encoder's masked
     self-attention, the decoder's causal one, cross-attention with Sq != Sk,
     cross-attention at Sq = 1 with Sk 64 and 1024, BART's causal and masked
@@ -118,8 +118,7 @@ and it imports nothing of JAX. Phases, one line each:
     through the CLI's runner on a corpus the script writes: ``--config-file
     configs.yml --precision bf16`` for 20 steps, ``--phase2 --binned
     --remat`` at B=16, ``--attention-impl xla`` (K1/K2 launch 0 times), the
-    host time to make a batch and the step and idle share of the corpus
-    against the synthetic loader in turns; a distillation step of the
+    host time to make a batch; a distillation step of the
     4l-312 and 6l-768 students under a BERT-Large teacher at B=32 S=128,
     timed, and at B=2 in fp32 against the CPU in float64; ``dlrm
     --data-backend binary`` at B=65,536 on 4M records the script writes (26
@@ -130,12 +129,27 @@ and it imports nothing of JAX. Phases, one line each:
     wav2vec2's (B=32, 12 heads, S=49, unmasked), bf16 and fp32, with times;
     one fp32 step of FastPitch, HiFi-GAN's generator and discriminators,
     wav2vec2 BASE, JASPER_10x5DR and QUARTZNET_15x5 at full width, B=2, on
-    the card against the CPU in float64 (the CPU's fp32 step beside it, the
-    bf16 step the control); ``fastpitch``, ``hifigan``, ``wav2vec2`` and
+    the card against the CPU in float64 (the bf16 step the control);
+    ``fastpitch``, ``hifigan``, ``wav2vec2`` and
     ``jasper`` through the CLI's runners, bf16, B=32, 10 steps each;
     ``fastpitch_hifigan_endpoint`` and ``jasper_offline_endpoint`` behind
     the HTTP server, 8 concurrent requests each against direct calls; one
     bf16 ``Wav2Vec2CtcTask`` step with its greedy decode
+26. real data: what the host offers the data plane (libjpeg, nvJPEG,
+    cores, g++); the card's data plane (nvJPEG, then the resample kernel)
+    on ``tests/data/jpeg`` against JAX's plane (``expected.npz``) in pixel
+    levels, once as the 14 fixtures and once as a batch of 256 of them,
+    the resample kernel against its plain version at B=256 224, the decode
+    rate on the few-kB fixtures and on the ImageNet-sized ones;
+    ``resnet50 --data-backend imagenet`` (B=256 on the ImageNet-sized
+    fixtures, 8 steps and the val pass, beside the synthetic loader in
+    the same run) and ``ssd300 --data-backend coco`` (B=128, 3 steps and
+    the eval epoch's mAP) on trees of hard links to the fixtures; one fp32
+    full-width GPUNet-0 step against the CPU in float64, and ``gpunet-0``,
+    ``gpunet-1``, ``gpunet-2`` and ``gpunet-1 --quant-policy qat`` through
+    the CLI; one fp32 EfficientDet-D0 step at 512, B=2, against the CPU in
+    float64, ``efficientdet`` on synthetic batches and on a COCO tree with
+    its val box AP, and ``predict`` at B=8 with its peak memory
 
 Each main path (serving: phases 5-6; BERT training: phase 10; DLRM
 training: phase 13; ``int8_matmul``: phase 14; ``fused_lamb``: phase 15;
@@ -143,12 +157,16 @@ training: phase 13; ``int8_matmul``: phase 14; ``fused_lamb``: phase 15;
 phase 20; SSD300's training, resume and inference in phase 21; Tacotron2's
 and WaveGlow's training and the TTS pipeline in phase 22; the beam searches
 and each encoder-decoder run of phase 23; each CLI run of phase 24; each
-speech command, both speech endpoints and the CTC step of phase 25) runs
-with the launch counts set to 0 just before it and read just after; on the
-ConvNets, SSD300, TTS, GNMT, ``--attention-impl xla``, HiFi-GAN and Jasper
-paths every count must stay 0, on the Transformer and BART paths K1 and K2
-must launch and K3-K6 must not, and FastPitch and wav2vec2 launch K1 12 and
-K2 12 + 12 times a step. Then one JSON
+speech command, both speech endpoints and the CTC step of phase 25; each
+CLI run of phase 26) runs with the launch counts set to 0 just before it
+and read just after; on the ConvNets, SSD300, TTS, GNMT, ``--attention-impl
+xla``, HiFi-GAN and Jasper paths every count must stay 0, on the
+Transformer and BART paths K1 and K2 must launch and K3-K6 must not,
+FastPitch and wav2vec2 launch K1 12 and K2 12 + 12 times a step, and on
+phase 26's real-data paths the resample kernel launches once a batch and
+K1-K6 never (the ``kernels`` line lists it beside K1-K6: it is not a TPU
+kernel, but the host plane's fused resample, which the card runs for want
+of libjpeg). Then one JSON
 line with each kernel's launches on those paths, its error against the plain
 version, its time, the plain version's, its bound on this card and the time
 of the PyTorch call that computes the same function (where there is one),
@@ -162,7 +180,7 @@ import copy
 import dataclasses
 import json
 import math
-import queue
+import os
 import shutil
 import statistics
 import subprocess
@@ -171,6 +189,7 @@ import tempfile
 import threading
 import time
 import urllib.request
+import warnings
 from pathlib import Path
 from typing import Any
 from unittest import mock
@@ -284,13 +303,27 @@ from deeplearningexamples_tpu_torch.models.dlrm import (
     DlrmTask,
     make_dlrm_optimizer,
 )
+from deeplearningexamples_tpu_torch.data.det_synthetic import (
+    SyntheticDetectionLoader,
+)
+from deeplearningexamples_tpu_torch.data.imagenet import (
+    ImageNetLoader,
+    sample_rrc_pixels,
+)
+from deeplearningexamples_tpu_torch.data.jpeg_trees import coco_tree, imagenet_tree
+from deeplearningexamples_tpu_torch.models.efficientdet import (
+    EfficientDetConfig,
+    EfficientDetTask,
+)
+from deeplearningexamples_tpu_torch.native import MEAN, STD, DataPlane
 from deeplearningexamples_tpu_torch.ops import _build
+from deeplearningexamples_tpu_torch.ops import resample
 from deeplearningexamples_tpu_torch.ops import embedding as emb
 from deeplearningexamples_tpu_torch.ops import flash_attention as fa
 from deeplearningexamples_tpu_torch.ops import fused_lamb as fused
 from deeplearningexamples_tpu_torch.ops import quantization as quant
 from deeplearningexamples_tpu_torch.ops.lamb import lamb
-from deeplearningexamples_tpu_torch.tools import profile_pretrain, profile_seq2seq
+from deeplearningexamples_tpu_torch.tools import profile_seq2seq
 from deeplearningexamples_tpu_torch.tools.dlrm_hotrow import flat_ids
 from deeplearningexamples_tpu_torch.utils.jax_bridge import bert_pretrain_jax_order
 from deeplearningexamples_tpu_torch.serving import (
@@ -384,6 +417,7 @@ def _reset_counts() -> None:
     flat.launches_moments = flat.launches_apply = 0
     emb.launches = emb.launches_hot = 0
     quant.launches = 0
+    resample.launches = 0
 
 
 def _counts() -> dict[str, int]:
@@ -393,7 +427,8 @@ def _counts() -> dict[str, int]:
             "flat_lamb_apply": flat.launches_apply,
             "gather_rows": emb.launches,
             "quantize_activations": quant.launches,
-            "hot_gather": emb.launches_hot}
+            "hot_gather": emb.launches_hot,
+            "resample_normalize": resample.launches}
 
 
 T_START = time.perf_counter()
@@ -447,9 +482,11 @@ def phase_build() -> None:
     version = subprocess.run([nvcc, "--version"], capture_output=True,
                              text=True, check=True, timeout=60).stdout
     t0 = time.perf_counter()
-    lib = _build.build()
-    _build.load()
-    say("2 build", f"{lib.name} ready in {time.perf_counter() - t0:.2f} s "
+    libs = _build.build()  # the kernels' and the data plane's, together
+    for name in _build.LIBRARIES:
+        _build.load(name)
+    say("2 build", f"{', '.join(lib.name for lib in libs)} ready in "
+        f"{time.perf_counter() - t0:.2f} s "
         f"({nvcc}: {version.strip().splitlines()[-1]})")
 
 
@@ -2234,7 +2271,9 @@ TOL_CONV = {"loss": 1e-5, "stats": 1e-4,
             # (of each tensor's largest entry, of the largest entry of all)
             "resnet50": (1e-1, 1e-2), "resnet50 eval": (1e-3, 1e-4),
             "efficientnet-b0": (1e-4, 1e-4),
-            "efficientnet-b0 eval": (1e-4, 1e-4)}
+            "efficientnet-b0 eval": (1e-4, 1e-4),
+            # GPUNet-0 (phase 26d): ResNet-50's limits
+            "gpunet-0": (1e-1, 1e-2), "gpunet-0 eval": (1e-3, 1e-4)}
 # QAT forward of ResNet-50, card against CPU. Each QATConv runs on the card
 # on the CPU model's own input to it: the int8 grid of that input and of the
 # kernel entry by entry (a value on a rounding edge may land one step apart:
@@ -2336,15 +2375,15 @@ def _within(worst: tuple[tuple, tuple], limits: tuple[float, float]) -> bool:
     return worst[0][0] <= limits[0] and worst[1][0] <= limits[1]
 
 
-def _convnet_parity(arch: str, b: int, size: int) -> str:
+def _convnet_parity(arch: str, b: int, size: int,
+                    phase: str = "19 ConvNets parity") -> str:
     init = _convnet(arch, torch.float32, exact=True)
     batch = _convnet_batch(b, size)
     l_gpu, g_gpu, d_gpu, s_gpu = _convnet_step(copy.deepcopy(init).to(DEV),
                                                batch, DEV)
     l64, g64, d64, s64 = _convnet_step(_float64(copy.deepcopy(init)), batch,
                                        "cpu")
-    l32, g32, _, _ = _convnet_step(copy.deepcopy(init), batch, "cpu")
-    g_rel, d_rel, g_cpu = _worst(g_gpu, g64), _worst(d_gpu, d64), _worst(g32, g64)
+    g_rel, d_rel = _worst(g_gpu, g64), _worst(d_gpu, d64)
     st_rel = max((max_err(s_gpu[n], s64[n]) / max(
         float(s64[n].abs().max()), 1e-30), n) for n in s64)
     rel_loss = abs(l_gpu - l64) / abs(l64)
@@ -2359,8 +2398,7 @@ def _convnet_parity(arch: str, b: int, size: int) -> str:
     rv = s_gpu[next(n for n in s_gpu if n.endswith("running_var"))]
     line = (f"{arch} b{b}, one step, card fp32 vs CPU float64: loss "
             f"{l_gpu:.7f} vs {l64:.7f} ({rel_loss:.2e}); worst gradients: "
-            f"{_fmt(g_rel)} (limits {lim[0]:.0e}, {lim[1]:.0e}; the CPU's own "
-            f"fp32 step: {_fmt(g_cpu)}, loss {l32:.7f}); with BN on its "
+            f"{_fmt(g_rel)} (limits {lim[0]:.0e}, {lim[1]:.0e}); with BN on its "
             f"running statistics: {_fmt(e_rel)} (limits {lim_eval[0]:.0e}, "
             f"{lim_eval[1]:.0e}); BN statistics worst {st_rel[1]} "
             f"{st_rel[0]:.2e} (the first BN: running mean in "
@@ -2380,7 +2418,7 @@ def _convnet_parity(arch: str, b: int, size: int) -> str:
                  f"cosine vs float64 {cos:.6f}, worst gradients {_fmt(w16)}")
         check(w16[0][0] > lim[0] and w16[1][0] > lim[1],
               f"the bf16 control meets the fp32 limits: {w16}")
-    say("19 ConvNets parity", line)
+    say(phase, line)
     check(rel_loss <= TOL_CONV["loss"], f"{arch} fp32 loss: card {l_gpu} vs "
           f"CPU float64 {l64}")
     check(_within(g_rel, lim), f"{arch} fp32 gradients: {g_rel}")
@@ -2488,10 +2526,11 @@ A100 = {"train": 2470.0, "infer_bs256": 1261.0, "infer_bs1_ms": 10.37}
 
 
 def _convnet_run(arch: str, b: int, steps: int, extra: list[str],
-                 work: Path) -> tuple[str, float]:
+                 work: Path, loss0_tol: float = 0.5) -> tuple[str, float]:
     """One CLI run with the launch counts set to 0 just before it: every
-    loss finite, the first near ln 1000, eval's top1/top5/val_loss; K1-K6
-    launched 0 times. Returns its line and its median step (ms)."""
+    loss finite, the first within ``loss0_tol`` of ln 1000, eval's
+    top1/top5/val_loss; K1-K6 launched 0 times. Returns its line and its
+    median step (ms)."""
     ws = work / f"{arch}_{len(extra)}"
     shutil.rmtree(ws, ignore_errors=True)
     torch.cuda.reset_peak_memory_stats()
@@ -2510,7 +2549,7 @@ def _convnet_run(arch: str, b: int, steps: int, extra: list[str],
     val = [d for d in _raport_data(raport) if "val.top1" in d]
     shutil.rmtree(ws, ignore_errors=True)
     check(len(losses) == steps and all(math.isfinite(x) for x in losses)
-          and abs(losses[0] - math.log(1000)) < 0.5,
+          and abs(losses[0] - math.log(1000)) < loss0_tol,
           f"{arch} {extra}: losses {losses}")
     check(len(val) == 1 and all(math.isfinite(val[0][k]) for k in
                                 ("val.top1", "val.top5", "val.val_loss"))
@@ -2557,6 +2596,7 @@ def phase_convnets() -> dict[str, int]:
         lines.append(line)
         if arch == "resnet50" and not extra:
             rn50 = b / median * 1e3
+            RN50_SYNTHETIC["img/s"] = rn50
     shutil.rmtree(work, ignore_errors=True)
     benchmark = torch.backends.cudnn.benchmark
     torch.backends.cudnn.benchmark = True
@@ -2650,8 +2690,7 @@ def _ssd_step(model, batch, device):
 
 def phase_ssd_parity() -> None:
     """21 a-b: one fp32 SSD300 training step on the card against the CPU in
-    float64 (and the CPU's fp32 step beside it), the bf16 control; the
-    color twist on the card against the CPU; ``predict_fn`` card against
+    float64, the bf16 control; the color twist on the card against the CPU; ``predict_fn`` card against
     the CPU in float64, then ``evaluate_ssd`` on the card over two batches
     with ground truth."""
     t0 = time.perf_counter()
@@ -2670,7 +2709,6 @@ def phase_ssd_parity() -> None:
         batch["image"] = twisted.numpy()  # the same images on both devices
         l_gpu, g_gpu, s_gpu = _ssd_step(copy.deepcopy(init).to(DEV), batch, DEV)
         l64, g64, s64 = _ssd_step(_float64(copy.deepcopy(init)), batch, "cpu")
-        l32, g32, _ = _ssd_step(copy.deepcopy(init), batch, "cpu")
         gpu16 = SSD300(81, torch.bfloat16)
         gpu16.load_state_dict(init.state_dict())
         l16, g16, _ = _ssd_step(gpu16.train().to(DEV), batch, DEV)
@@ -2678,7 +2716,7 @@ def phase_ssd_parity() -> None:
         torch.backends.cudnn.benchmark, torch.backends.cudnn.deterministic = \
             flags
     lim = TOL_CONV["resnet50"]
-    g_rel, g_cpu, w16 = _worst(g_gpu, g64), _worst(g32, g64), _worst(g16, g64)
+    g_rel, w16 = _worst(g_gpu, g64), _worst(g16, g64)
     st_rel = max((max_err(s_gpu[n], s64[n]) / max(
         float(s64[n].abs().max()), 1e-30), n) for n in s64)
     rel_loss = abs(l_gpu - l64) / abs(l64)
@@ -2686,8 +2724,7 @@ def phase_ssd_parity() -> None:
         f"anchors, images twisted at fixed parameters: card vs CPU "
         f"{twist_err:.2e}), one fp32 step, card vs CPU float64: loss "
         f"{l_gpu:.7f} vs {l64:.7f} ({rel_loss:.2e}); worst gradients: "
-        f"{_fmt(g_rel)} (limits {lim[0]:.0e}, {lim[1]:.0e}; the CPU's own fp32 "
-        f"step: {_fmt(g_cpu)}, loss {l32:.7f}); BN statistics worst "
+        f"{_fmt(g_rel)} (limits {lim[0]:.0e}, {lim[1]:.0e}); BN statistics worst "
         f"{st_rel[1]} {st_rel[0]:.2e}; bf16 card step (the control): loss "
         f"{l16:.6f}, worst gradients {_fmt(w16)}")
     check(twist_err <= 1e-6, f"color twist, card vs CPU: {twist_err}")
@@ -2946,16 +2983,15 @@ def _update64(step: dict, other_branch: bool = False) -> tuple[dict, dict]:
 
 
 def _tts_parity(name: str, batch: dict) -> tuple[str, dict]:
-    """22 a-b: one fp32 step card vs CPU float64 (the CPU's fp32 step
-    beside it), the bf16 card step the control."""
+    """22 a-b: one fp32 step card vs CPU float64, the bf16 card step the
+    control."""
     init = _tts_init(name)
     gpu = _tts_step(copy.deepcopy(init), batch, DEV)
     f64 = _tts_step(_float64(copy.deepcopy(init)), batch, "cpu")
-    f32 = _tts_step(copy.deepcopy(init), batch, "cpu")
     b16 = _tts_step(_tts_copy(init, torch.bfloat16), batch, DEV)
     lim = TOL_TTS[name]
     g64 = f64["grads"]
-    g_rel, g_cpu, w16 = (_worst(s["grads"], g64) for s in (gpu, f32, b16))
+    g_rel, w16 = (_worst(s["grads"], g64) for s in (gpu, b16))
     s_gpu, s64 = gpu["stats"], f64["stats"]
     st_rel = max(((max_err(s_gpu[n], s64[n]) / max(
         float(s64[n].abs().max()), 1e-30), n) for n in s64),
@@ -2972,8 +3008,7 @@ def _tts_parity(name: str, batch: dict) -> tuple[str, dict]:
     other = _worst(gpu["mu"], _update64(gpu, other_branch=True)[1])
     line = (f"{name}: one fp32 step, card vs CPU float64: loss {l_gpu:.7f} vs "
             f"{l64:.7f} ({rel_loss:.2e}); worst gradients: {_fmt(g_rel)} "
-            f"(limits {lim[0]:.0e}, {lim[1]:.0e}; the CPU's own fp32 step: "
-            f"{_fmt(g_cpu)}, loss {f32['loss']:.7f}); BN statistics worst "
+            f"(limits {lim[0]:.0e}, {lim[1]:.0e}); BN statistics worst "
             f"{st_rel[1]} {st_rel[0]:.2e}; bf16 card step (the control): loss "
             f"{b16['loss']:.6f}, worst gradients {_fmt(w16)}; global gradient "
             f"norm (the clip scales above 1): card fp32 {gpu['norm']:.6g}, "
@@ -3149,7 +3184,7 @@ def phase_tts() -> dict[str, int]:
 
 # 23a: one fp32 training step of each encoder-decoder model on the card (TF32
 # off, every dropout at 0) under the CLI's optimizer, against the same step
-# on the CPU in float64 (the CPU's fp32 step beside it): the loss to 1e-5
+# on the CPU in float64: the loss to 1e-5
 # relative; each gradient to TOL_S2S of its own largest entry (or FLOOR
 # times the largest of all, where that is more: BART's key biases, whose
 # gradient the softmax cancels, are 0 but for rounding) and of the largest
@@ -3356,12 +3391,11 @@ def _s2s_parity(kind: str) -> None:
     gpu = _s2s_step(kind, copy.deepcopy(init), batch, DEV)
     f64 = _s2s_step(kind, _float64(copy.deepcopy(init)), batch, "cpu",
                     update=False)
-    f32 = _s2s_step(kind, copy.deepcopy(init), batch, "cpu", update=False)
     b16 = _s2s_step(kind, _s2s_copy(init, torch.bfloat16), batch, DEV)
     del init
     lim = TOL_S2S[kind]
     g64 = f64["grads"]
-    g_rel, g_cpu, w16 = (_worst(s["grads"], g64) for s in (gpu, f32, b16))
+    g_rel, w16 = (_worst(s["grads"], g64) for s in (gpu, b16))
     rel_loss = abs(gpu["loss"] - f64["loss"]) / abs(f64["loss"])
     upd = {}
     for what, s in (("fp32", gpu), ("bf16", b16)):
@@ -3372,8 +3406,7 @@ def _s2s_parity(kind: str) -> None:
     line = (f"{kind} B={b} source {s_len} target {t_len}: one fp32 step, card "
             f"vs CPU float64: loss {gpu['loss']:.7f} vs {f64['loss']:.7f} "
             f"({rel_loss:.2e}); worst gradients: {_fmt(g_rel)} (limits "
-            f"{lim[0]:.0e}, {lim[1]:.0e}; the CPU's own fp32 step: "
-            f"{_fmt(g_cpu)}, loss {f32['loss']:.7f}); bf16 card step (the "
+            f"{lim[0]:.0e}, {lim[1]:.0e}); bf16 card step (the "
             f"control): loss {b16['loss']:.6f}, worst gradients {_fmt(w16)}; "
             f"the card's update vs float64 on its own gradients (limits "
             f"{TOL_S2S_UPDATE[0]:.0e}, {TOL_S2S_UPDATE[1]:.0e}): "
@@ -3816,7 +3849,6 @@ TIMED_BUCKETS = (64, 192, 320, 512)
 P2_B = 16
 CORPUS_DOCS = 240  # documents of the corpus phase 24 writes
 CORPUS_STEPS = 10  # --config-file run (20 before PR 12)
-IDLE_STEPS, IDLE_TRACED, IDLE_TURNS = 6, 2, 1  # 2 turns before PR 12
 TOL_REMAT = 1e-6  # remat vs not, fp32 on the card: of the largest entry
 # the distillation step card fp32 vs CPU float64 (dropout off): the loss,
 # and each gradient against the largest gradient entry of all
@@ -3978,7 +4010,7 @@ def _cli_run(args: list[str], ws: Path) -> dict:
     torch.cuda.reset_peak_memory_stats()
     _reset_counts()  # this path starts here
     t0 = time.perf_counter()
-    state, best = cli([*args, "--workspace", str(ws)])
+    state, best, *_ = cli([*args, "--workspace", str(ws)])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launched = _counts()
@@ -3990,70 +4022,14 @@ def _cli_run(args: list[str], ws: Path) -> dict:
            "losses": [d["train.loss"] for d in train],
            "step_ms": [d["train.compute_time"] * 1e3 for d in train],
            "data_ms": [d.get("train.data_time", 0.0) * 1e3 for d in train],
+           # every step's wait for its batch, in step order (an entry of the
+           # raport pairs a step's loss with the next step's wait)
+           "waits_ms": [d["train.data_time"] * 1e3 for d in data
+                        if "train.data_time" in d],
            "val": [d for d in data if any(k.startswith("val.") for k in d)],
            "params": next(d for d in data if "batch_size" in d and "lr" in d)}
     shutil.rmtree(ws, ignore_errors=True)
     return out
-
-
-def _on_a_worker_thread(it, depth: int = 3):
-    """``it``'s items made on a worker thread, ``depth`` ahead (the JAX
-    package's ``data/prefetch.py`` ``background``): phase 24c times the
-    corpus loader behind it, to decide whether the port needs it."""
-    q: queue.Queue = queue.Queue(maxsize=depth)
-    end = object()
-
-    def produce():
-        try:
-            for item in it:
-                q.put(item)
-            q.put(end)
-        except BaseException as e:  # raised in the consumer
-            q.put(e)
-
-    threading.Thread(target=produce, daemon=True).start()
-    while (item := q.get()) is not end:
-        if isinstance(item, BaseException):
-            raise item
-        yield item
-
-
-def _loop(state, train_step, batches, steps: int):
-    """``steps`` steps in the training loop's overlap: the next batch is made
-    and queued while the card runs the step before, and each step's loss is
-    read one step late. Returns the state after them."""
-    prev = None
-    for _ in range(steps):
-        state, m = train_step(state, next(batches))
-        if prev is not None:
-            float(prev["loss"])
-        prev = m
-    float(prev["loss"])
-    torch.cuda.synchronize()
-    return state
-
-
-def _loop_ms(state, train_step, batches, steps: int):
-    """(state, ms a step of ``_loop`` on the host clock, after 2 warm-up
-    steps)."""
-    state = _loop(state, train_step, batches, 2)
-    t0 = time.perf_counter()
-    state = _loop(state, train_step, batches, steps)
-    return state, (time.perf_counter() - t0) * 1e3 / steps
-
-
-def _loop_busy_ms(state, train_step, batches, traced: int):
-    """(state, the card's busy ms a step of ``_loop`` under torch.profiler:
-    the union of its kernels' intervals)."""
-    state = _loop(state, train_step, batches, 2)
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        state = _loop(state, train_step, batches, traced)
-    busy = profile_pretrain._union_us(
-        [(e.time_range.start, e.time_range.end)
-         for e in profile_pretrain.device_kernels(prof.events())])
-    return state, busy / traced / 1e3
 
 
 def phase_bert_corpus() -> dict[str, int]:
@@ -4061,9 +4037,8 @@ def phase_bert_corpus() -> dict[str, int]:
     CLI's runner at full width (BERT-Large, bf16): ``--config-file
     configs.yml --precision bf16`` (B=64 S=128 lr 0.006 from the file), 20
     steps; ``--phase2 --binned --remat`` at B=16; ``--attention-impl xla``;
-    the host time to make a batch; the step and idle share of the corpus
-    against the synthetic backend. Returns the kernels' launches on the CLI
-    runs."""
+    the host time to make a batch. Returns the kernels' launches on the
+    CLI runs."""
     t0 = time.perf_counter()
     work = ROOT / "workspace" / "chip_smoke" / "corpus"
     shutil.rmtree(work, ignore_errors=True)
@@ -4177,41 +4152,6 @@ def phase_bert_corpus() -> dict[str, int]:
     lines.append("host time to make a batch: " + ", ".join(
         f"{k} {v:.2f} ms" for k, v in host.items()))
 
-    # the step and idle share, corpus (made on the main thread, and on a
-    # worker thread) against synthetic, B=64 S=128, tree LAMB: every host-clock
-    # reading in turns first, then the card's busy time under the profiler
-    # (a profiled loop slows the loops after it)
-    n = 2 + IDLE_STEPS
-    cfg = cli_main.BertCliConfig(data_backend="corpus", data_dir=shards,
-                                 batch_size=TB, seq_len=TS, lr=0.006,
-                                 mode="benchmark-training", steps_per_epoch=n)
-    run = cli_main.build_bert_pretrain(cfg)
-    synth = SyntheticBertLoader(TB, TS, BERT_CONFIGS["large"].vocab_size, 20,
-                                steps=n)
-    sources = {
-        "synthetic": lambda: iter(cli_main.to_device(synth, DEV)),
-        "corpus": lambda: iter(cli_main.to_device(run.loader, DEV)),
-        "corpus on a worker thread": lambda: iter(cli_main.to_device(
-            _on_a_worker_thread(run.loader), DEV)),
-    }
-    state = run.state
-    step_ms = {k: [] for k in sources}
-    for _ in range(IDLE_TURNS):
-        for name, make in sources.items():
-            state, ms = _loop_ms(state, run.train_step, make(), IDLE_STEPS)
-            step_ms[name].append(ms)
-    busy = {}
-    for name in ("synthetic", "corpus"):  # the same kernels either way
-        state, busy[name] = _loop_busy_ms(state, run.train_step,
-                                          sources[name](), IDLE_TRACED)
-    busy["corpus on a worker thread"] = busy["corpus"]
-    del run, state
-    lines.append(f"B=64 S=128 tree LAMB in the loop's overlap, {IDLE_TURNS} "
-                 "reading(s) each in turns: " + ", ".join(
-                     f"{k} {' '.join(f'{x:.1f}' for x in v)} ms a step, device "
-                     f"busy {busy[k]:.1f} ms, idle "
-                     + " ".join(f"{100 * (1 - busy[k] / x):.1f}%" for x in v)
-                     for k, v in step_ms.items()))
     shutil.rmtree(work, ignore_errors=True)
     say("24c corpus", f"bert-pretrain BERT-Large bf16 on a written corpus "
         "through the CLI: " + "; ".join(lines)
@@ -4529,20 +4469,18 @@ def _speech_parity(kind: str) -> None:
     gpu = _speech_grads(kind, copy.deepcopy(init), batch, DEV, draws)
     f64 = _speech_grads(kind, _float64(copy.deepcopy(init)), batch, "cpu",
                         draws)
-    f32 = _speech_grads(kind, copy.deepcopy(init), batch, "cpu", draws)
     b16 = _speech_grads(kind, _s2s_copy(init, torch.bfloat16), batch, DEV,
                         draws)
     del init
     loss_lim, *lim = TOL_SPEECH[kind]
     g64 = f64["grads"]
-    g_rel, g_cpu, w16 = (_worst(x["grads"], g64) for x in (gpu, f32, b16))
+    g_rel, w16 = (_worst(x["grads"], g64) for x in (gpu, b16))
     rel_loss = abs(gpu["loss"] - f64["loss"]) / abs(f64["loss"])
     say("25 speech", f"parity: {kind} B={SPEECH_B}: one fp32 step, card vs "
         f"CPU float64: loss {gpu['loss']:.7f} vs {f64['loss']:.7f} "
         f"({rel_loss:.2e}, limit {loss_lim:.0e}); worst gradients: "
-        f"{_fmt(g_rel)} (limits {lim[0]:.0e}, {lim[1]:.0e}; the CPU's own "
-        f"fp32 step: {_fmt(g_cpu)},"
-        f" loss {f32['loss']:.7f}); bf16 card step (the control): loss "
+        f"{_fmt(g_rel)} (limits {lim[0]:.0e}, {lim[1]:.0e}); bf16 card step "
+        f"(the control): loss "
         f"{b16['loss']:.6f}, worst gradients {_fmt(w16)} "
         f"({time.perf_counter() - t0:.1f} s)")
     check(rel_loss <= loss_lim, f"{kind} fp32 loss: card "
@@ -4828,6 +4766,455 @@ def phase_speech_all() -> tuple[float, float, dict[str, int]]:
     return fwd, bwd, launched
 
 
+# -- phase 26 ----------------------------------------------------------------
+
+FIXTURES = ROOT / "tests" / "data" / "jpeg"
+# The card's decode (nvJPEG, then the resample kernel) against JAX's plane
+# (libjpeg, JDCT_IFAST, DCT-domain downscale; expected.npz), in pixel levels
+# (0-255) of the normalized outputs times std: (most, mean). Set before the
+# first run on the card from what two decoders can differ by on smooth
+# images: libjpeg's ISLOW with fancy upsampling against IFAST, with the block
+# mean in place of the 1/d decode, reads 3.14 and 1.02 on the CPU
+# (tests/test_torch_dataplane.py); nvJPEG's IDCT and chroma upsampling are
+# neither.
+TOL_DECODE = (8.0, 1.5)
+RD_B, RD_STEPS = 256, 3  # the data plane's batch (26a); SSD300's steps (26c)
+# 26b: ResNet-50 on the ImageNet-sized fixtures (500 x 375 and 375 x 500,
+# about 11 kB each), RD_RN50_STEPS steps timed from the third, beside the
+# synthetic loader in the same phase
+RD_RN50_STEPS = 8
+IMAGENET_SIZED = ("landscape_500x375", "portrait_375x500")
+RD_SSD_B = 128  # SSD300 on COCO-format data (26c)
+GPUNET_B, GPUNET_STEPS = 32, 3  # 26d through the CLI, bf16
+GPUNET_PARITY_B, GPUNET_PARITY_SIZE = 2, 320
+DET_SIZE, DET_PARITY_B, DET_B, DET_STEPS, DET_PREDICT_B = 512, 2, 16, 3, 8
+DET_LR = "0.01"
+# EfficientDet-D0's fp32 step on the card against float64 on the CPU: phase
+# 19's limits for a training-mode step (of each tensor's own largest entry,
+# of the largest of all), the loss to 1e-5
+TOL_DET = {"loss": 1e-5, "step": (1e-1, 1e-2), "stats": 1e-4}
+RN50_SYNTHETIC = {}  # phase 20's ResNet-50 img/s, where it ran before
+
+
+def _probe() -> str:
+    """What the host offers the data plane: libjpeg's header and library,
+    nvJPEG's, the cores, g++."""
+    def has(path):
+        return "yes" if Path(path).exists() else "no"
+
+    libs = subprocess.run(["ldconfig", "-p"], capture_output=True, text=True,
+                          timeout=60).stdout
+    found = sorted({line.split()[0] for line in libs.splitlines()
+                    if "libjpeg" in line or "libnvjpeg" in line})
+    gxx = shutil.which("g++")
+    ver = (subprocess.run([gxx, "--version"], capture_output=True, text=True,
+                          timeout=60).stdout.splitlines()[0] if gxx else "none")
+    return (f"/usr/include/jpeglib.h {has('/usr/include/jpeglib.h')}, "
+            f"nvjpeg.h {has(Path(_build.nvcc()).parent.parent / 'include' / 'nvjpeg.h')}"
+            f", libraries {', '.join(found) or 'none'}; nproc "
+            f"{os.cpu_count()}; g++ {ver}")
+
+
+def _fixtures() -> tuple[list[bytes], dict]:
+    e = np.load(FIXTURES / "expected.npz")
+    blobs = [(FIXTURES / f"{n}.jpg").read_bytes() for n in e["names"]]
+    return blobs, e
+
+
+def phase_dataplane() -> dict:
+    """26a: the card's data plane on the fixtures against JAX's
+    (expected.npz), the resample kernel against its plain version at the
+    main path's shapes (B=256 at 224), and the decode rate."""
+    t0 = time.perf_counter()
+    say("26a data plane", f"probe: {_probe()}; the card's plane: nvJPEG "
+        "(csrc/nvjpeg_decode.cu) and the resample kernel "
+        "(csrc/resample_normalize.cu)")
+    plane = DataPlane(os.cpu_count(), "cuda")
+    blobs, e = _fixtures()
+    with warnings.catch_warnings(record=True) as warned:
+        warnings.simplefilter("always")
+        got = plane.decode_batch(blobs, e["crops"], e["flips"],
+                                 int(e["out_size"])).cpu().numpy()
+    levels = np.abs(got - e["images"]) * np.float32(STD) * 255
+    per = {n: (float(lv.max()), float(lv.mean()))
+           for n, lv in zip(e["names"], levels)}
+    zero = [n for n, g in zip(e["names"], got) if not g.any()]
+    check(zero == [n for n, f in zip(e["names"], e["failed"]) if f]
+          and any("failed to decode" in str(w.message) for w in warned),
+          f"zero-filled {zero}, expected {e['failed']}")
+    most, mean = float(levels.max()), float(levels.mean())
+    # the fixtures again as a batch of RD_B, the main path's batch (each
+    # decoder state decodes about RD_B / nproc images in turn), each image
+    # held to its expected.npz entry and to its decode in the call above
+    idx = np.arange(RD_B) % len(blobs)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # the cut file, as above
+        big = plane.decode_batch([blobs[i] for i in idx], e["crops"][idx],
+                                 e["flips"][idx],
+                                 int(e["out_size"])).cpu().numpy()
+    big_lv = (np.abs(big - e["images"][idx]) * np.float32(STD) * 255
+              ).reshape(RD_B, -1)
+    big_most, big_mean = big_lv.max(1), big_lv.mean(1)
+    big_vs_small = float(np.abs(big - got[idx]).max())
+    check(bool((big_most <= TOL_DECODE[0]).all()
+               and (big_mean <= TOL_DECODE[1]).all()) and big_vs_small == 0.0,
+          f"a batch of {RD_B} fixtures vs expected.npz: worst {big_most.max()}"
+          f", mean {big_mean.max()}; vs the 14-image call {big_vs_small}")
+    # the main path's batch: 256 fixtures at 224, RRC-like crops, flips
+    jpegs = [b for b, f in zip(blobs, e["failed"]) if not f]
+    rng = np.random.default_rng(SEED)
+    batch = [jpegs[i % len(jpegs)] for i in range(RD_B)]
+    crops = np.stack([rng.uniform(0, .3, RD_B), rng.uniform(0, .3, RD_B),
+                      rng.uniform(.4, .7, RD_B), rng.uniform(.4, .7, RD_B)],
+                     1).astype(np.float32)
+    flips = rng.integers(0, 2, RD_B).astype(np.int32)
+    src, offsets, dims, n_failed = plane._impl.decode(batch, crops, 224)
+    check(n_failed == 0, f"nvJPEG failed on {n_failed} fixtures")
+    args = (src, offsets, dims, torch.from_numpy(crops).to(DEV),
+            torch.from_numpy(flips).to(DEV), 224, MEAN, STD)
+    before = resample.launches
+    out = resample.resample_normalize(*args)
+    want = resample.resample_normalize_reference(*args)
+    err = max_err(out, want)
+    check(resample.launches == before + 1 and err == 0.0,
+          f"resample_normalize vs its plain version: {err}")
+    ms = _event_ms(lambda: resample.resample_normalize(*args), 50)
+    plain_ms = _event_ms(lambda: resample.resample_normalize_reference(*args),
+                         3)
+    # the bytes the call needs: each image's crop of its decoded pixels
+    # (whole d x d blocks), read once, and the fp32 output written once;
+    # about 12 fp32 operations a channel of an output pixel
+    need = sum(float(c[2] * c[3]) * int(d[0]) * int(d[1]) * int(d[2])
+               for c, d in zip(crops, dims.cpu().numpy()))
+    out_bytes = RD_B * 224 * 224 * 3 * 4
+    bound, by = _bound(need + out_bytes, RD_B * 224 * 224 * 3 * 12,
+                       torch.float32)
+    # the decode rate at 224, the whole call (header parse, nvJPEG, kernel),
+    # on the few-kB fixtures and on the two ImageNet-sized ones
+    sized = [(FIXTURES / f"{n}.jpg").read_bytes() for n in IMAGENET_SIZED]
+    rates = {}
+    for what, jp in (("fixtures", batch),
+                     ("500x375", [sized[i % 2] for i in range(RD_B)])):
+        times = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            plane.decode_batch(jp, crops, flips, 224)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t)
+        rates[what] = RD_B / statistics.median(times[1:])
+    pixels = float((dims[:, 0].double() * dims[:, 1]).mean())
+    kb = sum(len(b) for b in batch) / len(batch) / 1e3
+    say("26a data plane", f"fixtures on the card vs JAX's plane "
+        f"(expected.npz, {len(blobs)} JPEGs at {int(e['out_size'])}): worst "
+        f"{most:.2f} pixel levels, mean {mean:.3f} (limits {TOL_DECODE[0]}, "
+        f"{TOL_DECODE[1]}); per image (most, mean): "
+        + ", ".join(f"{n} {a:.2f}/{b:.3f}" for n, (a, b) in per.items())
+        + f"; zero-filled with a warning: {zero}. The same as one batch of "
+        f"{RD_B}: every image within the limits (worst {big_most.max():.2f}, "
+        f"worst image mean {big_mean.max():.3f}), equal to the 14-image "
+        f"call's (max abs {big_vs_small}). resample_normalize at "
+        f"B={RD_B} 224 vs its plain version on the card: max abs err {err}; "
+        f"{ms:.4f} ms (plain {plain_ms:.3f} ms, bound {bound:.4f} ms by "
+        f"{by}). Decode rate at 224 with {os.cpu_count()} threads, median "
+        f"of 4 batches of {RD_B}: the few-kB fixtures {rates['fixtures']:.1f}"
+        f" img/s ({pixels:.0f} pixels, {kb:.1f} kB an image on average), the "
+        f"500 x 375 and 375 x 500 fixtures {rates['500x375']:.1f} img/s "
+        f"({sum(map(len, sized)) / 2e3:.1f} kB an image; ImageNet's JPEGs "
+        f"are larger files); on {card()}; {time.perf_counter() - t0:.1f} s")
+    check(most <= TOL_DECODE[0] and mean <= TOL_DECODE[1],
+          f"the card's decode vs expected.npz: {most}, {mean}")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound, "bound_by": by, "library_ms": None}
+
+
+def _zero_but_resample(launched: dict, what: str) -> int:
+    """K1-K6 launched 0 times on a real-data path; the resample kernel's
+    launches."""
+    others = {k: v for k, v in launched.items() if k != "resample_normalize"}
+    check(others == dict.fromkeys(others, 0),
+          f"{what}: K1-K6 launched {others}")
+    return launched["resample_normalize"]
+
+
+def phase_imagenet(work: Path) -> int:
+    """26b: ``resnet50 --data-backend imagenet`` at B=256 on an ImageFolder
+    of hard links to the ImageNet-sized fixtures (RD_RN50_STEPS x 256
+    training files, one val batch), and the synthetic loader for as many
+    steps just before it; each step's wall time (the wait for its batch
+    and its compute) from the third on."""
+    jpegs = [FIXTURES / f"{n}.jpg" for n in IMAGENET_SIZED]
+    root = imagenet_tree(jpegs, work / "imagenet", 4,
+                         RD_RN50_STEPS * RD_B // 4, RD_B // 4)
+    runs = {}
+    for name, args in (("synthetic", ["--steps-per-epoch",
+                                      str(RD_RN50_STEPS)]),
+                       ("imagenet", ["--data-backend", "imagenet",
+                                     "--data-dir", str(root)])):
+        runs[name] = _cli_run(["resnet50", *args, "--batch-size", str(RD_B),
+                               *CN_FLAGS], work / f"ws_rn50_{name}")
+    check(runs["synthetic"]["launched"] == dict.fromkeys(
+        runs["synthetic"]["launched"], 0),
+          f"resnet50 synthetic: {runs['synthetic']['launched']}")
+    run = runs["imagenet"]
+    launched = _zero_but_resample(run["launched"], "resnet50 on ImageNet data")
+    val = [v for v in run["val"] if "val.top1" in v]
+    check(run["state"].step == RD_RN50_STEPS
+          and len(run["losses"]) == RD_RN50_STEPS
+          and all(math.isfinite(x) for x in run["losses"]) and len(val) == 1
+          and launched == RD_RN50_STEPS + 1,
+          f"resnet50 imagenet: {run['losses']}, {val}, {launched} resamples")
+    walls = {k: statistics.median([c + d for c, d in zip(
+        r["step_ms"][2:], r["waits_ms"][2:])]) for k, r in runs.items()}
+    # the reader alone: the train split's batches made back to back with no
+    # step between them (the first epoch fills the header cache, the second
+    # is timed)
+    loader = ImageNetLoader(str(root), "train", RD_B, device=DEV)
+    for _ in loader:
+        pass
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    n = sum(1 for _ in loader)
+    torch.cuda.synchronize()
+    alone = (time.perf_counter() - t) * 1e3 / n
+    # its parts, for one batch: the files read as the loader reads them,
+    # then the plane's decode of those bytes at RRC crops and flips
+    t = time.perf_counter()
+    files = []
+    for path, _ in loader.samples[:RD_B]:
+        with open(path, "rb") as f:
+            files.append(f.read())
+    read_ms = (time.perf_counter() - t) * 1e3
+    rng = np.random.default_rng(SEED)
+    crops = np.asarray([sample_rrc_pixels(rng, *loader.plane.jpeg_info(b))
+                        for b in files], np.float32)
+    flips = rng.integers(0, 2, RD_B).astype(np.int32)
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        loader.plane.decode_batch(files, crops, flips, 224)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+    decode_ms = min(times)
+    del loader
+    synth20 = RN50_SYNTHETIC.get("img/s")
+    say("26b ResNet-50 on ImageNet-format data", f"B={RD_B} bf16, bench.py's "
+        f"recipe, {RD_RN50_STEPS} steps on {RD_RN50_STEPS * RD_B} files (500 "
+        f"x 375 and 375 x 500) and the val pass ({RD_B} files): loss "
+        + " ".join(f"{x:.4f}" for x in run["losses"])
+        + f"; val top1 {val[0]['val.top1']:.4f}; "
+        + "; ".join(f"{k}: step {walls[k]:.2f} ms ({RD_B / walls[k] * 1e3:.1f}"
+                    f" img/s; median over steps 3-{RD_RN50_STEPS} of the wait "
+                    f"for the batch and the compute, host clock), waits "
+                    + " ".join(f"{x:.1f}" for x in r["waits_ms"]) + " ms"
+                    for k, r in runs.items())
+        + f"; imagenet / synthetic {walls['synthetic'] / walls['imagenet']:.3f}"
+        + f"; the reader alone {alone:.2f} ms a batch ({RD_B / alone * 1e3:.1f}"
+          " img/s, the mean of an epoch of batches made back to back): "
+          f"reading a batch's files {read_ms:.2f} ms, the plane's decode of "
+          f"their bytes at RRC crops {decode_ms:.2f} ms (least of 3)"
+        + "; phase 20's synthetic rate "
+        + (f"{synth20:.1f} img/s in this run" if synth20 else
+           "not measured in this run")
+        + f"; resample_normalize launched {launched} times, K1-K6 0; peak "
+        f"{run['peak_gb']:.2f} GB; runs {runs['synthetic']['wall']:.1f}, "
+        f"{run['wall']:.1f} s; on {card()}")
+    return launched
+
+
+def phase_coco(work: Path) -> int:
+    """26c: ``ssd300 --data-backend coco`` at B=128 on a COCO tree of the
+    fixtures, 3 steps and one eval epoch with its mAP."""
+    root = coco_tree(sorted(FIXTURES.glob("*.jpg")), work / "coco",
+                     RD_STEPS * RD_SSD_B, RD_SSD_B, seed=SEED)
+    run = _cli_run(["ssd300", "--data-backend", "coco", "--data-dir",
+                    str(root), "--batch-size", str(RD_SSD_B), *SSD_FLAGS],
+                   work / "ws_ssd")
+    launched = _zero_but_resample(run["launched"], "ssd300 on COCO data")
+    val = [v for v in run["val"] if "val.mAP" in v]
+    check(run["state"].step == RD_STEPS and all(math.isfinite(x) for x in
+                                               run["losses"])
+          and len(val) == 1 and 0.0 <= val[0]["val.mAP"] <= 1.0
+          and run["best"] == val[0]["val.mAP"] and launched == RD_STEPS + 1,
+          f"ssd300 coco: {run['losses']}, {val}, {launched} resamples")
+    say("26c SSD300 on COCO-format data", f"B={RD_SSD_B} bf16, "
+        f"{RD_STEPS} steps on {RD_STEPS * RD_SSD_B} images (every 14th the "
+        f"cut fixture, zero-filled) and the eval epoch on {RD_SSD_B}: loss "
+        + " ".join(f"{x:.4f}" for x in run["losses"])
+        + f"; val mAP {val[0]['val.mAP']:.5f} mAP50 "
+        f"{val[0]['val.mAP50']:.5f} (watched, the best {run['best']:.5f}); "
+        f"median step {statistics.median(run['step_ms'][1:]):.2f} ms; "
+        f"resample_normalize launched {launched} times, K1-K6 0; run "
+        f"{run['wall']:.1f} s")
+    return launched
+
+
+def phase_gpunet(work: Path) -> None:
+    """26d: one fp32 full-width GPUNet-0 step on the card against float64
+    on the CPU (phase 19's limits), then the three archs through the CLI in
+    bf16, one of them with QAT."""
+    t0 = time.perf_counter()
+    flags = (torch.backends.cudnn.benchmark, torch.backends.cudnn.deterministic)
+    torch.backends.cudnn.benchmark, torch.backends.cudnn.deterministic = \
+        False, True
+    try:
+        _convnet_parity("gpunet-0", GPUNET_PARITY_B, GPUNET_PARITY_SIZE,
+                        "26d GPUNet")
+    finally:
+        torch.backends.cudnn.benchmark, torch.backends.cudnn.deterministic = \
+            flags
+    lines = []
+    for arch, extra in (("gpunet-0", []), ("gpunet-1", []), ("gpunet-2", []),
+                        ("gpunet-1", QAT)):
+        # GPUNet's head is not zero-initialised and its dropout scales by
+        # 1 / 0.8: the first loss lies further above ln 1000 than ResNet's
+        lines.append(_convnet_run(arch, GPUNET_B, GPUNET_STEPS, extra, work,
+                                  loss0_tol=1.0)[0])
+    say("26d GPUNet", "through the CLI (bf16, bench.py's ResNet-50 recipe, "
+        "the 10-batch eval): " + "; ".join(lines)
+        + f". K1-K6 and resample_normalize launched 0 times; "
+        f"{time.perf_counter() - t0:.1f} s")
+
+
+def _det_batch(b: int, seed: int = SEED) -> dict:
+    return next(iter(SyntheticDetectionLoader(b, DET_SIZE, 90, max_gt=32,
+                                              steps=1, seed=seed)))
+
+
+def _det_step(model, batch: dict, device):
+    """One step under the CLI's update (clip by global norm 10, then SGD
+    with momentum 0.9 at lr 0.01): (loss, grads, deltas, BN buffers), on
+    the CPU."""
+    task = EfficientDetTask(EfficientDetConfig(image_size=DET_SIZE),
+                            model.dtype)
+    params = dict(model.named_parameters())
+    tx = chain(clip_by_global_norm(10.0), sgd(float(DET_LR), 0.9))
+    state = create_train_state(model, tx, SEED, params=params,
+                               model_state=task.model_state(model))
+    before = {n: p.detach().clone() for n, p in params.items()}
+    dtype = next(model.parameters()).dtype
+    t = {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+    t["image"] = t["image"].to(dtype)
+    t["boxes"] = t["boxes"].to(dtype)
+    _, metrics = make_train_step(task.loss_fn, tx)(state, t)
+    return (float(metrics["loss"]),
+            {n: p.grad.detach().cpu() for n, p in params.items()},
+            {n: (p.detach() - before[n]).cpu() for n, p in params.items()},
+            {n: b.detach().cpu() for n, b in model.named_buffers()})
+
+
+def phase_efficientdet(work: Path) -> int:
+    """26e: one fp32 EfficientDet-D0 step at 512 on the card against
+    float64 on the CPU; ``efficientdet`` through the CLI on synthetic
+    batches and on a COCO tree with its val AP; ``predict`` at B=8 with its
+    peak memory. Returns the resample kernel's launches."""
+    t0 = time.perf_counter()
+    init = EfficientDetTask(EfficientDetConfig(image_size=DET_SIZE),
+                            torch.float32).init(
+        torch.Generator().manual_seed(SEED), "cpu")
+    _redraw_bn(init, torch.Generator().manual_seed(SEED + 1))
+    batch = _det_batch(DET_PARITY_B)
+    flags = (torch.backends.cudnn.benchmark, torch.backends.cudnn.deterministic)
+    torch.backends.cudnn.benchmark, torch.backends.cudnn.deterministic = \
+        False, True
+    try:
+        l_gpu, g_gpu, d_gpu, s_gpu = _det_step(copy.deepcopy(init).to(DEV),
+                                               batch, DEV)
+        l64, g64, d64, s64 = _det_step(_float64(copy.deepcopy(init)), batch,
+                                       "cpu")
+    finally:
+        torch.backends.cudnn.benchmark, torch.backends.cudnn.deterministic = \
+            flags
+    g_rel, d_rel = _worst(g_gpu, g64), _worst(d_gpu, d64)
+    st_rel = max((max_err(s_gpu[n], s64[n]) / max(float(s64[n].abs().max()),
+                                                   1e-30), n) for n in s64)
+    rel_loss = abs(l_gpu - l64) / abs(l64)
+    parity = (f"EfficientDet-D0 {DET_SIZE} B={DET_PARITY_B}, one fp32 step "
+              f"(clip 10, SGD lr {DET_LR} momentum 0.9), card vs CPU "
+              f"float64: loss {l_gpu:.7f} vs {l64:.7f} ({rel_loss:.2e}); "
+              f"worst gradients {_fmt(g_rel)}, updates {_fmt(d_rel)} (limits "
+              f"{TOL_DET['step'][0]:.0e}, {TOL_DET['step'][1]:.0e}); BN "
+              f"statistics worst {st_rel[1]} {st_rel[0]:.2e}")
+    say("26e EfficientDet", parity)
+    check(rel_loss <= TOL_DET["loss"] and _within(g_rel, TOL_DET["step"])
+          and _within(d_rel, TOL_DET["step"])
+          and st_rel[0] <= TOL_DET["stats"], parity)
+    del init
+    synth = _cli_run(["efficientdet", "--batch-size", str(DET_B),
+                      "--steps-per-epoch", str(DET_STEPS), "--lr", DET_LR],
+                     work / "ws_det")
+    _zero_but_resample(synth["launched"], "efficientdet synthetic")
+    check(synth["launched"]["resample_normalize"] == 0
+          and synth["state"].step == DET_STEPS
+          and all(math.isfinite(x) for x in synth["losses"]),
+          f"efficientdet synthetic: {synth['losses']}")
+    root = coco_tree(sorted(FIXTURES.glob("*.jpg")), work / "coco_det",
+                     DET_STEPS * DET_B, DET_B, seed=SEED + 1)
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()  # the EfficientDet COCO path starts here
+    ws = work / "ws_det_coco"
+    state, _, val = cli(["efficientdet", "--data-backend", "coco",
+                         "--data-dir", str(root), "--batch-size", str(DET_B),
+                         "--lr", DET_LR, "--workspace", str(ws)])
+    torch.cuda.synchronize()
+    launched = _zero_but_resample(_counts(), "efficientdet on COCO data")
+    losses, _ = _raport_losses_and_times(ws / "efficientdet_raport.json")
+    shutil.rmtree(ws, ignore_errors=True)
+    check(state.step == DET_STEPS and all(math.isfinite(x) for x in losses)
+          and val is not None and 0.0 <= val["val.bbox_mAP"] <= 1.0
+          and launched == DET_STEPS + 1,
+          f"efficientdet coco: {losses}, {val}, {launched} resamples")
+    model = state.model
+    del state
+    task = EfficientDetTask(EfficientDetConfig(image_size=DET_SIZE))
+    images = torch.from_numpy(_det_batch(DET_PREDICT_B)["image"]).to(DEV)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t1 = time.perf_counter()
+    boxes, scores, labels, valid = task.predict(model, images)
+    torch.cuda.synchronize()
+    predict_s = time.perf_counter() - t1
+    peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+    n = task.anchors(DEV).shape[0]
+    check(boxes.shape == (DET_PREDICT_B, 100, 4) and bool(valid.any())
+          and bool(torch.isfinite(scores).all())
+          and peak < n * n * 4 / 1e9, f"predict: peak {peak} GB")
+    _zero_but_resample(_counts(), "efficientdet predict")
+    say("26e EfficientDet", f"through the CLI (bf16, clip 10 + SGD lr "
+        f"{DET_LR}): synthetic B={DET_B} {DET_STEPS} steps, loss "
+        + " ".join(f"{x:.3f}" for x in synth["losses"])
+        + f", median step {statistics.median(synth['step_ms'][1:]):.1f} ms; "
+        f"COCO tree B={DET_B} {DET_STEPS} steps, loss "
+        + " ".join(f"{x:.3f}" for x in losses)
+        + f", val box AP {val['val.bbox_mAP']:.5f} AP50 "
+        f"{val['val.bbox_mAP50']:.5f}; resample_normalize launched "
+        f"{launched} times, K1-K6 0. predict at B={DET_PREDICT_B} (bf16, NMS "
+        f"100 a image over {n} anchors): {predict_s * 1e3:.1f} ms, peak "
+        f"{peak:.2f} GB above the model (one image's N x N IoU would be "
+        f"{n * n * 4 / 1e9:.1f} GB); {int(valid.sum())} detections; on "
+        f"{card()}; {time.perf_counter() - t0:.1f} s")
+    return launched
+
+
+def phase_real_data() -> tuple[dict, int]:
+    """Phase 26: (the resample kernel's entry of the kernels line, its
+    launches on the real-data paths 26b, 26c and 26e)."""
+    t0 = time.perf_counter()
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_26_"))
+    try:
+        result = phase_dataplane()
+        launched = phase_imagenet(work)
+        launched += phase_coco(work)
+        phase_gpunet(work)
+        launched += phase_efficientdet(work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    say("26 real data", f"{time.perf_counter() - t0:.1f} s")
+    return result, launched
+
+
 def main() -> None:
     name = phase_device()
     phase_build()
@@ -4903,6 +5290,8 @@ def main() -> None:
         results[k]["max_abs_err"] = max(results[k]["max_abs_err"], sp_bwd)
     for k, v in sp_launched.items():
         launched[k] += v
+    results["resample_normalize"], launched["resample_normalize"] = \
+        phase_real_data()  # counts set to 0 there
     check(set(launched) == set(results), f"{sorted(launched)} vs {sorted(results)}")
     for k, v in launched.items():
         check(v > 0, f"the main path never launched {k}")
@@ -4929,6 +5318,10 @@ def main() -> None:
         "flat_lamb_apply_8k": ("csrc/flat_lamb.cu",
                                "deeplearningexamples_tpu/ops/fused_lamb.py:177"),
         "hot_gather": ("csrc/gather_rows.cu", "perf/dlrm_hotrow.py:95"),
+        # not a TPU kernel: the host data plane's fused resample, which the
+        # card runs where its host has no libjpeg
+        "resample_normalize": ("csrc/resample_normalize.cu",
+                               "deeplearningexamples_tpu/native/dataplane.cc:106"),
     }
     print(json.dumps({"kernels": [{
         "name": k,

@@ -1,12 +1,15 @@
 """The port's training CLI: ``python -m deeplearningexamples_tpu_torch.cli
 <model> [flags]`` for ``resnet50``, ``resnext101-32x4d``,
 ``se-resnext101-32x4d``, ``efficientnet-b0``, ``efficientnet-b4``,
-``ssd300``, ``bert-pretrain``, ``bert-squad``, ``bert-glue``, ``bert-swag``,
+``gpunet-0``, ``gpunet-1``, ``gpunet-2``, ``ssd300``, ``efficientdet``,
+``bert-pretrain``, ``bert-squad``, ``bert-glue``, ``bert-swag``,
 ``dlrm``, ``tacotron2``, ``waveglow``, ``transformer``, ``bart``,
 ``gnmt``, ``fastpitch``, ``hifigan``, ``jasper`` and ``wav2vec2``.
 
 Port of ``deeplearningexamples_tpu/cli/main.py`` for the models the port
-trains so far, the ConvNets (``run_convnet``), SSD300 (``run_ssd``), BERT
+trains so far, the ConvNets and GPUNets (``run_convnet``, on synthetic
+images or ImageNet's class folders), SSD300 (``run_ssd``, on synthetic
+images or COCO with its mAP), EfficientDet-D0 (``run_efficientdet``), BERT
 pretraining (``run_bert_pretrain``), BERT fine-tuning on SQuAD, GLUE and SWAG
 (``run_bert_squad``, ``run_bert_glue``, ``run_bert_swag``), DLRM
 (``run_dlrm``), Tacotron2 and WaveGlow (``run_tts``), the Transformer NMT
@@ -16,8 +19,8 @@ wav2vec 2.0 (``run_breadth``) and HiFi-GAN (``run_hifigan``), with the
 flag names and defaults of ``dlx-train``. The run is
 on the card unless ``--device cpu`` is given. Flags whose machinery is not
 ported yet exit with a message that says so, rather than being ignored: for
-the ConvNets and ``ssd300`` ``--data-backend`` other than synthetic and
-``--mesh-*``; for
+the ConvNets ``--mesh-*``; for ``ssd300`` and ``efficientdet`` a
+``--data-backend`` other than synthetic and coco, and ``--mesh-*``; for
 ``bert-pretrain`` ``--zero``, ``--attention-impl ring`` and
 ``--mesh-*``; for the fine-tuning commands ``--mesh-*`` and an
 ``--init-checkpoint`` in TF format; for ``dlrm`` ``--mesh-model`` above 1
@@ -55,7 +58,8 @@ from ..core.train import create_train_state, make_eval_step, make_train_step
 
 __all__ = ["BartCliConfig", "BertCliConfig", "BertPretrainRun", "BreadthRun",
            "CommonConfig", "ConvNetCliConfig", "ConvNetRun", "DlrmCliConfig",
-           "DlrmRun", "FinetuneRun", "GlueCliConfig", "MODELS", "Seq2SeqRun",
+           "DlrmRun", "EfficientDetCliConfig", "FinetuneRun", "GlueCliConfig",
+           "MODELS", "Seq2SeqRun",
            "SgdCliConfig", "SquadCliConfig", "SsdRun", "SwagCliConfig",
            "TtsRun", "build_bert_pretrain", "build_bert_squad", "build_breadth",
            "build_convnet", "build_dlrm", "build_ssd", "build_transformer",
@@ -63,7 +67,7 @@ __all__ = ["BartCliConfig", "BertCliConfig", "BertPretrainRun", "BreadthRun",
            "featurize_swag", "read_swag", "run_bert_glue",
            "run_bert_pretrain", "run_bert_squad", "run_bert_swag",
            "run_bart", "run_breadth", "run_convnet", "run_dlrm",
-           "run_hifigan", "run_ssd",
+           "run_efficientdet", "run_hifigan", "run_ssd",
            "run_transformer", "run_tts", "to_device"]
 
 INPUTS = ("input_ids", "attention_mask", "token_type_ids")
@@ -113,6 +117,14 @@ class ConvNetCliConfig(SgdCliConfig):
     ema: float = 0.0  # 0 disables; reference EMA decay e.g. 0.9999
     # "" (fp) or "qat": int8 fake-quant convs during training
     quant_policy: str = ""
+
+
+@dataclass
+class EfficientDetCliConfig(SgdCliConfig):
+    """``efficientdet``'s config: JAX's ``CommonConfig`` fields that
+    ``run_efficientdet`` reads, with JAX's defaults."""
+
+    image_size: int = 0  # 0: EfficientDet-D0's 512
 
 
 @dataclass
@@ -168,11 +180,12 @@ def _unported_mesh(model: str, cfg: CommonConfig) -> None:
     ])
 
 
-def _unported_synthetic(model: str, cfg: CommonConfig, reader: str) -> None:
-    """Refuse a ``--data-backend`` other than synthetic, or ``--mesh-*``."""
+def _unported_coco(model: str, cfg: CommonConfig) -> None:
+    """Refuse a ``--data-backend`` other than synthetic and coco, or
+    ``--mesh-*``."""
     _unported(model, [
-        (cfg.data_backend != "synthetic",
-         f"--data-backend {cfg.data_backend} ({reader}; only synthetic is "
+        (cfg.data_backend not in ("synthetic", "coco"),
+         f"--data-backend {cfg.data_backend} (synthetic and coco are "
          "ported)"),
         (cfg.mesh_data not in (-1, 1) or cfg.mesh_model != 1
          or cfg.mesh_sequence != 1, "--mesh-* (one card only so far)"),
@@ -206,13 +219,23 @@ def _loop_cfg(cfg: CommonConfig, watch="val_loss", mode="min") -> LoopConfig:
 
 
 def to_device(loader, device: str):
-    """Numpy batches -> tensors on ``device``, copied from pinned memory on a
-    card so the copy does not wait for the steps already queued."""
+    """Batches -> tensors on ``device``: numpy arrays copied from pinned
+    memory on a card, so the copy does not wait for the steps already
+    queued; tensors moved (the card's data plane puts its images there
+    already); anything else (SSD300's eval ``gt`` list, EfficientDet's
+    ``n_valid``) left on the host as it is."""
     pin = torch.device(device).type == "cuda"
+
+    def put(v):
+        if isinstance(v, np.ndarray):
+            t = torch.from_numpy(v)
+            return (t.pin_memory() if pin else t).to(device, non_blocking=pin)
+        if isinstance(v, torch.Tensor):
+            return v.to(device, non_blocking=pin)
+        return v
+
     for batch in loader:
-        yield {k: (torch.from_numpy(v).pin_memory() if pin else
-                   torch.from_numpy(v)).to(device, non_blocking=pin)
-               for k, v in batch.items()}
+        yield {k: put(v) for k, v in batch.items()}
 
 
 def _maybe_resume(cfg: CommonConfig, ckpt: CheckpointManager, state,
@@ -249,27 +272,44 @@ class ConvNetRun:
     train_step: Any
     loader: Any
     val_loader: Any
+    real_data: bool = False  # the loaders read files: run them on a thread
 
 
 def build_convnet(arch: str, cfg: ConvNetCliConfig) -> ConvNetRun:
     """The model, SGD, state, step and loaders of a ConvNets command: the
-    arch's own image size (224, or an EfficientNet's resolution), 1000
-    classes, one synthetic batch repeated ``steps_per_epoch`` times and a
-    10-batch eval loader, as JAX's ``run_convnet``."""
+    arch's own image size (224, an EfficientNet's or a GPUNet's
+    resolution), 1000 classes; on the synthetic backend one batch repeated
+    ``steps_per_epoch`` times and a 10-batch eval loader, on any other the
+    ``train/`` and ``val/`` class folders under ``--data-dir``
+    (``ImageNetLoader`` on the data plane of ``--device``), as JAX's
+    ``run_convnet``."""
     from ..data.synthetic import SyntheticImageLoader
-    from ..models.convnets import EFFNET_ARCHS, ClassificationTask
+    from ..models.convnets import EFFNET_ARCHS, GPUNET_ARCHS, ClassificationTask
 
-    _unported_synthetic(arch, cfg, "the ImageNet reader and its native "
-                        "dataplane")
-    image_size = EFFNET_ARCHS[arch].resolution if arch in EFFNET_ARCHS else 224
+    _unported_mesh(arch, cfg)
+    if arch in EFFNET_ARCHS:
+        image_size = EFFNET_ARCHS[arch].resolution
+    elif arch in GPUNET_ARCHS:
+        image_size = GPUNET_ARCHS[arch].resolution
+    else:
+        image_size = 224
     task = ClassificationTask(arch, _dtype(cfg),
                               quantized=cfg.quant_policy == "qat",
                               label_smoothing=cfg.label_smoothing,
                               mixup_alpha=cfg.mixup)
     model = task.init(torch.Generator().manual_seed(cfg.seed), device=cfg.device)
-    loader = SyntheticImageLoader(cfg.batch_size, image_size, 1000,
-                                  steps=cfg.steps_per_epoch)
-    val_loader = SyntheticImageLoader(cfg.batch_size, image_size, 1000, steps=10)
+    real = cfg.data_backend != "synthetic"
+    if real:
+        from ..data.imagenet import ImageNetLoader
+
+        loader, val_loader = (
+            ImageNetLoader(cfg.data_dir, split, cfg.batch_size, image_size,
+                           device=cfg.device) for split in ("train", "val"))
+    else:
+        loader = SyntheticImageLoader(cfg.batch_size, image_size, 1000,
+                                      steps=cfg.steps_per_epoch)
+        val_loader = SyntheticImageLoader(cfg.batch_size, image_size, 1000,
+                                          steps=10)
     params = dict(model.named_parameters())
     tx = opt.sgd(_make_schedule(cfg, len(loader)), cfg.momentum,
                  cfg.weight_decay, mask=opt.no_decay_mask(params))
@@ -278,15 +318,23 @@ def build_convnet(arch: str, cfg: ConvNetCliConfig) -> ConvNetRun:
                                ema=cfg.ema > 0)
     train_step = make_train_step(task.loss_fn, tx, accum_steps=cfg.accum_steps,
                                  ema_decay=cfg.ema if cfg.ema > 0 else None)
-    return ConvNetRun(task, tx, state, train_step, loader, val_loader)
+    return ConvNetRun(task, tx, state, train_step, loader, val_loader, real)
+
+
+def _feed(loader, device: str, real: bool):
+    """A loader's batches on ``device``; a loader that reads files runs on a
+    worker thread (``data.prefetch.background``), as JAX's does."""
+    from ..data.prefetch import background
+
+    return to_device(background(iter(loader)) if real else loader, device)
 
 
 def run_convnet(arch: str, cfg: ConvNetCliConfig):
     """Train a ConvNets model with (smoothed) CE, mixup and SGD on synthetic
-    images, with top1, top5 and ``val_loss`` each epoch; returns ``(state,
-    best top1)``. cuDNN picks its algorithms by timing them
-    (``cudnn.benchmark``) for the run, as the reference's ``main.py``
-    does."""
+    images or ImageNet's class folders, with top1, top5 and ``val_loss``
+    each epoch; returns ``(state, best top1)``. cuDNN picks its algorithms
+    by timing them (``cudnn.benchmark``) for the run, as the reference's
+    ``main.py`` does."""
     logger = _common_setup(cfg, arch)
     run = build_convnet(arch, cfg)
     ckpt = CheckpointManager(f"{cfg.workspace}/{arch}_ckpt")
@@ -295,10 +343,12 @@ def run_convnet(arch: str, cfg: ConvNetCliConfig):
     torch.backends.cudnn.benchmark = True
     try:
         return train_loop(
-            state, run.train_step, lambda: to_device(run.loader, cfg.device),
+            state, run.train_step,
+            lambda: _feed(run.loader, cfg.device, run.real_data),
             cfg=_loop_cfg(cfg, watch="top1", mode="max"), logger=logger,
             eval_step=make_eval_step(run.task.metric_fn),
-            eval_iter_fn=lambda: to_device(run.val_loader, cfg.device),
+            eval_iter_fn=lambda: _feed(run.val_loader, cfg.device,
+                                       run.real_data),
             checkpoints=ckpt, batch_size=cfg.batch_size,
             start_epoch=start_epoch,
         )
@@ -313,36 +363,59 @@ class SsdRun:
     state: Any
     train_step: Any
     loader: Any
+    task: Any = None
+    val_loader: Any = None  # COCO's val2017 on the coco backend, else None
 
 
 def build_ssd(cfg: SgdCliConfig) -> SsdRun:
     """SSD300 (81 classes, 300x300, ``SSDTask``'s color twist), SGD with the
     reference's "tencent trick" (no weight decay on biases and BN), the
-    state, step and one synthetic batch repeated ``steps_per_epoch`` times,
-    as JAX's ``run_ssd`` on its synthetic path."""
+    state and step, and on the synthetic backend one batch repeated
+    ``steps_per_epoch`` times, on ``coco`` ``train2017`` and ``val2017``
+    with ``annotations/instances_*2017.json`` under ``--data-dir``
+    (``CocoSSDLoader`` on the data plane of ``--device``), as JAX's
+    ``run_ssd``."""
     from ..data.ssd_synthetic import SyntheticSSDLoader
     from ..models.ssd import SSDTask
 
-    _unported_synthetic("ssd300", cfg, "the COCO reader and its native "
-                        "dataplane")
+    _unported_coco("ssd300", cfg)
     task = SSDTask(dtype=_dtype(cfg))
     model = task.init(torch.Generator().manual_seed(cfg.seed), device=cfg.device)
-    loader = SyntheticSSDLoader(cfg.batch_size, task.dboxes,
-                                steps=cfg.steps_per_epoch)
+    val_loader = None
+    if cfg.data_backend == "coco":
+        from ..data.coco import CocoDetectionDataset, CocoSSDLoader
+
+        def split(name):
+            return CocoDetectionDataset(
+                f"{cfg.data_dir}/{name}2017",
+                f"{cfg.data_dir}/annotations/instances_{name}2017.json")
+
+        loader = CocoSSDLoader(split("train"), cfg.batch_size, task.dboxes,
+                               device=cfg.device)
+        val_loader = CocoSSDLoader(split("val"), cfg.batch_size, task.dboxes,
+                                   train=False, device=cfg.device)
+    else:
+        loader = SyntheticSSDLoader(cfg.batch_size, task.dboxes,
+                                    steps=cfg.steps_per_epoch)
     params = dict(model.named_parameters())
     tx = opt.sgd(_make_schedule(cfg, len(loader)), cfg.momentum,
                  cfg.weight_decay, mask=opt.no_decay_mask(params))
     state = create_train_state(model, tx, cfg.seed + 1, params=params,
                                model_state=task.model_state(model))
     train_step = make_train_step(task.loss_fn, tx, accum_steps=cfg.accum_steps)
-    return SsdRun(state, train_step, loader)
+    return SsdRun(state, train_step, loader, task, val_loader)
 
 
 def run_ssd(cfg: SgdCliConfig):
-    """Train SSD300 with the MultiBox loss and SGD on synthetic images, with
-    checkpoints in ``{workspace}/ssd300_ckpt``; no evaluation (JAX's
-    synthetic path has none). cuDNN picks its algorithms by timing them, as
-    the reference's ``main.py`` does. Returns ``(state, best)``."""
+    """Train SSD300 with the MultiBox loss and SGD, with checkpoints in
+    ``{workspace}/ssd300_ckpt``. On synthetic images there is no evaluation
+    (JAX's synthetic path has none); on COCO each eval epoch scores COCO
+    mAP on val2017 (``evaluate_ssd``, reference ``SSD/main.py:224-228``)
+    and the best checkpoint is the highest ``mAP``. cuDNN picks its
+    algorithms by timing them, as the reference's ``main.py`` does. Returns
+    ``(state, best)``."""
+    from ..models.ssd.evaluate import evaluate_ssd
+
     logger = _common_setup(cfg, "ssd300")
     run = build_ssd(cfg)
     ckpt = CheckpointManager(f"{cfg.workspace}/ssd300_ckpt")
@@ -350,10 +423,16 @@ def run_ssd(cfg: SgdCliConfig):
     benchmark = torch.backends.cudnn.benchmark
     torch.backends.cudnn.benchmark = True
     try:
+        real = run.val_loader is not None
         return train_loop(
-            state, run.train_step, lambda: to_device(run.loader, cfg.device),
-            cfg=_loop_cfg(cfg), logger=logger, checkpoints=ckpt,
-            batch_size=cfg.batch_size, start_epoch=start_epoch,
+            state, run.train_step,
+            lambda: _feed(run.loader, cfg.device, real),
+            cfg=_loop_cfg(cfg, *(("mAP", "max") if real else ())),
+            logger=logger, checkpoints=ckpt, batch_size=cfg.batch_size,
+            start_epoch=start_epoch,
+            eval_fn=(lambda state: evaluate_ssd(run.task, state.model,
+                                                run.val_loader))
+            if real else None,
         )
     finally:
         torch.backends.cudnn.benchmark = benchmark
@@ -1381,8 +1460,79 @@ def run_hifigan(cfg: CommonConfig):
         logger.log((epoch,), out)
     return gen, disc, out
 
+
+def run_efficientdet(cfg: EfficientDetCliConfig):
+    """EfficientDet-D0 training (reference ``Efficientdet/train.py``), as
+    JAX's ``run_efficientdet``: synthetic COCO-shaped batches, or with
+    ``--data-backend coco`` ``train2017`` under ``--data-dir`` through
+    ``CocoRawLoader`` (on the data plane of ``--device``); clip by global
+    norm 10, then SGD with momentum. When
+    ``annotations/instances_val2017.json`` exists, COCO box AP on val2017
+    after training (``CocoMAP``), logged as ``val.bbox_mAP`` and
+    ``val.bbox_mAP50``. Returns ``(state, best, val metrics or None)``."""
+    from ..data.det_synthetic import SyntheticDetectionLoader
+    from ..models.efficientdet import EfficientDetConfig, EfficientDetTask
+
+    logger = _common_setup(cfg, "efficientdet")
+    _unported_coco("efficientdet", cfg)
+    task = EfficientDetTask(EfficientDetConfig(image_size=cfg.image_size or 512),
+                            dtype=_dtype(cfg))
+    model = task.init(torch.Generator().manual_seed(cfg.seed), device=cfg.device)
+    ds_val = None
+    real = cfg.data_backend == "coco"
+    if real:
+        from ..data.coco import CocoDetectionDataset, CocoRawLoader
+
+        ds = CocoDetectionDataset(
+            f"{cfg.data_dir}/train2017",
+            f"{cfg.data_dir}/annotations/instances_train2017.json")
+        loader = CocoRawLoader(ds, cfg.batch_size, task.cfg.image_size,
+                               max_gt=task.max_gt, seed=cfg.seed,
+                               device=cfg.device)
+        val_ann = f"{cfg.data_dir}/annotations/instances_val2017.json"
+        if os.path.exists(val_ann):
+            ds_val = CocoDetectionDataset(f"{cfg.data_dir}/val2017", val_ann)
+    else:
+        loader = SyntheticDetectionLoader(
+            cfg.batch_size, task.cfg.image_size, task.cfg.num_classes,
+            max_gt=task.max_gt, steps=cfg.steps_per_epoch, seed=cfg.seed)
+    tx = opt.chain(opt.clip_by_global_norm(10.0),
+                   opt.sgd(_make_schedule(cfg, len(loader)), cfg.momentum))
+    state = create_train_state(model, tx, cfg.seed + 1,
+                               model_state=task.model_state(model))
+    ckpt = CheckpointManager(f"{cfg.workspace}/efficientdet_ckpt")
+    state, start_epoch = _maybe_resume(cfg, ckpt, state, len(loader))
+    train_step = make_train_step(task.loss_fn, tx, accum_steps=cfg.accum_steps)
+    state, best = train_loop(
+        state, train_step, lambda: _feed(loader, cfg.device, real),
+        cfg=_loop_cfg(cfg), logger=logger, checkpoints=ckpt,
+        batch_size=cfg.batch_size, start_epoch=start_epoch)
+    if ds_val is None:
+        return state, best, None
+    # COCO box AP on the val split (reference validate.py / COCOeval)
+    from ..models.ssd.coco_eval import CocoMAP
+
+    val = CocoRawLoader(ds_val, cfg.batch_size, task.cfg.image_size,
+                        max_gt=task.max_gt, train=False, device=cfg.device)
+    ev = CocoMAP()
+    for batch in to_device(val, cfg.device):
+        boxes, scores, labels, valid = (t.cpu().numpy() for t in task.predict(
+            state.model, batch["image"], max_out=100, score_threshold=0.05))
+        gt_boxes, gt_labels, gt_valid = (batch[k].cpu().numpy() for k in
+                                         ("boxes", "labels", "valid"))
+        for i in range(batch["n_valid"]):
+            keep, gv = valid[i], gt_valid[i]
+            ev.add_image(boxes[i][keep], labels[i][keep], scores[i][keep],
+                         gt_boxes[i][gv], gt_labels[i][gv])
+    m = ev.compute()
+    metrics = {"val.bbox_mAP": m["mAP"], "val.bbox_mAP50": m["mAP50"]}
+    logger.log((), metrics)
+    return state, best, metrics
+
+
 CONVNETS = ("resnet50", "resnext101-32x4d", "se-resnext101-32x4d",
-            "efficientnet-b0", "efficientnet-b4")
+            "efficientnet-b0", "efficientnet-b4", "gpunet-0", "gpunet-1",
+            "gpunet-2")
 MODELS = {**{a: (lambda cfg, a=a: run_convnet(a, cfg)) for a in CONVNETS},
           "ssd300": run_ssd, "bert-pretrain": run_bert_pretrain,
           "bert-squad": run_bert_squad,
@@ -1393,7 +1543,7 @@ MODELS = {**{a: (lambda cfg, a=a: run_convnet(a, cfg)) for a in CONVNETS},
           "transformer": run_transformer, "bart": run_bart,
           **{m: (lambda cfg, m=m: run_breadth(m, cfg))
              for m in ("gnmt", "jasper", "wav2vec2", "fastpitch")},
-          "hifigan": run_hifigan}
+          "hifigan": run_hifigan, "efficientdet": run_efficientdet}
 _CONFIG_CLS = {**dict.fromkeys(CONVNETS, ConvNetCliConfig),
                "ssd300": SgdCliConfig, "bert-pretrain": BertCliConfig,
                "bert-squad": SquadCliConfig,
@@ -1402,7 +1552,8 @@ _CONFIG_CLS = {**dict.fromkeys(CONVNETS, ConvNetCliConfig),
                "tacotron2": CommonConfig, "waveglow": CommonConfig,
                "transformer": CommonConfig, "bart": BartCliConfig,
                **dict.fromkeys(("gnmt", "jasper", "wav2vec2", "fastpitch",
-                                "hifigan"), CommonConfig)}
+                                "hifigan"), CommonConfig),
+               "efficientdet": EfficientDetCliConfig}
 
 
 def cli(argv=None):

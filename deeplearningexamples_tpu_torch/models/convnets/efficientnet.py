@@ -136,13 +136,16 @@ class MBConvBlock(nn.Module):
 
 
 class EfficientNet(nn.Module):
-    """``forward(x, generator)``: x (B, 3, R, R) -> fp32 logits. A training
-    forward with stochastic depth or dropout needs ``generator``."""
+    """``forward(x, generator)``: x (B, 3, R, R) -> fp32 logits, or with
+    ``features_only`` the taps ``{"p3", "p4", "p5"}`` after stages 2, 4 and
+    6 (EfficientDet's backbone; no head is built). A training forward with
+    stochastic depth or dropout needs ``generator``."""
 
     def __init__(self, arch: EffNetArch = EffNetArch(), num_classes: int = 1000,
-                 dtype: torch.dtype = torch.bfloat16, quantized: bool = False):
+                 dtype: torch.dtype = torch.bfloat16, quantized: bool = False,
+                 features_only: bool = False):
         super().__init__()
-        self.arch, self.dtype = arch, dtype
+        self.arch, self.dtype, self.features_only = arch, dtype, features_only
         conv = QATConv if quantized else Conv2d
         stem = arch.scaled_width(32)
         self.stem = _ConvBN(conv, 3, stem, 3, 2, 1, dtype)
@@ -161,6 +164,9 @@ class EfficientNet(nn.Module):
                 cin, idx = cout, idx + 1
             stages.append(nn.ModuleDict(blocks))
         self.layers = nn.ModuleList(stages)
+        self.widths = [arch.scaled_width(w) for w in arch.widths]
+        if features_only:
+            return
         head = arch.scaled_width(1280)
         self.features = _ConvBN(conv, cin, head, 1, 1, 1, dtype)
         self.classifier = nn.ModuleDict({"fc": Dense(head, num_classes,
@@ -176,7 +182,8 @@ class EfficientNet(nn.Module):
         drawn."""
         blocks = [blk for stage in self.layers for blk in stage.values()]
         sizes = [b if self.training and blk.drops else 0 for blk in blocks]
-        sizes.append(b * head if self.training and self.arch.dropout > 0 else 0)
+        sizes.append(b * head if self.training and self.arch.dropout > 0
+                     and not self.features_only else 0)
         if not sum(sizes):
             return [None] * len(sizes)
         if generator is None:
@@ -190,15 +197,20 @@ class EfficientNet(nn.Module):
         return [p if n else None for p, n in zip(parts, sizes)]
 
     def forward(self, x: torch.Tensor,
-                generator: torch.Generator | None = None) -> torch.Tensor:
-        head = self.features.conv.weight.shape[0]
+                generator: torch.Generator | None = None):
+        head = 0 if self.features_only else self.features.conv.weight.shape[0]
         draws = self._draws(generator, x.shape[0], head, x.device)
         x = F.silu(self.stem(x.to(self.dtype)))
-        i = 0
-        for stage in self.layers:
+        i, feats = 0, {}
+        for s, stage in enumerate(self.layers):
             for blk in stage.values():
                 x = blk(x, draws[i])
                 i += 1
+            # multi-scale taps for detection FPNs (strides 8, 16, 32)
+            if s in (2, 4, 6):
+                feats[f"p{3 + (s - 2) // 2}"] = x
+        if self.features_only:
+            return feats
         x = F.silu(self.features(x))
         x = x.mean((2, 3), dtype=torch.float32)
         if draws[-1] is not None:

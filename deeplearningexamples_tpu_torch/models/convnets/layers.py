@@ -93,14 +93,16 @@ class Dense(nn.Linear):
 
 
 class BatchNorm2d(nn.Module):
-    """``nn.BatchNorm(momentum=0.9, epsilon=eps)`` over the channels of an
-    NCHW tensor. Training normalises with the batch statistics and updates
-    the running ones in place; eval normalises with the running ones.
+    """``nn.BatchNorm(momentum=momentum, epsilon=eps)`` over the channels of
+    an NCHW tensor (flax's momentum: torch's is ``1 - momentum``). Training
+    normalises with the batch statistics and updates the running ones in
+    place; eval normalises with the running ones.
     ``zero_init`` starts the scale at 0 (a residual branch's last BN)."""
 
-    def __init__(self, c: int, eps: float = 1e-5, zero_init: bool = False):
+    def __init__(self, c: int, eps: float = 1e-5, zero_init: bool = False,
+                 momentum: float = MOMENTUM):
         super().__init__()
-        self.eps, self.zero_init = eps, zero_init
+        self.eps, self.zero_init, self.momentum = eps, zero_init, momentum
         self.weight = nn.Parameter(torch.zeros(c) if zero_init else torch.ones(c))
         self.bias = nn.Parameter(torch.zeros(c))
         self.register_buffer("running_mean", torch.zeros(c))
@@ -114,8 +116,9 @@ class BatchNorm2d(nn.Module):
             x, self.weight, self.bias, None, None, True, 0.0, self.eps)
         with torch.no_grad():
             var = invstd.double().pow(-2).sub(self.eps).clamp_min(0.0).float()
-            self.running_mean.mul_(MOMENTUM).add_(mean * (1.0 - MOMENTUM))
-            self.running_var.mul_(MOMENTUM).add_(var * (1.0 - MOMENTUM))
+            m = self.momentum
+            self.running_mean.mul_(m).add_(mean * (1.0 - m))
+            self.running_var.mul_(m).add_(var * (1.0 - m))
         return y
 
     def init_(self, generator: torch.Generator) -> None:

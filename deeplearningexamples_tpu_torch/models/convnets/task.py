@@ -24,6 +24,7 @@ from torch import nn
 
 from ...core import losses
 from .efficientnet import EfficientNet
+from .gpunet import GPUNet
 
 __all__ = ["ClassificationTask"]
 
@@ -57,7 +58,7 @@ class ClassificationTask:
     def _forward(model: nn.Module, images: torch.Tensor,
                  generator: torch.Generator | None = None) -> torch.Tensor:
         x = images.permute(0, 3, 1, 2)
-        if isinstance(model, EfficientNet):
+        if isinstance(model, (EfficientNet, GPUNet)):
             return model(x, generator)
         return model(x)
 

@@ -20,6 +20,7 @@ from .coco_eval import CocoMAP
 __all__ = ["evaluate_ssd"]
 
 
+@torch.no_grad()
 def evaluate_ssd(
     task,
     model: nn.Module,

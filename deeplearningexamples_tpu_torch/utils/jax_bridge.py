@@ -33,9 +33,11 @@ __all__ = [
     "bert_qa_state_dict_from_jax",
     "distill_student_state_dict_from_jax",
     "dlrm_state_dict_from_jax",
+    "efficientdet_state_dict_from_jax",
     "efficientnet_state_dict_from_jax",
     "fastpitch_state_dict_from_jax",
     "gnmt_state_dict_from_jax",
+    "gpunet_state_dict_from_jax",
     "hifigan_discriminators_state_dict_from_jax",
     "hifigan_generator_state_dict_from_jax",
     "jasper_state_dict_from_jax",
@@ -244,6 +246,46 @@ def efficientnet_state_dict_from_jax(params: Mapping[str, Any],
     reference's names), as numpy arrays."""
     return _convnet(params, batch_stats, _effnet_name)
 
+
+
+def _gpunet_name(key: str) -> str:
+    if key[0] == "l" and key[1].isdigit():  # l{i}_{part} -> layers.{i}.{part}
+        i, part = key[1:].split("_", 1)
+        return f"layers.{i}.{part}"
+    return {"stem_conv": "stem.conv", "stem_bn": "stem.bn",
+            "head_conv": "head.conv", "head_bn": "head.bn",
+            "reduce": "squeeze"}.get(key, key)
+
+
+def gpunet_state_dict_from_jax(params: Mapping[str, Any],
+                               batch_stats: Mapping[str, Any] | None = None
+                               ) -> dict[str, np.ndarray]:
+    """JAX ``GPUNet`` params (any arch of ``GPUNET_ARCHS``), or their
+    gradients, and optionally its ``batch_stats`` -> the port's ``GPUNet``
+    ``state_dict``, as numpy arrays."""
+    return _convnet(params, batch_stats, _gpunet_name)
+
+
+def efficientdet_state_dict_from_jax(params: Mapping[str, Any],
+                                     batch_stats: Mapping[str, Any] | None = None
+                                     ) -> dict[str, np.ndarray]:
+    """JAX ``EfficientDet`` params, or their gradients, and optionally its
+    ``batch_stats`` -> the port's ``EfficientDet`` ``state_dict``: the
+    backbone under ``backbone.`` with EfficientNet's names, the rest under
+    JAX's names (the BiFPN's fusion weights ``node{n}_weights`` as they
+    are)."""
+    sd: dict[str, np.ndarray] = {}
+    for tree in (params, batch_stats or {}):
+        for key, value in tree.items():
+            if key == "backbone":
+                _walk(value, _effnet_name, "backbone.", sd)
+                continue
+            for sub, leaf in value.items():
+                if isinstance(leaf, Mapping):
+                    _walk({sub: leaf}, lambda k: k, f"{key}.", sd)
+                else:  # a BiFPN layer's fusion weights
+                    sd[f"{key}.{sub}"] = np.asarray(leaf)
+    return sd
 
 
 # anchors per location of SSD300's six feature maps (``models/ssd/model.py``)

@@ -81,7 +81,8 @@ def test_reader_refuses_what_it_does_not_take(text, line):
 
 # every ported command that configs.yml has a models: section for
 COMMANDS = ["resnet50", "efficientnet-b0", "ssd300", "bert-pretrain",
-            "bert-squad", "tacotron2", "waveglow", "dlrm", "bart"]
+            "bert-squad", "tacotron2", "waveglow", "dlrm", "bart",
+            "efficientdet"]
 LAYERS = [dict(precision="bf16"), dict(precision="fp32"),
           dict(platform="v5e-1"), dict(precision="fp32", platform="v5p-8")]
 

@@ -2,7 +2,7 @@
 flash-attention forward (K1) and backward (K2), the flat LAMB passes (K3, at
 the flat layout's 64 x 1024 blocks and the fused LAMB's 8 x 1024), the
 embedding row gather (K4), the int8 activation quantization (K5) and the
-hot-row gather (K6).
+hot-row gather (K6), and the data plane's resample kernel with nvJPEG.
 
 Every test here needs a CUDA card and skips without one. The file imports no
 JAX, so that a CUDA host without JAX runs it on its own:
@@ -502,3 +502,55 @@ def test_hot_gather_unaligned_table(cuda):
     ids = torch.from_numpy(rng.integers(0, 2000, 5000).astype(np.int32)).to(cuda)
     _assert_same_rows(emb.hot_gather(table, hot, ids, 1000, 16),
                       emb.hot_gather_reference(table, hot, ids, 1000, 16))
+
+
+# The data plane's resample kernel against its plain version: the same fp32
+# operations in the same order (no FMA contraction in the kernel), so the
+# outputs are equal bit for bit; gray and RGB images, 1/d of 1 to 8, flips,
+# an image that failed (width 0).
+@pytest.mark.cuda
+@pytest.mark.parametrize("out_size", [7, 64, 224])
+def test_resample_normalize_matches_plain(cuda, out_size):
+    from deeplearningexamples_tpu_torch.native import MEAN, STD
+    from deeplearningexamples_tpu_torch.ops import resample
+
+    rng = np.random.default_rng(out_size)
+    dims = [(64, 48, 3, 1), (48, 64, 1, 1), (300, 200, 3, 2), (257, 131, 3, 4),
+            (500, 375, 3, 8), (0, 0, 0, 0), (33, 17, 1, 2)]
+    sizes = [w * h * c for w, h, c, _ in dims]
+    offsets = np.concatenate([[0], np.cumsum(sizes)[:-1]])
+    src = rng.integers(0, 256, sum(sizes), dtype=np.uint8)
+    n = len(dims)
+    crops = np.stack([rng.uniform(0, .3, n), rng.uniform(0, .3, n),
+                      rng.uniform(.3, .7, n), rng.uniform(.3, .7, n)], 1)
+    args = [torch.from_numpy(a).to(cuda) for a in (
+        src, offsets.astype(np.int64), np.asarray(dims, np.int32),
+        crops.astype(np.float32), (np.arange(n) % 2).astype(np.int32))]
+    before = resample.launches
+    got = resample.resample_normalize(*args, out_size, MEAN, STD)
+    torch.cuda.synchronize()
+    assert resample.launches == before + 1
+    want = resample.resample_normalize_reference(*args, out_size, MEAN, STD)
+    assert got.shape == (n, out_size, out_size, 3)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    assert not got[5].any()
+
+
+# The card's data plane (nvJPEG, then the kernel) on the repository's JPEG
+# fixtures against JAX's plane (expected.npz): chip_smoke.py's TOL_DECODE in
+# pixel levels, the cut file zero-filled with a warning.
+@pytest.mark.cuda
+def test_card_data_plane_decodes_the_fixtures(cuda):
+    from pathlib import Path
+
+    from deeplearningexamples_tpu_torch.native import STD, DataPlane
+
+    root = Path(__file__).resolve().parent / "data" / "jpeg"
+    e = np.load(root / "expected.npz")
+    blobs = [(root / f"{n}.jpg").read_bytes() for n in e["names"]]
+    with pytest.warns(UserWarning, match="1 images failed to decode"):
+        got = DataPlane(4, "cuda").decode_batch(blobs, e["crops"], e["flips"],
+                                                int(e["out_size"]))
+    assert got.device.type == "cuda"
+    levels = np.abs(got.cpu().numpy() - e["images"]) * np.float32(STD) * 255
+    assert levels.max() <= 8.0 and levels.mean() <= 1.5

@@ -727,7 +727,7 @@ def test_cli_trains_ssd300_on_the_cpu_and_resumes(tmp_path):
         {"ckpt_2.pt", "ckpt_4.pt"}
 
 
-@pytest.mark.parametrize("flag,value", [("--data-backend", "coco"),
+@pytest.mark.parametrize("flag,value", [("--data-backend", "dali"),
                                         ("--mesh-data", "2")])
 def test_cli_refuses_unported_flags(tmp_path, flag, value):
     with pytest.raises(SystemExit, match="not ported"):
