@@ -151,6 +151,29 @@ and it imports nothing of JAX. Phases, one line each:
     float64, ``efficientdet`` on synthetic batches and on a COCO tree with
     its val box AP, and ``predict`` at B=8 with its peak memory
 
+27. mesh axes on the one card: K1 and K2 at a data rank's batch offset (rows
+    32-63 of bert-pretrain's B=64) against their plain versions and against
+    the whole batch's launches bit for bit; 27a ``torchrun --nproc-per-node
+    1`` (NCCL at world 1) runs ``bert-pretrain --mesh-data 1 --zero``
+    (BERT-Large, B=64 S=128, 3 steps: phase 10's losses) and ``dlrm
+    --mesh-model 1`` (26 x 100,000 x 128, B=65,536), then, alone on the
+    card once 27b has ended, their steps on CUDA events in turns with the
+    same steps without a mesh; 27b, beside 27a's first steps, two ranks on
+    the card over gloo (this script under ``torchrun --nproc-per-node 2``,
+    ``DLX_DIST_BACKEND=gloo``) run ``bert-pretrain --mesh-data 2 --zero``,
+    ``resnet50 --mesh-data 2`` (fp32, B=64 global) and ``dlrm --mesh-model
+    2``, 3 steps each, through the CLI's start-up and builders, each held
+    against the one-rank run of the same global batch on rank 0 (losses,
+    parameters in norm, BN running statistics), with each rank's optimizer
+    state and table rows
+
+The phases run in this order: 1, then 19-22 while ``nvcc`` builds the
+kernels on the host's cores (phase 2, joined before phase 3), then 3-18 and
+23-27. The float64 CPU references of phases 19, 22, 23 and 25 run on a host
+thread while the card runs the rest of their phase (19's beside 20), so
+the times that phases 20-22 print are taken with the host under load (they
+say so); each phase's seconds are printed before the kernels line.
+
 Each main path (serving: phases 5-6; BERT training: phase 10; DLRM
 training: phase 13; ``int8_matmul``: phase 14; ``fused_lamb``: phase 15;
 ``hot_gather``: phase 16; BERT fine-tuning: phase 18; each ConvNets run of
@@ -158,7 +181,8 @@ phase 20; SSD300's training, resume and inference in phase 21; Tacotron2's
 and WaveGlow's training and the TTS pipeline in phase 22; the beam searches
 and each encoder-decoder run of phase 23; each CLI run of phase 24; each
 speech command, both speech endpoints and the CTC step of phase 25; each
-CLI run of phase 26) runs with the launch counts set to 0 just before it
+CLI run of phase 26; the mesh runs of phase 27 in their processes) runs
+with the launch counts set to 0 just before it
 and read just after; on the ConvNets, SSD300, TTS, GNMT, ``--attention-impl
 xla``, HiFi-GAN and Jasper paths every count must stay 0, on the
 Transformer and BART paths K1 and K2 must launch and K3-K6 must not,
@@ -176,12 +200,14 @@ script exits non-zero; without a CUDA card it fails before printing a result.
 
 from __future__ import annotations
 
+import concurrent.futures
 import copy
 import dataclasses
 import json
 import math
 import os
 import shutil
+import signal
 import statistics
 import subprocess
 import sys
@@ -203,6 +229,7 @@ from deeplearningexamples_tpu_torch.data.squad import (
 )
 from deeplearningexamples_tpu_torch.data.tokenization import BertTokenizer
 from deeplearningexamples_tpu_torch.cli import main as cli_main
+from deeplearningexamples_tpu_torch.parallel import mesh as pmesh
 from deeplearningexamples_tpu_torch.cli.main import _bert_finetune_tx, cli
 from deeplearningexamples_tpu_torch.core import flat
 from deeplearningexamples_tpu_torch.core.train import (
@@ -1233,6 +1260,9 @@ def _raport_losses_and_times(path: Path) -> tuple[list[float], list[float]]:
     return [d["train.loss"] for d in data], [d["train.compute_time"] for d in data]
 
 
+TREE_LOSSES: dict[str, list[float]] = {}  # phase 10's curves, for 27a
+
+
 def phase_training() -> dict[str, int]:
     """``bert-pretrain`` through the CLI's runner on the card; returns the
     launches of the three runs (the training path)."""
@@ -1268,6 +1298,7 @@ def phase_training() -> dict[str, int]:
               f"{name}: losses {losses}")
         check(losses[-1] < losses[0], f"{name}: loss did not fall: {losses}")
         curves[name] = losses
+        TREE_LOSSES[name] = losses
         flat_steps = steps if name == "flat" else 0
         want = {**dict.fromkeys(launched, 0),
                 "flash_fwd": LAYERS * (steps + eval_steps),
@@ -2375,23 +2406,32 @@ def _within(worst: tuple[tuple, tuple], limits: tuple[float, float]) -> bool:
     return worst[0][0] <= limits[0] and worst[1][0] <= limits[1]
 
 
-def _convnet_parity(arch: str, b: int, size: int,
-                    phase: str = "19 ConvNets parity") -> str:
+def _convnet_reference(arch: str, b: int, size: int):
+    """19's weights and batch for one arch and its two float64 steps on the
+    CPU (training mode, then BN on its running statistics), started on the
+    host thread (``_HOST``) beside the card's work."""
     init = _convnet(arch, torch.float32, exact=True)
     batch = _convnet_batch(b, size)
+    return init, batch, _HOST.submit(lambda: (
+        _convnet_step(_float64(copy.deepcopy(init)), batch, "cpu"),
+        _convnet_step(_float64(copy.deepcopy(init)).eval(), batch, "cpu")))
+
+
+def _convnet_parity(arch: str, b: int, size: int,
+                    phase: str = "19 ConvNets parity", ref=None) -> str:
+    """One fp32 step of ``arch`` card vs CPU float64 (``ref``: its
+    ``_convnet_reference``, started now if not given)."""
+    init, batch, f64 = ref or _convnet_reference(arch, b, size)
     l_gpu, g_gpu, d_gpu, s_gpu = _convnet_step(copy.deepcopy(init).to(DEV),
                                                batch, DEV)
-    l64, g64, d64, s64 = _convnet_step(_float64(copy.deepcopy(init)), batch,
-                                       "cpu")
+    # the same step with BN on its running statistics
+    _, e_gpu, _, _ = _convnet_step(copy.deepcopy(init).to(DEV).eval(), batch,
+                                   DEV)
+    (l64, g64, d64, s64), (_, e64, _, _) = f64.result()
     g_rel, d_rel = _worst(g_gpu, g64), _worst(d_gpu, d64)
     st_rel = max((max_err(s_gpu[n], s64[n]) / max(
         float(s64[n].abs().max()), 1e-30), n) for n in s64)
     rel_loss = abs(l_gpu - l64) / abs(l64)
-    # the same step with BN on its running statistics
-    _, e_gpu, _, _ = _convnet_step(copy.deepcopy(init).to(DEV).eval(), batch,
-                                   DEV)
-    _, e64, _, _ = _convnet_step(_float64(copy.deepcopy(init)).eval(), batch,
-                                 "cpu")
     e_rel = _worst(e_gpu, e64)
     lim, lim_eval = TOL_CONV[arch], TOL_CONV[f"{arch} eval"]
     rm = s_gpu[next(n for n in s_gpu if n.endswith("running_mean"))]
@@ -2483,14 +2523,24 @@ def _qat_parity() -> str:
     return line
 
 
-def phase_convnet_parity() -> None:
+def _convnet_references() -> dict:
+    """19's float64 references of ResNet-50 and EfficientNet-B0."""
+    return {"resnet50": _convnet_reference("resnet50", CN_B, 224),
+            "efficientnet-b0": _convnet_reference("efficientnet-b0", CN_EFF_B,
+                                                  224)}
+
+
+def phase_convnet_parity(refs: dict) -> None:
+    """19 on ``_convnet_references``."""
     t0 = time.perf_counter()
     flags = (torch.backends.cudnn.benchmark, torch.backends.cudnn.deterministic)
     torch.backends.cudnn.benchmark, torch.backends.cudnn.deterministic = \
         False, True
     try:
-        lines = [_convnet_parity("resnet50", CN_B, 224), _qat_parity(),
-                 _convnet_parity("efficientnet-b0", CN_EFF_B, 224)]
+        lines = [_convnet_parity("resnet50", CN_B, 224,
+                                 ref=refs["resnet50"]), _qat_parity(),
+                 _convnet_parity("efficientnet-b0", CN_EFF_B, 224,
+                                 ref=refs["efficientnet-b0"])]
     finally:
         torch.backends.cudnn.benchmark, torch.backends.cudnn.deterministic = \
             flags
@@ -2500,6 +2550,12 @@ def phase_convnet_parity() -> None:
 
 
 # -- phase 20 ----------------------------------------------------------------
+
+# Phases 19-22 run while nvcc builds the kernels (phase 2) and the float64
+# references of 19 and 22 run on the host thread: the times they print are
+# taken with the host under that load, and are not the card's unloaded ones
+UNDER_LOAD = ("timed with the host under load (nvcc's build and the float64 "
+              "references beside it)")
 
 # (arch, batch size, steps, extra flags) through the CLI's runner
 QAT = ["--quant-policy", "qat"]
@@ -2526,18 +2582,27 @@ A100 = {"train": 2470.0, "infer_bs256": 1261.0, "infer_bs1_ms": 10.37}
 
 
 def _convnet_run(arch: str, b: int, steps: int, extra: list[str],
-                 work: Path, loss0_tol: float = 0.5) -> tuple[str, float]:
+                 work: Path, loss0_tol: float = 0.5,
+                 autotune: bool = False) -> tuple[str, float]:
     """One CLI run with the launch counts set to 0 just before it: every
     loss finite, the first within ``loss0_tol`` of ln 1000, eval's
     top1/top5/val_loss; K1-K6 launched 0 times. Returns its line and its
-    median step (ms)."""
+    median step (ms). Without ``autotune`` cuDNN takes its heuristics'
+    algorithms (``cli_main.CUDNN_BENCHMARK`` off): these runs check
+    correctness, and the autotuning cost about 50 s an EfficientNet and
+    25-37 s a GPUNet on the H100)."""
     ws = work / f"{arch}_{len(extra)}"
     shutil.rmtree(ws, ignore_errors=True)
     torch.cuda.reset_peak_memory_stats()
     _reset_counts()  # the ConvNets path starts here
     t0 = time.perf_counter()
-    state, best = cli([arch, "--batch-size", str(b), "--steps-per-epoch",
-                       str(steps), "--workspace", str(ws), *CN_FLAGS, *extra])
+    cli_main.CUDNN_BENCHMARK = autotune
+    try:
+        state, best = cli([arch, "--batch-size", str(b), "--steps-per-epoch",
+                           str(steps), "--workspace", str(ws), *CN_FLAGS,
+                           *extra])
+    finally:
+        cli_main.CUDNN_BENCHMARK = True
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launched = _counts()
@@ -2591,8 +2656,11 @@ def phase_convnets() -> dict[str, int]:
     t0 = time.perf_counter()
     work = ROOT / "workspace" / "chip_smoke"
     lines, rn50 = [], None
-    for arch, b, steps, extra in CN_RUNS:
-        line, median = _convnet_run(arch, b, steps, extra, work)
+    for i, (arch, b, steps, extra) in enumerate(CN_RUNS):
+        # the first run's img/s is the synthetic reading 26b compares with:
+        # it alone autotunes
+        line, median = _convnet_run(arch, b, steps, extra, work,
+                                    autotune=i == 0)
         lines.append(line)
         if arch == "resnet50" and not extra:
             rn50 = b / median * 1e3
@@ -2628,8 +2696,9 @@ def phase_convnets() -> dict[str, int]:
         f"CUDA events back to back, {host1:.3f} ms on the host clock per "
         f"call. NVIDIA's A100 80GB figures for the reference (another card): "
         f"{A100['train']:.0f} img/s training, {A100['infer_bs256']:.0f} img/s "
-        f"at B=256, {A100['infer_bs1_ms']} ms at B=1. K1-K6 launched 0 times "
-        f"on these paths; {time.perf_counter() - t0:.1f} s")
+        f"at B=256, {A100['infer_bs1_ms']} ms at B=1; every time here "
+        f"{UNDER_LOAD}. K1-K6 launched 0 times on these paths; "
+        f"{time.perf_counter() - t0:.1f} s")
     return dict.fromkeys(_counts(), 0)
 
 
@@ -2848,8 +2917,8 @@ def phase_ssd() -> dict[str, int]:
         f"({1e3 / ev1:.1f} img/s), {host1:.3f} ms on the host clock per call. "
         f"NVIDIA's A100 figures for the reference (another card): "
         f"{A100_SSD['train']} img/s training, {A100_SSD['infer_bs1']} img/s "
-        f"at B=1. K1-K6 launched 0 times on these paths; "
-        f"{time.perf_counter() - t0:.1f} s")
+        f"at B=1; every time here {UNDER_LOAD}. K1-K6 launched 0 times on "
+        f"these paths; {time.perf_counter() - t0:.1f} s")
     return launched
 
 
@@ -2982,13 +3051,21 @@ def _update64(step: dict, other_branch: bool = False) -> tuple[dict, dict]:
             {n: 0.1 * x * scale for n, x in g.items()})
 
 
-def _tts_parity(name: str, batch: dict) -> tuple[str, dict]:
-    """22 a-b: one fp32 step card vs CPU float64, the bf16 card step the
-    control."""
+def _tts_reference(name: str, batch: dict):
+    """22 a-b's weights for one model and its float64 step on the CPU,
+    started on the host thread (``_HOST``) beside the card's work."""
     init = _tts_init(name)
+    return batch, init, _HOST.submit(_tts_step, _float64(copy.deepcopy(init)),
+                                     batch, "cpu")
+
+
+def _tts_parity(name: str, ref) -> tuple[str, dict]:
+    """22 a-b: one fp32 step card vs CPU float64 (``ref``: the model's
+    ``_tts_reference``), the bf16 card step the control."""
+    batch, init, f64 = ref
     gpu = _tts_step(copy.deepcopy(init), batch, DEV)
-    f64 = _tts_step(_float64(copy.deepcopy(init)), batch, "cpu")
     b16 = _tts_step(_tts_copy(init, torch.bfloat16), batch, DEV)
+    f64 = f64.result()
     lim = TOL_TTS[name]
     g64 = f64["grads"]
     g_rel, w16 = (_worst(s["grads"], g64) for s in (gpu, b16))
@@ -3035,29 +3112,43 @@ def _tts_parity(name: str, batch: dict) -> tuple[str, dict]:
     return line, init
 
 
-def phase_tts_parity() -> None:
+def _tts_references() -> dict:
+    """22 a-b's float64 references on the host thread: Tacotron2's and
+    WaveGlow's steps, then WaveGlow's infer at sigma 0 (and the CPU's fp32
+    infer beside it)."""
+    b, text_len, mel_len = T2_PARITY
+    refs = {"tacotron2": _tts_reference("tacotron2", next(iter(
+        SyntheticTacotronLoader(b, text_len, mel_len, steps=1)))),
+        "waveglow": _tts_reference("waveglow", next(iter(
+            SyntheticWaveGlowLoader(WG_PARITY_B, steps=1))))}
+    batch, init, _ = refs["waveglow"]
+    mel = torch.from_numpy(batch["mel"])
+    refs["infer"] = _HOST.submit(lambda: (
+        _float64(copy.deepcopy(init)).infer(mel.double(), 0.0),
+        copy.deepcopy(init).infer(mel, 0.0)))
+    return refs
+
+
+def phase_tts_parity(refs: dict) -> None:
     """22 a-b: one fp32 Tacotron2 step (B=4, text 64, mel 96) and one fp32
     WaveGlow step (B=2, segment 8000) on the card against the CPU in
-    float64, with bf16 controls; then WaveGlow's infer at sigma 0 on the
-    card against the CPU in float64."""
+    float64 (``refs``: ``_tts_references``), with bf16 controls; then
+    WaveGlow's infer at sigma 0 on the card against the CPU in float64."""
     t0 = time.perf_counter()
     flags = (torch.backends.cudnn.benchmark, torch.backends.cudnn.deterministic)
     torch.backends.cudnn.benchmark, torch.backends.cudnn.deterministic = \
         False, True
     try:
-        b, text_len, mel_len = T2_PARITY
-        t2_line, _ = _tts_parity("tacotron2", next(iter(
-            SyntheticTacotronLoader(b, text_len, mel_len, steps=1))))
-        wg_batch = next(iter(SyntheticWaveGlowLoader(WG_PARITY_B, steps=1)))
-        wg_line, init = _tts_parity("waveglow", wg_batch)
-        mel = torch.from_numpy(wg_batch["mel"])
-        want = _float64(copy.deepcopy(init)).infer(mel.double(), 0.0)
+        t2_line, _ = _tts_parity("tacotron2", refs["tacotron2"])
+        wg_line, init = _tts_parity("waveglow", refs["waveglow"])
+        mel = torch.from_numpy(refs["waveglow"][0]["mel"])
+        want, cpu32 = refs["infer"].result()
         errs = {}
         for what, model in (("card fp32", copy.deepcopy(init).to(DEV)),
-                            ("CPU fp32", copy.deepcopy(init)),
+                            ("CPU fp32", None),
                             ("card bf16", _tts_copy(init, torch.bfloat16).to(DEV))):
-            dev = next(model.parameters()).device
-            got = model.infer(mel.to(dev), 0.0)
+            got = cpu32 if model is None else model.infer(
+                mel.to(next(model.parameters()).device), 0.0)
             errs[what] = max_err(got, want) / float(want.abs().max())
     finally:
         torch.backends.cudnn.benchmark, torch.backends.cudnn.deterministic = \
@@ -3175,8 +3266,9 @@ def phase_tts() -> dict[str, int]:
         f"{[len(w) for w in wavs]} samples; text to wav {total:.3f} s: "
         + ", ".join(f"{k} {v:.3f} s" for k, v in parts.items())
         + f" (first call {runs[0][0]:.3f} s; the denoiser's bias "
-        f"{bias_s:.3f} s at construction). K1-K6 launched 0 times on these "
-        f"paths; {time.perf_counter() - t0:.1f} s")
+        f"{bias_s:.3f} s at construction); every time here {UNDER_LOAD}. "
+        f"K1-K6 launched 0 times on these paths; "
+        f"{time.perf_counter() - t0:.1f} s")
     return launched
 
 
@@ -3383,15 +3475,23 @@ def _worst_update(deltas: dict, want: dict, before: dict):
     return max(out[0]), max(out[1])
 
 
-def _s2s_parity(kind: str) -> None:
-    """23a for one model."""
+def _s2s_reference(kind: str):
+    """23a's batch and weights for one model, and its float64 step on the
+    CPU, started on the host thread (``_HOST``) so that it runs beside the
+    card's work of 23c-d."""
+    batch, init = _s2s_batch(kind), _s2s_init(kind)
+    return batch, init, _HOST.submit(
+        _s2s_step, kind, _float64(copy.deepcopy(init)), batch, "cpu",
+        update=False)
+
+
+def _s2s_parity(kind: str, ref) -> None:
+    """23a for one model, on its ``_s2s_reference``."""
     t0 = time.perf_counter()
-    batch = _s2s_batch(kind)
-    init = _s2s_init(kind)
+    batch, init, f64 = ref
     gpu = _s2s_step(kind, copy.deepcopy(init), batch, DEV)
-    f64 = _s2s_step(kind, _float64(copy.deepcopy(init)), batch, "cpu",
-                    update=False)
     b16 = _s2s_step(kind, _s2s_copy(init, torch.bfloat16), batch, DEV)
+    f64 = f64.result()
     del init
     lim = TOL_S2S[kind]
     g64 = f64["grads"]
@@ -3424,11 +3524,11 @@ def _s2s_parity(kind: str) -> None:
               f"{kind} {what} update: deltas {d}, moments {m}")
 
 
-def phase_s2s_parity() -> None:
+def phase_s2s_parity(refs: dict) -> None:
     """23a: one fp32 step of Transformer-base, bart-large and GNMT, card
-    against CPU float64, with bf16 controls; each model's line is printed
-    before its checks, and every model runs before the first failure is
-    raised."""
+    against CPU float64 (``refs``: each model's ``_s2s_reference``), with
+    bf16 controls; each model's line is printed before its checks, and
+    every model runs before the first failure is raised."""
     flags = (torch.backends.cudnn.benchmark, torch.backends.cudnn.deterministic)
     torch.backends.cudnn.benchmark, torch.backends.cudnn.deterministic = \
         False, True
@@ -3436,7 +3536,7 @@ def phase_s2s_parity() -> None:
     try:
         for kind in S2S_PARITY:
             try:
-                _s2s_parity(kind)
+                _s2s_parity(kind, refs[kind])
             except AssertionError as e:
                 failed.append(str(e))
     finally:
@@ -4459,18 +4559,26 @@ def _speech_grads(kind: str, model, batch: dict, device, draws: dict) -> dict:
                       for (n, p), g in zip(params.items(), grads)}}
 
 
-def _speech_parity(kind: str) -> None:
-    """25b for one model."""
-    t0 = time.perf_counter()
+def _speech_reference(kind: str):
+    """25b's batch, draws and weights for one model, and its float64 step
+    on the CPU, started on the host thread (``_HOST``) beside 25c-e."""
     batch = _speech_batch(kind)
     draws = Wav2Vec2Task().draws(torch.Generator().manual_seed(SEED), SPEECH_B,
                                  49, "cpu") if kind == "wav2vec2" else {}
     init = _speech_init(kind)
+    return batch, draws, init, _HOST.submit(
+        _speech_grads, kind, _float64(copy.deepcopy(init)), batch, "cpu",
+        draws)
+
+
+def _speech_parity(kind: str, ref) -> None:
+    """25b for one model, on its ``_speech_reference``."""
+    t0 = time.perf_counter()
+    batch, draws, init, f64 = ref
     gpu = _speech_grads(kind, copy.deepcopy(init), batch, DEV, draws)
-    f64 = _speech_grads(kind, _float64(copy.deepcopy(init)), batch, "cpu",
-                        draws)
     b16 = _speech_grads(kind, _s2s_copy(init, torch.bfloat16), batch, DEV,
                         draws)
+    f64 = f64.result()
     del init
     loss_lim, *lim = TOL_SPEECH[kind]
     g64 = f64["grads"]
@@ -4490,8 +4598,9 @@ def _speech_parity(kind: str) -> None:
           f"{kind}: the bf16 control meets the fp32 limits: {b16['loss']} {w16}")
 
 
-def phase_speech_parity() -> None:
-    """25b: every model runs before the first failure is raised."""
+def phase_speech_parity(refs: dict) -> None:
+    """25b on each model's ``_speech_reference``: every model runs before
+    the first failure is raised."""
     flags = (torch.backends.cudnn.benchmark, torch.backends.cudnn.deterministic)
     torch.backends.cudnn.benchmark, torch.backends.cudnn.deterministic = \
         False, True
@@ -4499,7 +4608,7 @@ def phase_speech_parity() -> None:
     try:
         for kind in TOL_SPEECH:
             try:
-                _speech_parity(kind)
+                _speech_parity(kind, refs[kind])
             except AssertionError as e:
                 failed.append(str(e))
     finally:
@@ -4758,11 +4867,13 @@ def phase_speech_all() -> tuple[float, float, dict[str, int]]:
     """Phase 25: (the worst K1 and K2 errors, the launches of the main
     paths 25c-e)."""
     fwd, bwd = phase_speech_kernels()
-    phase_speech_parity()
+    # the float64 references of 25b on the host thread, beside 25c-e
+    refs = {kind: _speech_reference(kind) for kind in TOL_SPEECH}
     launched = phase_speech()
     launched["flash_fwd"] += phase_speech_serving()
     for k, v in phase_speech_ctc().items():
         launched[k] += v
+    phase_speech_parity(refs)
     return fwd, bwd, launched
 
 
@@ -5015,7 +5126,7 @@ def phase_imagenet(work: Path) -> int:
           f"reading a batch's files {read_ms:.2f} ms, the plane's decode of "
           f"their bytes at RRC crops {decode_ms:.2f} ms (least of 3)"
         + "; phase 20's synthetic rate "
-        + (f"{synth20:.1f} img/s in this run" if synth20 else
+        + (f"{synth20:.1f} img/s in this run, {UNDER_LOAD}" if synth20 else
            "not measured in this run")
         + f"; resample_normalize launched {launched} times, K1-K6 0; peak "
         f"{run['peak_gb']:.2f} GB; runs {runs['synthetic']['wall']:.1f}, "
@@ -5215,83 +5326,518 @@ def phase_real_data() -> tuple[dict, int]:
     return result, launched
 
 
+# -- phase 27 ----------------------------------------------------------------
+
+MESH_STEPS = 3
+MESH_OFFSET = 32  # a data rank's half of bert-pretrain's batch of 64
+# Two gloo ranks on the card against the one-rank run of the same global
+# batch, bf16: each rank's forward multiplies 32 rows where the one rank
+# multiplies 64 (cuBLAS rounds them apart), the gradients add over the ranks
+# in another order, ZeRO takes ||p|| and ||u|| from two halves. LAMB's first
+# steps are about lr * sign(g) an entry, so an entry whose gradient is
+# rounding noise (the key biases') steps either way: the parameters are
+# compared in norm over the model, never entry by entry. Limits: each loss
+# relative to the one rank's; ||p(2 ranks) - p(1 rank)|| over
+# ||p(1 rank) - p(before)||, the distance the steps moved the model; the BN
+# running statistics' distance over their norm. Each lies between the sound
+# readings and those of planted faults (scripts/mesh_fault_check.py, NVIDIA
+# H100 80GB HBM3, 700 W): sound BERT / ResNet-50 losses 5.0e-5 / 3.2e-5,
+# parameters 1.39% / 1.89% of their move, BN statistics 3.6e-5; BN on the
+# rank's rows 2.5e-3, 14.0%, 4.9e-3; K1's hash on the local row (BERT)
+# 1.2e-3, 11.1%; no gradient mean over the data axis 1.2e-2 / 2.2e-1, 57% /
+# 106%, 3.7e-2.
+TOL_MESH = {"loss": 3e-4, "param_of_move": 0.05, "stats": 4e-4}
+# 27a under torchrun at world 1 runs phase 10's tree run (its seed, batch,
+# dropout draws and schedule) with --zero: its losses are phase 10's
+TOL_MESH_WORLD1 = 1e-5
+
+
+def _offset_kernels() -> float:
+    """K1 and K2 on a data rank's half of bert-pretrain's batch (rows 32-63
+    of B=64, S=128, H=16, D=64, bf16, masked, dropout 0.1 with the batch
+    offset 32) against their plain versions with the same offset, and
+    against rows 32.. of the whole batch's launches bit for bit. Returns
+    the worst error against the plain versions."""
+    q, k, v, mask = _attn_inputs(TB, TS, 16, 64, torch.bfloat16, "bshd")
+    kw = dict(layout="bshd", dropout_rate=0.1, dropout_seed=-77)
+    scale = 1.0 / math.sqrt(64)
+    half = [t[MESH_OFFSET:].contiguous() for t in (q, k, v, mask)]
+    whole, whole_lse = fa.flash_attention_with_lse(q, k, v, mask, **kw)
+    out, lse = fa.flash_attention_with_lse(
+        *half, dropout_batch_offset=MESH_OFFSET, **kw)
+    check(torch.equal(out, whole[MESH_OFFSET:])
+          and torch.equal(lse, whole_lse[MESH_OFFSET:]),
+          "K1 at batch offset 32 is not rows 32.. of the whole batch's")
+    ref, ref_lse = fa.mha_reference(*half, **kw,
+                                    dropout_batch_offset=MESH_OFFSET)
+    fwd_err = max_err(out, ref)
+    check(fwd_err <= TOL[torch.bfloat16][0]
+          and max_err(lse, ref_lse) <= TOL[torch.bfloat16][1],
+          f"K1 at batch offset 32 against its plain version: {fwd_err}")
+    dout = torch.randn(out.shape, generator=torch.Generator().manual_seed(3)
+                       ).to(DEV, torch.bfloat16)
+    args = (False, scale, "bshd", 0.1, -77)
+    grads = fa._flash_bwd_cuda(*half[:3], half[3], out, lse, dout, *args,
+                               MESH_OFFSET)
+    whole_grads = fa._flash_bwd_cuda(
+        q, k, v, mask, whole, whole_lse,
+        torch.cat([torch.zeros_like(dout), dout]), *args, 0)
+    check(all(torch.equal(g, w[MESH_OFFSET:])
+              for g, w in zip(grads, whole_grads)),
+          "K2 at batch offset 32 is not rows 32.. of the whole batch's")
+    want = fa.mha_backward_reference(*half[:3], half[3], out, lse, dout,
+                                     layout="bshd", dropout_rate=0.1,
+                                     dropout_seed=-77,
+                                     dropout_batch_offset=MESH_OFFSET)
+    bwd_err = max(max_err(g, w) / float(w.float().abs().max())
+                  for g, w in zip(grads, want))
+    check(bwd_err <= TOL_BWD[torch.bfloat16],
+          f"K2 at batch offset 32 against its plain backward: {bwd_err}")
+    return max(fwd_err, bwd_err)
+
+
+def _dropout_draw_ms() -> tuple[float, float, int]:
+    """What hidden dropout's global draw costs a data rank of 2 at
+    bert-pretrain's shape: (ms to draw the global batch's uniforms and keep
+    the rank's rows, ms to draw the rank's rows alone, draws a step: the
+    embeddings' and two a layer, each again in the backward)."""
+    gen = torch.Generator(device=DEV)
+    shape = (TB // 2, TS, BERT_CONFIGS["large"].hidden_size)
+
+    def draw(rows, off):  # as ops/dropout.py's _keep_scale at rank 1
+        gen.manual_seed(5)
+        return torch.rand((rows, *shape[1:]), generator=gen,
+                          device=DEV)[off:off + shape[0]]
+
+    return (_event_ms(lambda: draw(TB, TB // 2)),
+            _event_ms(lambda: draw(shape[0], 0)), 2 * (1 + 2 * LAYERS))
+
+
+def _mesh_steps(run, cfg, steps: int = MESH_STEPS):
+    """``steps`` of a CLI build's train step on its loader's batches (this
+    rank's rows, ``cli.main.to_device``): the losses and each step's ms on
+    CUDA events. The run's state moves on."""
+    batches = iter(cli_main.to_device(run.loader, cfg.device,
+                                      cfg.accum_steps))
+    losses, ms = [], []
+    for _ in range(steps):
+        batch = next(batches)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        run.state, metrics = run.train_step(run.state, batch)
+        end.record()
+        losses.append(float(metrics["loss"]))
+        ms.append(start.elapsed_time(end))
+    return losses, ms
+
+
+def _mesh_cfgs(work: Path, data: int, model: int) -> dict:
+    """The three commands' configs at the mesh (data, model), as the CLI
+    makes them from flags."""
+    ws = str(work)
+    return {
+        "bert": cli_main.BertCliConfig(
+            bert_model="large", batch_size=TB, seq_len=TS, max_predictions=20,
+            steps_per_epoch=10, lr=float(PRETRAIN_LR), zero=True,
+            mesh_data=data, workspace=ws),
+        # fp32 (TF32 off): in bf16 at lr 0.256 a rounding apart grows from
+        # step to step (a narrow ResNet's third step lands 17% of its
+        # distance apart on the CPU), where fp32 shows what the axis changes
+        "resnet50": cli_main.ConvNetCliConfig(
+            batch_size=TB, steps_per_epoch=10, lr=CN_LR, momentum=CN_MOM,
+            weight_decay=CN_WD, label_smoothing=CN_LS, mesh_data=data,
+            amp=False, workspace=ws),
+        "dlrm": cli_main.DlrmCliConfig(
+            batch_size=DLRM_B, steps_per_epoch=10,
+            lr=float(DLRM_LR_STABLE), mesh_data=1 if model > 1 else data,
+            mesh_model=model, workspace=ws),
+    }
+
+
+def _build_run(name: str, cfg):
+    if name == "bert":
+        return cli_main.build_bert_pretrain(cfg)
+    if name == "dlrm":
+        return cli_main.build_dlrm(cfg)
+    return cli_main.build_convnet(name, cfg)
+
+
+def _whole(run) -> dict[str, torch.Tensor]:
+    """The parameters, a sharded table gathered whole (every rank calls)."""
+    return {n: pmesh.gather_sharded(p).detach().float().clone()
+            for n, p in run.state.model.named_parameters()}
+
+
+def _norm(a: dict, b: dict) -> float:
+    """||a - b|| over every tensor of ``b``, in float64."""
+    return math.sqrt(sum(float((a[n].double() - t.double()).square().sum())
+                         for n, t in b.items()))
+
+
+def _mesh_child(which: str, names: list[str] | None = None) -> None:
+    """A rank of 27a (``torchrun --nproc-per-node 1``, NCCL) or 27b (two
+    ranks on the card over gloo): prints one ``MESH {...}`` line a command
+    (``names``: these of the phase's commands only). 27a then waits for
+    the file ``MESH_GO_FILE`` names (where it is set: the phase makes it
+    when 27b has ended) and times its hooks, alone on the card, in a second
+    line a command."""
+    torch.backends.cuda.matmul.allow_tf32 = False  # as phase_device sets
+    torch.backends.cudnn.allow_tf32 = False
+    world2 = which == "27b"
+    work = Path(tempfile.mkdtemp(prefix="mesh_"))
+    out: dict = {"rank": int(os.environ.get("RANK", 0))}
+    kept = {}  # 27a's runs, timed after 27b
+    for name in names or (("bert", "resnet50", "dlrm") if world2
+                          else ("bert", "dlrm")):
+        cfg = _mesh_cfgs(work, 2 if world2 and name != "dlrm" else 1,
+                         2 if world2 and name == "dlrm" else 1)[name]
+        cli_main._common_setup(cfg, name)  # the CLI's start-up
+        m = pmesh.current_mesh()
+        run = _build_run(name, cfg)
+        first = _whole(run) if world2 else None  # every rank gathers
+        _reset_counts()
+        losses, ms = _mesh_steps(run, cfg)
+        torch.cuda.synchronize()
+        got = {"losses": losses, "ms": ms, "launched": _counts(),
+               "backend": torch.distributed.get_backend(),
+               "world": m.world, "shape": m.shape}
+        opt = run.state.opt_state
+        if name == "bert":
+            got["opt_bytes"] = sum(t.nbytes for part in (opt.mu, opt.nu)
+                                   for t in part.values())
+        if name == "dlrm":
+            got["table_rows"] = run.state.model.embedding_table.shape[0]
+        if not world2:
+            kept[name] = (run, cfg)
+        else:
+            params = _whole(run)
+            if m.is_primary:  # the one-rank run of the same global batch
+                pmesh.reset_mesh()
+                ref = _build_run(name, cfg)
+                got["ref_losses"], got["ref_ms"] = _mesh_steps(ref, cfg)
+                want = _whole(ref)
+                got["param_diff"] = _norm(params, want)
+                got["param_move"] = _norm(first, want)
+                if name == "resnet50":
+                    bufs = dict(run.state.model.named_buffers())
+                    stats = {n: b.float() for n, b in
+                             ref.state.model.named_buffers()
+                             if n.endswith(("running_mean", "running_var"))}
+                    got["stats_diff"] = _norm(bufs, stats) / _norm(
+                        {n: torch.zeros_like(b) for n, b in stats.items()},
+                        stats)
+                del ref, want
+            del params, first
+            torch.distributed.barrier()
+        # one write a line: the ranks share the pipe
+        sys.stdout.write("MESH " + json.dumps({**out, name: got}) + "\n")
+        sys.stdout.flush()
+        del run
+        torch.cuda.empty_cache()
+    go, deadline = os.environ.get("MESH_GO_FILE"), time.monotonic() + 900
+    while kept and go and not os.path.exists(go):
+        check(time.monotonic() < deadline, "27a: 27b never ended")
+        time.sleep(0.1)
+    for name, (run, cfg) in kept.items():
+        # the hooks' cost at world 1: the same state, the same steps in
+        # turns with the 1 x 1 x 1 mesh of a run without torchrun
+        turns = {"ms": [], "ms_no_mesh": []}
+        for _ in range(3):
+            pmesh.reset_mesh()
+            turns["ms_no_mesh"] += _mesh_steps(run, cfg)[1][1:]
+            pmesh.build_mesh(pmesh.MeshSpec(cfg.mesh_data, cfg.mesh_model))
+            turns["ms"] += _mesh_steps(run, cfg)[1][1:]
+        sys.stdout.write("MESH " + json.dumps({**out, f"{name}_turns": turns})
+                         + "\n")
+        sys.stdout.flush()
+    kept.clear()
+    shutil.rmtree(work, ignore_errors=True)
+    torch.distributed.destroy_process_group()
+
+
+def _torchrun(which: str, nproc: int, **env) -> subprocess.Popen:
+    """Start ``python -m torch.distributed.run`` of this script's
+    ``--mesh`` mode (read it with ``_ranks``)."""
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc-per-node", str(nproc), str(ROOT / "chip_smoke.py"),
+           "--mesh", which]
+    return subprocess.Popen(cmd, cwd=ROOT, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True,
+                            env={**os.environ, **env},
+                            start_new_session=True)  # killed as a group
+
+
+def _ranks(which: str, proc: subprocess.Popen, nproc: int,
+           timeout: int) -> list[dict]:
+    """A ``_torchrun``'s ranks' ``MESH`` lines, merged per rank (raises
+    at ``timeout``)."""
+    out, err = proc.communicate(timeout=timeout)
+    if proc.returncode != 0:
+        print(out[-6000:], err[-6000:], flush=True)
+        raise AssertionError(f"{which}: torchrun exited {proc.returncode}")
+    ranks: dict[int, dict] = {}
+    for line in out.splitlines():
+        if line.startswith("MESH "):
+            got = json.loads(line[5:])
+            ranks.setdefault(got["rank"], {}).update(got)
+    check(sorted(ranks) == list(range(nproc)), f"{which}: ranks {sorted(ranks)}")
+    return [ranks[r] for r in range(nproc)]
+
+
+def _median_ms(ms: list[float]) -> float:
+    return statistics.median(ms[1:])  # the first step warms up
+
+
+def phase_mesh() -> tuple[float, dict[str, int]]:
+    """27: the data and model mesh axes on the one card. K1/K2 at a data
+    rank's batch offset; 27a ``torchrun --nproc-per-node 1`` (NCCL at world
+    1) runs ``bert-pretrain --mesh-data 1 --zero`` (BERT-Large, B=64 S=128,
+    phase 10's losses) and ``dlrm --mesh-model 1`` (26 x 100,000 x 128,
+    B=65,536), each step on CUDA events beside the same steps with no mesh;
+    27b two ranks on the card over gloo run ``bert-pretrain --mesh-data 2
+    --zero``, ``resnet50 --mesh-data 2`` (B=64 global) and ``dlrm
+    --mesh-model 2``, each against the one-rank run of the same global
+    batch. Returns the offset kernels' worst error and the launches of the
+    mesh runs (27a's, 27b's rank 0)."""
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    err = _offset_kernels()
+    launched = dict.fromkeys(_counts(), 0)
+    # 27a's first steps (its checks) run beside 27b; its timed turns (the
+    # world-1 hooks against no mesh) wait until 27b has ended, so that they
+    # share the card and the host with nothing
+    go = Path(tempfile.mkdtemp(prefix="mesh_go_")) / "go"
+    procs = (_torchrun("27a", 1, MESH_GO_FILE=str(go)),
+             _torchrun("27b", 2, DLX_DIST_BACKEND="gloo"))
+    reader = concurrent.futures.ThreadPoolExecutor(1)
+    try:
+        a_ranks = reader.submit(_ranks, "27a", procs[0], 1, 900)
+        b = _ranks("27b", procs[1], 2, 600)
+        go.touch()
+        a = a_ranks.result()[0]
+    finally:  # neither launcher nor its ranks outlive the phase
+        for proc in procs:
+            if proc.poll() is None:
+                os.killpg(proc.pid, signal.SIGKILL)
+                proc.wait()
+        reader.shutdown()
+        shutil.rmtree(go.parent, ignore_errors=True)
+    for name in ("bert", "dlrm"):
+        check(a[name]["backend"] == "nccl" and a[name]["world"] == 1,
+              f"27a {name}: {a[name]['backend']} at world {a[name]['world']}")
+        for k, v in a[name]["launched"].items():
+            launched[k] += v
+    want = TREE_LOSSES["tree"][:MESH_STEPS]
+    check(all(abs(x - y) <= TOL_MESH_WORLD1 * abs(y)
+              for x, y in zip(a["bert"]["losses"], want)),
+          f"27a bert-pretrain --zero at world 1: {a['bert']['losses']} vs "
+          f"phase 10's {want}")
+    check(a["bert"]["launched"]["flash_fwd"] == LAYERS * MESH_STEPS
+          and a["bert"]["launched"]["flash_bwd_dkv"] == LAYERS * MESH_STEPS
+          and a["dlrm"]["launched"]["gather_rows"] == MESH_STEPS,
+          f"27a launches {a['bert']['launched']}, {a['dlrm']['launched']}")
+    say("27a NCCL at world 1", "torchrun --nproc-per-node 1, its first 3 "
+        "steps beside 27b, its timed turns alone after 27b: "
+        + "; ".join(
+            f"{name} losses " + " ".join(f"{x:.4f}" for x in a[name]["losses"])
+            + f", step {statistics.median(a[name + '_turns']['ms']):.2f} ms "
+            f"on CUDA events (median of 6: 3 turns of 3 steps after the "
+            f"first), {statistics.median(a[name + '_turns']['ms_no_mesh']):.2f}"
+            " ms in turns with no mesh (a run without torchrun), same state"
+            for name in ("bert", "dlrm"))
+        + f"; bert-pretrain --zero equals phase 10's losses {want} within "
+        f"{TOL_MESH_WORLD1}")
+    lines = []
+    for name in ("bert", "resnet50", "dlrm"):
+        r0, r1 = b[0][name], b[1][name]
+        check(r0["backend"] == "gloo" and r0["world"] == 2,
+              f"27b {name}: {r0['backend']} at world {r0['world']}")
+        check(r0["losses"] == r1["losses"],
+              f"27b {name}: the ranks' losses differ {r0['losses']} "
+              f"{r1['losses']}")
+        check(all(abs(x - y) <= TOL_MESH["loss"] * abs(y)
+                  for x, y in zip(r0["losses"], r0["ref_losses"])),
+              f"27b {name}: losses {r0['losses']} vs one rank's "
+              f"{r0['ref_losses']}")
+        check(r0["param_diff"] <= TOL_MESH["param_of_move"] * r0["param_move"],
+              f"27b {name}: parameters {r0['param_diff']:.3e} apart in norm, "
+              f"the steps moved them {r0['param_move']:.3e}")
+        for k, v in r0["launched"].items():
+            launched[k] += v
+        line = (f"{name} {r0['shape']}: losses "
+                + " ".join(f"{x:.4f}" for x in r0["losses"]) + " vs one rank "
+                + " ".join(f"{x:.4f}" for x in r0["ref_losses"])
+                + f"; parameters {r0['param_diff']:.3e} apart in norm (the "
+                f"steps moved them {r0['param_move']:.3e}); step "
+                f"{_median_ms(r0['ms']):.1f} ms (one rank "
+                f"{_median_ms(r0['ref_ms']):.1f} ms)")
+        if name == "bert":
+            line += (f"; optimizer state {r0['opt_bytes'] / 1e6:.1f} MB on "
+                     f"rank 0, {r1['opt_bytes'] / 1e6:.1f} MB on rank 1")
+        if name == "resnet50":
+            check(r0["stats_diff"] <= TOL_MESH["stats"],
+                  f"27b resnet50: BN running statistics {r0['stats_diff']}")
+            line += f"; BN running statistics {r0['stats_diff']:.3e} apart"
+        if name == "dlrm":
+            check(r0["table_rows"] + r1["table_rows"] == DLRM_CFG.total_rows
+                  and r0["table_rows"] == DLRM_CFG.total_rows // 2,
+                  f"27b dlrm: table rows {r0['table_rows']}, "
+                  f"{r1['table_rows']}")
+            line += (f"; table rows {r0['table_rows']} on rank 0, "
+                     f"{r1['table_rows']} on rank 1")
+        lines.append(line)
+    check(b[0]["bert"]["launched"]["flash_fwd"] == LAYERS * MESH_STEPS
+          and b[0]["dlrm"]["launched"]["gather_rows"] == MESH_STEPS
+          and b[0]["resnet50"]["launched"] == dict.fromkeys(_counts(), 0),
+          f"27b launches {[b[0][n]['launched'] for n in b[0] if n != 'rank']}")
+    drop = _dropout_draw_ms()
+    say("27b two gloo ranks on the card", "beside 27a's first steps (its "
+        "step times so): " + "; ".join(lines)
+        + f"; K1/K2 at batch offset 32 against plain {err:.3e}; hidden "
+        f"dropout's draw at a rank of 2 (the global batch's uniforms, the "
+        f"rank's rows kept) {drop[0]:.4f} ms against {drop[1]:.4f} ms for "
+        f"the rank's rows alone, {drop[2]} draws a step (CUDA events); "
+        f"{time.perf_counter() - t0:.1f} s")
+    return err, launched
+
+
+# The float64 references of phases 23 and 25 run here, one at a time, while
+# the card runs the phase's other work (torch's CPU ops release the GIL)
+_HOST = concurrent.futures.ThreadPoolExecutor(1, thread_name_prefix="float64")
+PHASE_SECONDS: dict[str, float] = {}
+
+
+class _phase:
+    """Adds the seconds of the ``with`` block to the phase's entry of
+    ``PHASE_SECONDS`` (printed before the kernels line)."""
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self):
+        self.t0 = time.perf_counter()
+
+    def __exit__(self, *exc):
+        PHASE_SECONDS[self.name] = PHASE_SECONDS.get(self.name, 0.0) + (
+            time.perf_counter() - self.t0)
+
+
 def main() -> None:
-    name = phase_device()
-    phase_build()
-    results = {"flash_fwd": phase_kernel()}
-    fwd_err, bwd = phase_flash_bwd()
-    results["flash_fwd"]["max_abs_err"] = max(
-        results["flash_fwd"]["max_abs_err"], fwd_err)
-    results.update(bwd)
-    results.update(phase_flat_lamb())
-    results["gather_rows"] = phase_gather()
-    task, model = phase_slice()
-    launched = dict.fromkeys(_counts(), 0)  # each kernel's main-path launches
-    launched["flash_fwd"] = phase_serving(task, model)  # counts set to 0 there
-    launched["flash_fwd"] += phase_predict(task, model)
-    check(_counts() == {**dict.fromkeys(_counts(), 0),
-                        "flash_fwd": launched["flash_fwd"]},
-          "a launch count moved outside the serving path")
-    check(launched["flash_fwd"] > 0, "the serving path never launched flash_fwd")
-    del task, model
-    phase_train_parity()
-    for k, v in phase_training().items():  # counts set to 0 there
-        launched[k] += v
-    phase_dlrm_parity()
-    launched["gather_rows"] += phase_dlrm_training()  # counts set to 0 there
-    results["quantize_activations"], launched["quantize_activations"] = \
-        phase_quantize()  # counts set to 0 there
-    fused_results, fused_launched = phase_fused_lamb()  # counts set to 0 there
-    results.update(fused_results)
-    for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
-        launched[k] += fused_launched[k]
-    # K3 at 8K blocks is reported apart from K3 at 64K (phase 10's path)
-    launched["flat_lamb_moments_8k"] = fused_launched["flat_lamb_moments"]
-    launched["flat_lamb_apply_8k"] = fused_launched["flat_lamb_apply"]
-    results["hot_gather"], launched["hot_gather"] = \
-        phase_hot_gather()  # counts set to 0 there
-    ft_fwd, ft_bwd = phase_finetune_parity()
-    results["flash_fwd"]["max_abs_err"] = max(
-        results["flash_fwd"]["max_abs_err"], ft_fwd)
-    for k in ("flash_bwd_dq", "flash_bwd_dkv"):
-        results[k]["max_abs_err"] = max(results[k]["max_abs_err"], ft_bwd)
-    for k, v in phase_finetune().items():  # counts set to 0 there
-        launched[k] += v
-    phase_convnet_parity()
-    for k, v in phase_convnets().items():  # counts set to 0 there
-        launched[k] += v
-    phase_ssd_parity()
-    for k, v in phase_ssd().items():  # counts set to 0 there
-        launched[k] += v
-    phase_tts_parity()
-    for k, v in phase_tts().items():  # counts set to 0 there
-        launched[k] += v
-    phase_s2s_parity()
-    s2s_fwd, s2s_bwd = phase_s2s_kernels()
-    results["flash_fwd"]["max_abs_err"] = max(
-        results["flash_fwd"]["max_abs_err"], s2s_fwd)
-    for k in ("flash_bwd_dq", "flash_bwd_dkv"):
-        results[k]["max_abs_err"] = max(results[k]["max_abs_err"], s2s_bwd)
-    _reset_counts()  # the decoding path starts here
-    launched["flash_fwd"] += phase_s2s_decode()["flash_fwd"]
-    for k, v in phase_s2s().items():  # counts set to 0 there
-        launched[k] += v
-    data_fwd, data_bwd, data_launched = phase_bert_data()
-    results["flash_fwd"]["max_abs_err"] = max(
-        results["flash_fwd"]["max_abs_err"], data_fwd)
-    for k in ("flash_bwd_dq", "flash_bwd_dkv"):
-        results[k]["max_abs_err"] = max(results[k]["max_abs_err"], data_bwd)
-    for k, v in data_launched.items():
-        launched[k] += v
-    sp_fwd, sp_bwd, sp_launched = phase_speech_all()
-    results["flash_fwd"]["max_abs_err"] = max(
-        results["flash_fwd"]["max_abs_err"], sp_fwd)
-    for k in ("flash_bwd_dq", "flash_bwd_dkv"):
-        results[k]["max_abs_err"] = max(results[k]["max_abs_err"], sp_bwd)
-    for k, v in sp_launched.items():
-        launched[k] += v
-    results["resample_normalize"], launched["resample_normalize"] = \
-        phase_real_data()  # counts set to 0 there
+    with _phase("1"):
+        name = phase_device()
+    # nvcc builds the kernels on the host's cores while the paths without a
+    # kernel of the port (phases 19-22) run on the card; joined before phase 3
+    t_build = time.perf_counter()
+    build = concurrent.futures.ThreadPoolExecutor(1)
+    built = build.submit(phase_build)
+    launched: dict[str, int] = {}
+    with _phase("19-20"):
+        refs = _convnet_references()  # float64 on the host thread, beside 20
+        conv = phase_convnets()  # counts set to 0 there
+        phase_convnet_parity(refs)
+    with _phase("21"):
+        phase_ssd_parity()
+        ssd = phase_ssd()  # counts set to 0 there
+    with _phase("22"):
+        refs = _tts_references()  # float64 on the host thread, beside 22c-d
+        tts = phase_tts()  # counts set to 0 there
+        phase_tts_parity(refs)
+    with _phase("2 (wait)"):
+        built.result()  # a failed build raises here
+        build.shutdown()
+    say("2 build", f"joined {time.perf_counter() - t_build:.1f} s after it "
+        "started, phases 19-22 run meanwhile")
+    with _phase("3-8, 11"):
+        results = {"flash_fwd": phase_kernel()}
+        fwd_err, bwd = phase_flash_bwd()
+        results["flash_fwd"]["max_abs_err"] = max(
+            results["flash_fwd"]["max_abs_err"], fwd_err)
+        results.update(bwd)
+        results.update(phase_flat_lamb())
+        results["gather_rows"] = phase_gather()
+        task, model = phase_slice()
+        launched = dict.fromkeys(_counts(), 0)  # each kernel's main-path launches
+        for part in (conv, ssd, tts):
+            for k, v in part.items():
+                launched[k] += v
+        served = phase_serving(task, model)  # counts set to 0 there
+        served += phase_predict(task, model)
+        check(_counts() == {**dict.fromkeys(_counts(), 0),
+                            "flash_fwd": served},
+              "a launch count moved outside the serving path")
+        check(served > 0, "the serving path never launched flash_fwd")
+        launched["flash_fwd"] += served
+        del task, model
+    with _phase("9-10"):
+        phase_train_parity()
+        for k, v in phase_training().items():  # counts set to 0 there
+            launched[k] += v
+    with _phase("12-13"):
+        phase_dlrm_parity()
+        launched["gather_rows"] += phase_dlrm_training()  # counts set to 0 there
+    with _phase("14-16"):
+        results["quantize_activations"], launched["quantize_activations"] = \
+            phase_quantize()  # counts set to 0 there
+        fused_results, fused_launched = phase_fused_lamb()  # counts set to 0 there
+        results.update(fused_results)
+        for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+            launched[k] += fused_launched[k]
+        # K3 at 8K blocks is reported apart from K3 at 64K (phase 10's path)
+        launched["flat_lamb_moments_8k"] = fused_launched["flat_lamb_moments"]
+        launched["flat_lamb_apply_8k"] = fused_launched["flat_lamb_apply"]
+        results["hot_gather"], launched["hot_gather"] = \
+            phase_hot_gather()  # counts set to 0 there
+    with _phase("17-18"):
+        ft_fwd, ft_bwd = phase_finetune_parity()
+        results["flash_fwd"]["max_abs_err"] = max(
+            results["flash_fwd"]["max_abs_err"], ft_fwd)
+        for k in ("flash_bwd_dq", "flash_bwd_dkv"):
+            results[k]["max_abs_err"] = max(results[k]["max_abs_err"], ft_bwd)
+        for k, v in phase_finetune().items():  # counts set to 0 there
+            launched[k] += v
+    with _phase("23"):
+        s2s_fwd, s2s_bwd = phase_s2s_kernels()
+        # the float64 references of 23a on the host thread, beside 23c-d
+        refs = {kind: _s2s_reference(kind) for kind in S2S_PARITY}
+        results["flash_fwd"]["max_abs_err"] = max(
+            results["flash_fwd"]["max_abs_err"], s2s_fwd)
+        for k in ("flash_bwd_dq", "flash_bwd_dkv"):
+            results[k]["max_abs_err"] = max(results[k]["max_abs_err"], s2s_bwd)
+        _reset_counts()  # the decoding path starts here
+        launched["flash_fwd"] += phase_s2s_decode()["flash_fwd"]
+        for k, v in phase_s2s().items():  # counts set to 0 there
+            launched[k] += v
+        phase_s2s_parity(refs)
+    with _phase("24"):
+        data_fwd, data_bwd, data_launched = phase_bert_data()
+        results["flash_fwd"]["max_abs_err"] = max(
+            results["flash_fwd"]["max_abs_err"], data_fwd)
+        for k in ("flash_bwd_dq", "flash_bwd_dkv"):
+            results[k]["max_abs_err"] = max(results[k]["max_abs_err"], data_bwd)
+        for k, v in data_launched.items():
+            launched[k] += v
+    with _phase("25"):
+        sp_fwd, sp_bwd, sp_launched = phase_speech_all()
+        results["flash_fwd"]["max_abs_err"] = max(
+            results["flash_fwd"]["max_abs_err"], sp_fwd)
+        for k in ("flash_bwd_dq", "flash_bwd_dkv"):
+            results[k]["max_abs_err"] = max(results[k]["max_abs_err"], sp_bwd)
+        for k, v in sp_launched.items():
+            launched[k] += v
+    with _phase("26"):
+        results["resample_normalize"], launched["resample_normalize"] = \
+            phase_real_data()  # counts set to 0 there
+    with _phase("27"):
+        mesh_err, mesh_launched = phase_mesh()
+        for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+            results[k]["max_abs_err"] = max(results[k]["max_abs_err"],
+                                            mesh_err)
+        for k, v in mesh_launched.items():
+            launched[k] += v
+    say("phases", "seconds: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in PHASE_SECONDS.items())
+        + f"; all {time.perf_counter() - T_START:.1f}")
     check(set(launched) == set(results), f"{sorted(launched)} vs {sorted(results)}")
     for k, v in launched.items():
         check(v > 0, f"the main path never launched {k}")
@@ -5338,4 +5884,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--mesh"]:  # a rank of phase 27, under torchrun
+        _mesh_child(sys.argv[2], sys.argv[3:])
+    else:
+        main()

@@ -17,16 +17,29 @@ pretraining (``run_bert_pretrain``), BERT fine-tuning on SQuAD, GLUE and SWAG
 summarization with beam-decoded ROUGE), GNMT, FastPitch, Jasper and
 wav2vec 2.0 (``run_breadth``) and HiFi-GAN (``run_hifigan``), with the
 flag names and defaults of ``dlx-train``. The run is
-on the card unless ``--device cpu`` is given. Flags whose machinery is not
-ported yet exit with a message that says so, rather than being ignored: for
-the ConvNets ``--mesh-*``; for ``ssd300`` and ``efficientdet`` a
-``--data-backend`` other than synthetic and coco, and ``--mesh-*``; for
-``bert-pretrain`` ``--zero``, ``--attention-impl ring`` and
-``--mesh-*``; for the fine-tuning commands ``--mesh-*`` and an
-``--init-checkpoint`` in TF format; for ``dlrm`` ``--mesh-model`` above 1
-and ``--mesh-*``; for ``tacotron2``, ``waveglow``, ``transformer``, ``bart``
-and the speech and breadth commands ``--mesh-*``. argparse refuses ``--zero`` for the fine-tuning commands,
-which ``dlx-train`` does not give them either.
+on the card unless ``--device cpu`` is given.
+
+Under ``torchrun`` (``python -m torch.distributed.run --nproc-per-node N -m
+deeplearningexamples_tpu_torch.cli ...``) each process drives one card and
+the ranks form JAX's ``(data, model, sequence)`` mesh from ``--mesh-*``
+(``parallel/``): ``--batch-size`` is the global batch, each data rank trains
+on its rows of it, and a step computes what JAX's program computes on the
+global batch. The BERT commands, ``dlrm`` (``--mesh-model`` row-shards its
+table), the ConvNets, the GPUNets and ``ssd300`` take the data and model
+axes (a command that does not shard over the model axis replicates over it);
+``bert-pretrain`` takes ``--zero`` (ZeRO-1). Only rank 0 logs and writes
+checkpoints.
+
+Flags whose machinery is not ported yet exit with a message that says so,
+rather than being ignored: ``--mesh-sequence`` above 1 (ring attention)
+everywhere; for ``efficientdet``, ``tacotron2``, ``waveglow``,
+``transformer``, ``bart``, ``gnmt`` and the speech commands any mesh of
+more than one rank (their global loss denominators and BN statistics wait);
+for ``ssd300`` and ``efficientdet`` a ``--data-backend`` other than
+synthetic and coco; for ``bert-pretrain`` ``--attention-impl ring`` and
+``--zero`` with ``--flat-lamb``; for the fine-tuning commands an
+``--init-checkpoint`` in TF format. argparse refuses ``--zero`` for the
+fine-tuning commands, which ``dlx-train`` does not give them either.
 
 Every command takes ``--config-file`` (a ``configs.yml``-style file),
 ``--platform`` and ``--precision``, resolved as ``dlx-train`` does: the
@@ -55,6 +68,10 @@ from ..core.loop import LoopConfig, train_loop
 from ..core import optimizers as opt
 from ..core.optimizers import adamw, bert_adam, lr_poly_warmup
 from ..core.train import create_train_state, make_eval_step, make_train_step
+from ..parallel.dist import device_for_rank, initialize_distributed
+from ..parallel.mesh import (DATA_AXIS, MeshSpec, batch_positions,
+                             build_mesh, check_batch_split, current_mesh,
+                             gather_objects, rank_rows, shard_batch)
 
 __all__ = ["BartCliConfig", "BertCliConfig", "BertPretrainRun", "BreadthRun",
            "CommonConfig", "ConvNetCliConfig", "ConvNetRun", "DlrmCliConfig",
@@ -71,6 +88,11 @@ __all__ = ["BartCliConfig", "BertCliConfig", "BertPretrainRun", "BreadthRun",
            "run_transformer", "run_tts", "to_device"]
 
 INPUTS = ("input_ids", "attention_mask", "token_type_ids")
+# run_convnet lets cuDNN pick its algorithms by timing them, as the
+# reference's main.py does; a run that only checks correctness may set this
+# False and skip the autotuning (about 50 s for an EfficientNet's depthwise
+# convolutions at a new batch)
+CUDNN_BENCHMARK = True
 
 
 @dataclass
@@ -158,14 +180,15 @@ def _unported(model: str, todo: list[tuple[bool, str]]) -> None:
                              "PyTorch package yet (see ROADMAP.md)")
 
 
+_NO_SEQUENCE = "--mesh-sequence above 1 (ring attention)"
+
+
 def _unported_bert(cfg: BertCliConfig) -> None:
     _unported("bert-pretrain", [
-        (cfg.zero, "--zero (ZeRO-1 optimizer sharding)"),
         (cfg.attention_impl not in ("flash", "xla"),
          f"--attention-impl {cfg.attention_impl} (flash and xla are "
          "ported)"),
-        (cfg.mesh_data not in (-1, 1) or cfg.mesh_model != 1
-         or cfg.mesh_sequence != 1, "--mesh-* (one card only so far)"),
+        (cfg.mesh_sequence != 1, _NO_SEQUENCE),
         (cfg.data_backend not in ("synthetic", "corpus"),
          f"--data-backend {cfg.data_backend} (synthetic and corpus are "
          "ported)"),
@@ -173,22 +196,23 @@ def _unported_bert(cfg: BertCliConfig) -> None:
 
 
 def _unported_mesh(model: str, cfg: CommonConfig) -> None:
-    """Refuse ``--mesh-*``: one card only so far."""
+    """Refuse a mesh of more than one rank for a command whose global
+    loss denominators and BN statistics are not ported yet."""
     _unported(model, [
         (cfg.mesh_data not in (-1, 1) or cfg.mesh_model != 1
-         or cfg.mesh_sequence != 1, "--mesh-* (one card only so far)"),
+         or cfg.mesh_sequence != 1 or current_mesh().world > 1,
+         "a mesh of more than one rank (its global loss denominators and "
+         "BN statistics)"),
     ])
 
 
 def _unported_coco(model: str, cfg: CommonConfig) -> None:
-    """Refuse a ``--data-backend`` other than synthetic and coco, or
-    ``--mesh-*``."""
+    """Refuse a ``--data-backend`` other than synthetic and coco."""
     _unported(model, [
         (cfg.data_backend not in ("synthetic", "coco"),
          f"--data-backend {cfg.data_backend} (synthetic and coco are "
          "ported)"),
-        (cfg.mesh_data not in (-1, 1) or cfg.mesh_model != 1
-         or cfg.mesh_sequence != 1, "--mesh-* (one card only so far)"),
+        (cfg.mesh_sequence != 1, _NO_SEQUENCE),
     ])
 
 
@@ -197,11 +221,29 @@ def _dtype(cfg: CommonConfig) -> torch.dtype:
     return torch.bfloat16 if cfg.amp else torch.float32
 
 
-def _common_setup(cfg: CommonConfig, name: str) -> Logger:
+def _common_setup(cfg: CommonConfig, name: str, only: str | None = None,
+                  accum_steps: int | None = None) -> Logger:
+    """Join ``torchrun``'s process group if there is one (each rank on its
+    card), build the ``--mesh-*`` mesh over the ranks (1 x 1 x 1 without
+    one), and the logger: only rank 0 logs, as in JAX. A ``--batch-size``
+    that does not split evenly over the data ranks and the step's
+    microbatches (``accum_steps``, ``cfg.accum_steps`` by default) raises.
+    ``only``: the name of a command that runs on one rank only so far,
+    refused on a bigger mesh."""
+    if only:
+        _unported_mesh(only, cfg)
+    initialize_distributed(device=cfg.device)
+    if torch.distributed.is_initialized():
+        cfg.device = str(device_for_rank(cfg.device))
+    mesh = build_mesh(MeshSpec(data=cfg.mesh_data, model=cfg.mesh_model,
+                               sequence=cfg.mesh_sequence))
+    if only:
+        _unported_mesh(only, cfg)
+    check_batch_split(cfg.batch_size, accum_steps or cfg.accum_steps)
     logger = Logger(backends=[
         StdOutBackend(),
         JSONStreamBackend(f"{cfg.workspace}/{name}_raport.json"),
-    ])
+    ] if mesh.is_primary else [], enabled=mesh.is_primary)
     logger.parameters(cfgmod.to_dict(cfg))
     return logger
 
@@ -218,8 +260,12 @@ def _loop_cfg(cfg: CommonConfig, watch="val_loss", mode="min") -> LoopConfig:
     )
 
 
-def to_device(loader, device: str):
-    """Batches -> tensors on ``device``: numpy arrays copied from pinned
+def to_device(loader, device: str, accum_steps: int = 1,
+              shard: bool = True):
+    """Batches -> tensors on ``device``: under a data axis this rank's
+    rows of each global batch first (``parallel.mesh.shard_batch``, its
+    slice of each of ``accum_steps`` microbatches; ``shard=False`` for a
+    loader that makes only this rank's rows); numpy arrays copied from pinned
     memory on a card, so the copy does not wait for the steps already
     queued; tensors moved (the card's data plane puts its images there
     already); anything else (SSD300's eval ``gt`` list, EfficientDet's
@@ -235,6 +281,8 @@ def to_device(loader, device: str):
         return v
 
     for batch in loader:
+        if shard:
+            batch = shard_batch(batch, accum_steps)
         yield {k: put(v) for k, v in batch.items()}
 
 
@@ -286,7 +334,7 @@ def build_convnet(arch: str, cfg: ConvNetCliConfig) -> ConvNetRun:
     from ..data.synthetic import SyntheticImageLoader
     from ..models.convnets import EFFNET_ARCHS, GPUNET_ARCHS, ClassificationTask
 
-    _unported_mesh(arch, cfg)
+    _unported(arch, [(cfg.mesh_sequence != 1, _NO_SEQUENCE)])
     if arch in EFFNET_ARCHS:
         image_size = EFFNET_ARCHS[arch].resolution
     elif arch in GPUNET_ARCHS:
@@ -302,9 +350,11 @@ def build_convnet(arch: str, cfg: ConvNetCliConfig) -> ConvNetRun:
     if real:
         from ..data.imagenet import ImageNetLoader
 
+        # each rank reads and decodes only its rows of a batch
         loader, val_loader = (
             ImageNetLoader(cfg.data_dir, split, cfg.batch_size, image_size,
-                           device=cfg.device) for split in ("train", "val"))
+                           device=cfg.device, rows=_local_rows(cfg, accum))
+            for split, accum in (("train", cfg.accum_steps), ("val", 1)))
     else:
         loader = SyntheticImageLoader(cfg.batch_size, image_size, 1000,
                                       steps=cfg.steps_per_epoch)
@@ -321,12 +371,23 @@ def build_convnet(arch: str, cfg: ConvNetCliConfig) -> ConvNetRun:
     return ConvNetRun(task, tx, state, train_step, loader, val_loader, real)
 
 
-def _feed(loader, device: str, real: bool):
+def _local_rows(cfg: CommonConfig, accum_steps: int):
+    """The positions of this rank's rows in a batch, for a file reader that
+    reads only those (None on one data rank)."""
+    if current_mesh().size(DATA_AXIS) == 1:
+        return None
+    return batch_positions(cfg.batch_size, accum_steps)
+
+
+def _feed(loader, device: str, real: bool, accum_steps: int = 1):
     """A loader's batches on ``device``; a loader that reads files runs on a
-    worker thread (``data.prefetch.background``), as JAX's does."""
+    worker thread (``data.prefetch.background``), as JAX's does, and makes
+    only this rank's rows."""
     from ..data.prefetch import background
 
-    return to_device(background(iter(loader)) if real else loader, device)
+    if real:
+        return to_device(background(iter(loader)), device, shard=False)
+    return to_device(loader, device, accum_steps)
 
 
 def run_convnet(arch: str, cfg: ConvNetCliConfig):
@@ -340,11 +401,12 @@ def run_convnet(arch: str, cfg: ConvNetCliConfig):
     ckpt = CheckpointManager(f"{cfg.workspace}/{arch}_ckpt")
     state, start_epoch = _maybe_resume(cfg, ckpt, run.state, len(run.loader))
     benchmark = torch.backends.cudnn.benchmark
-    torch.backends.cudnn.benchmark = True
+    torch.backends.cudnn.benchmark = CUDNN_BENCHMARK
     try:
         return train_loop(
             state, run.train_step,
-            lambda: _feed(run.loader, cfg.device, run.real_data),
+            lambda: _feed(run.loader, cfg.device, run.real_data,
+                          cfg.accum_steps),
             cfg=_loop_cfg(cfg, watch="top1", mode="max"), logger=logger,
             eval_step=make_eval_step(run.task.metric_fn),
             eval_iter_fn=lambda: _feed(run.val_loader, cfg.device,
@@ -391,9 +453,11 @@ def build_ssd(cfg: SgdCliConfig) -> SsdRun:
                 f"{cfg.data_dir}/annotations/instances_{name}2017.json")
 
         loader = CocoSSDLoader(split("train"), cfg.batch_size, task.dboxes,
-                               device=cfg.device)
+                               device=cfg.device,
+                               rows=_local_rows(cfg, cfg.accum_steps))
         val_loader = CocoSSDLoader(split("val"), cfg.batch_size, task.dboxes,
-                                   train=False, device=cfg.device)
+                                   train=False, device=cfg.device,
+                                   rows=_local_rows(cfg, 1))
     else:
         loader = SyntheticSSDLoader(cfg.batch_size, task.dboxes,
                                     steps=cfg.steps_per_epoch)
@@ -426,7 +490,7 @@ def run_ssd(cfg: SgdCliConfig):
         real = run.val_loader is not None
         return train_loop(
             state, run.train_step,
-            lambda: _feed(run.loader, cfg.device, real),
+            lambda: _feed(run.loader, cfg.device, real, cfg.accum_steps),
             cfg=_loop_cfg(cfg, *(("mAP", "max") if real else ())),
             logger=logger, checkpoints=ckpt, batch_size=cfg.batch_size,
             start_epoch=start_epoch,
@@ -465,15 +529,21 @@ def _corpus_loaders(cfg: BertCliConfig, vocab_size: int):
         MaskingConfig,
     )
 
-    docs = load_corpus_shards(cfg.data_dir)
+    mesh = current_mesh()
+    k = mesh.size(DATA_AXIS)
+    # each data rank reads its own shard files, as each of JAX's processes
+    # does, and makes its rows (--batch-size / ranks) of a global batch
+    check_batch_split(cfg.batch_size)
+    docs = load_corpus_shards(cfg.data_dir,
+                              shard=(mesh.index(DATA_AXIS), k))
     n_eval = max(2, len(docs) // 100)
     mcfg = MaskingConfig(vocab_size=vocab_size,
                          max_predictions_per_seq=cfg.max_predictions)
     loader_cls = BinnedBertPretrainLoader if cfg.binned else BertPretrainLoader
     loader = loader_cls(
-        docs[:-n_eval], cfg.batch_size, cfg.seq_len, mcfg, seed=cfg.seed,
+        docs[:-n_eval], cfg.batch_size // k, cfg.seq_len, mcfg, seed=cfg.seed,
         steps_per_epoch=cfg.steps_per_epoch if cfg.mode != "train" else None)
-    val_loader = BertPretrainLoader(docs[-n_eval:], cfg.batch_size,
+    val_loader = BertPretrainLoader(docs[-n_eval:], cfg.batch_size // k,
                                     cfg.seq_len, mcfg, seed=cfg.seed + 7,
                                     steps_per_epoch=10)
     return loader, val_loader
@@ -519,16 +589,25 @@ def build_bert_pretrain(cfg: BertCliConfig) -> BertPretrainRun:
         from ..core.flat import flatten_train
         from ..utils.jax_bridge import bert_pretrain_jax_order
 
+        if cfg.zero:
+            raise SystemExit("--flat-lamb and --zero are mutually exclusive")
+
         tx, params, _ = flatten_train(
             model, lr=sched, weight_decay=wd, moment_dtype=mdt,
             order=bert_pretrain_jax_order(bcfg.num_layers))
     else:
         params = dict(model.named_parameters())
+        # --zero: the moments sharded over the data axis (ZeRO-1)
+        zero = None
+        if cfg.zero:
+            from ..parallel.zero import ZeroPlan
+
+            zero = ZeroPlan(params)
         # reference no-decay group (run_pretraining.py:423-427): bias/gamma/
         # beta/LayerNorm = exactly the 1-D params; with use_nvlamb=False
         # those also take a plain-lr step (no trust ratio)
         tx = lamb(sched, weight_decay=wd, moment_dtype=mdt,
-                  mask={n: p.ndim > 1 for n, p in params.items()})
+                  mask={n: p.ndim > 1 for n, p in params.items()}, zero=zero)
     state = create_train_state(model, tx, cfg.seed + 1, params=params)
     train_step = make_train_step(task.loss_fn, tx, accum_steps=cfg.accum_steps)
     return BertPretrainRun(task, tx, state, train_step, loader, val_loader)
@@ -542,11 +621,15 @@ def run_bert_pretrain(cfg: BertCliConfig):
     run = build_bert_pretrain(cfg)
     ckpt = CheckpointManager(f"{cfg.workspace}/bert_ckpt")
     state, start_epoch = _maybe_resume(cfg, ckpt, run.state, len(run.loader))
+    # the corpus loaders make this rank's rows already
+    shard = cfg.data_backend != "corpus"
     return train_loop(
-        state, run.train_step, lambda: to_device(run.loader, cfg.device),
+        state, run.train_step,
+        lambda: to_device(run.loader, cfg.device, cfg.accum_steps, shard),
         cfg=_loop_cfg(cfg, watch="mlm_acc", mode="max"), logger=logger,
         eval_step=make_eval_step(run.task.metric_fn),
-        eval_iter_fn=lambda: to_device(run.val_loader, cfg.device),
+        eval_iter_fn=lambda: to_device(run.val_loader, cfg.device,
+                                       shard=shard),
         checkpoints=ckpt, batch_size=cfg.batch_size, start_epoch=start_epoch,
     )
 
@@ -612,8 +695,7 @@ def _bert_finetune_tx(optimizer: str, lr: float, total: int, params):
 
 def _unported_finetune(name: str, cfg: CommonConfig) -> None:
     _unported(name, [
-        (cfg.mesh_data not in (-1, 1) or cfg.mesh_model != 1
-         or cfg.mesh_sequence != 1, "--mesh-* (one card only so far)"),
+        (cfg.mesh_sequence != 1, _NO_SEQUENCE),
         (bool(cfg.init_checkpoint)
          and os.path.exists(cfg.init_checkpoint + ".index"),
          f"--init-checkpoint {cfg.init_checkpoint} (a TF checkpoint: its "
@@ -714,10 +796,16 @@ def _squad_eval_fn(cfg: SquadCliConfig, task):
     )
     refs = read_squad_references(cfg.predict_file)
 
+    def write(preds, name):  # rank 0's, as its raport
+        if current_mesh().is_primary:
+            write_predictions(preds, f"{cfg.workspace}/{name}.json")
+
     def eval_fn(state):
+        # every rank predicts the whole dev set (its features span batch
+        # rows), so each holds the global EM/F1 without a collective
         if not cfg.version_2_with_negative:
             preds = predict_squad(task, state.model, dev_feats, cfg.batch_size)
-            write_predictions(preds, f"{cfg.workspace}/predictions.json")
+            write(preds, "predictions")
             return squad_evaluate(preds, refs)
         # v2: unthresholded span text + null odds, then the configured
         # threshold for the reported metric and a best-threshold sweep
@@ -728,8 +816,8 @@ def _squad_eval_fn(cfg: SquadCliConfig, task):
         )
         thresholded = apply_null_threshold(preds, null_odds,
                                            cfg.null_score_diff_threshold)
-        write_predictions(thresholded, f"{cfg.workspace}/predictions.json")
-        write_predictions(null_odds, f"{cfg.workspace}/null_odds.json")
+        write(thresholded, "predictions")
+        write(null_odds, "null_odds")
         metrics = squad_evaluate(thresholded, refs)
         best_t, best_m = find_best_null_threshold(preds, null_odds, refs)
         metrics["best_f1"] = best_m["f1"]
@@ -750,7 +838,8 @@ def run_bert_squad(cfg: SquadCliConfig):
     if cfg.predict_file and cfg.vocab_file:
         eval_fn, watch = _squad_eval_fn(cfg, task), ("f1", "max")
     return train_loop(
-        run.state, run.train_step, lambda: to_device(run.loader, cfg.device),
+        run.state, run.train_step,
+        lambda: to_device(run.loader, cfg.device, cfg.accum_steps),
         cfg=_loop_cfg(cfg, *watch), logger=logger, eval_fn=eval_fn,
         checkpoints=run.checkpoints, batch_size=cfg.batch_size,
         start_epoch=run.start_epoch,
@@ -791,16 +880,19 @@ def _synthetic_examples(rng, bcfg, n: int, s: int, choices: int | None,
 def _predict_classes(model, data: dict[str, np.ndarray], batch_size: int,
                      device: str) -> tuple[np.ndarray, np.ndarray]:
     """argmax of the model's logits over every example, without dropout,
-    and the labels in the same order."""
-    preds, labels = [], []
-    for b in _batches(data, min(batch_size, len(data["label"])),
+    and the labels in the same order. Under a data axis each rank predicts
+    its rows of the examples and every rank gets all of them."""
+    lo, hi = rank_rows(len(data["label"]))
+    data = {k: v[lo:hi] for k, v in data.items()}
+    preds, labels = [np.zeros(0, np.int64)], [np.zeros(0, np.int32)]
+    for b in _batches(data, max(min(batch_size, len(data["label"])), 1),
                       include_tail=True):
         t = [torch.from_numpy(b[k]).to(device) for k in INPUTS]
         preds.append(model(*t).argmax(-1).cpu().numpy())
         labels.append(b["label"])
-    if not preds:
-        return np.zeros(0, np.int64), np.zeros(0, np.int32)
-    return np.concatenate(preds), np.concatenate(labels)
+    return tuple(np.concatenate([x for part in gather_objects(parts)
+                                 for x in part])
+                 for parts in (preds, labels))
 
 
 def run_bert_glue(cfg: GlueCliConfig):
@@ -834,7 +926,8 @@ def run_bert_glue(cfg: GlueCliConfig):
     loader = _batches(train, cfg.batch_size, shuffle_seed=cfg.seed)
     run = _finetune(cfg, "bert_glue", model, task.loss_fn, loader, 2e-5)
     state, _ = train_loop(
-        run.state, run.train_step, lambda: to_device(loader, cfg.device),
+        run.state, run.train_step,
+        lambda: to_device(loader, cfg.device, cfg.accum_steps),
         cfg=_loop_cfg(cfg), logger=logger, checkpoints=run.checkpoints,
         batch_size=cfg.batch_size, start_epoch=run.start_epoch,
     )
@@ -920,7 +1013,8 @@ def run_bert_swag(cfg: SwagCliConfig):
     loader = _batches(train, cfg.batch_size)
     run = _finetune(cfg, "bert_swag", model, classification_loss, loader, 2e-5)
     state, _ = train_loop(
-        run.state, run.train_step, lambda: to_device(loader, cfg.device),
+        run.state, run.train_step,
+        lambda: to_device(loader, cfg.device, cfg.accum_steps),
         cfg=_loop_cfg(cfg), logger=logger, checkpoints=run.checkpoints,
         batch_size=cfg.batch_size, start_epoch=run.start_epoch,
     )
@@ -961,9 +1055,7 @@ def build_dlrm(cfg: DlrmCliConfig) -> DlrmRun:
         (cfg.data_backend not in ("synthetic", "binary"),
          f"--data-backend {cfg.data_backend} (synthetic and binary are "
          "ported)"),
-        (cfg.mesh_model > 1, "--mesh-model > 1 (the row-sharded table)"),
-        (cfg.mesh_data not in (-1, 1) or cfg.mesh_sequence != 1,
-         "--mesh-* (one card only so far)"),
+        (cfg.mesh_sequence != 1, _NO_SEQUENCE),
     ])
     spec = None
     if cfg.data_backend == "binary":
@@ -1009,7 +1101,7 @@ def run_dlrm(cfg: DlrmCliConfig):
     """Train DLRM with BCE and dual SGD on synthetic data or a Criteo binary
     split, evaluating AUC over the whole eval set; returns ``(state, best
     auc)``."""
-    logger = _common_setup(cfg, "dlrm")
+    logger = _common_setup(cfg, "dlrm", accum_steps=1)  # takes it whole
     run = build_dlrm(cfg)
     ckpt = CheckpointManager(f"{cfg.workspace}/dlrm_ckpt")
     state, start_epoch = _maybe_resume(cfg, ckpt, run.state, len(run.loader))
@@ -1093,7 +1185,7 @@ def run_tts(model_name: str, cfg: CommonConfig):
     ``{workspace}/{model_name}_ckpt``; no evaluation. As JAX's ``run_tts``,
     it never reads ``--resume`` (each run starts from the seed's weights)
     nor ``--weight-decay``. Returns ``(state, best)``."""
-    logger = _common_setup(cfg, model_name)
+    logger = _common_setup(cfg, model_name, only=model_name)
     run = build_tts(model_name, cfg)
     ckpt = CheckpointManager(f"{cfg.workspace}/{model_name}_ckpt")
     return train_loop(
@@ -1147,7 +1239,7 @@ def run_transformer(cfg: CommonConfig):
     ``{workspace}/transformer_ckpt``; no evaluation. As JAX's
     ``run_transformer``, it reads neither ``--resume`` nor
     ``--data-backend``. Returns ``(state, best)``."""
-    logger = _common_setup(cfg, "transformer")
+    logger = _common_setup(cfg, "transformer", only="transformer")
     run = build_transformer(cfg)
     ckpt = CheckpointManager(f"{cfg.workspace}/transformer_ckpt")
     return train_loop(
@@ -1250,8 +1342,7 @@ def run_bart(cfg: BartCliConfig):
     from ..models.bart import BartTask
     from ..models.translation import TransformerConfig
 
-    logger = _common_setup(cfg, "bart")
-    _unported_mesh("bart", cfg)
+    logger = _common_setup(cfg, "bart", only="bart")
     data_dir, tok = bart_corpus(cfg)
     tcfg = TransformerConfig(
         vocab_size=len(tok.vocab), d_model=256, d_ff=1024, num_heads=4,
@@ -1414,8 +1505,7 @@ def build_breadth(name: str, cfg: CommonConfig) -> BreadthRun:
 def run_breadth(name: str, cfg: CommonConfig):
     """JAX's ``run_breadth`` (``build_breadth``), ``--resume`` from
     ``{workspace}/{name}_ckpt``. Returns ``(state, best)``."""
-    logger = _common_setup(cfg, name.replace("-", "_"))
-    _unported_mesh(name, cfg)
+    logger = _common_setup(cfg, name.replace("-", "_"), only=name)
     run = build_breadth(name, cfg)
     ckpt = CheckpointManager(f"{cfg.workspace}/{name.replace('-', '_')}_ckpt")
     state, start_epoch = _maybe_resume(cfg, ckpt, run.state, len(run.loader))
@@ -1432,8 +1522,7 @@ def run_hifigan(cfg: CommonConfig):
     and ``train.mel_l1``. Returns ``(gen, disc, last metrics)``."""
     from ..models.tts import HiFiGanTask
 
-    logger = _common_setup(cfg, "hifigan")
-    _unported_mesh("hifigan", cfg)
+    logger = _common_setup(cfg, "hifigan", only="hifigan")
     task = HiFiGanTask(dtype=_dtype(cfg))
     gen, disc = task.init(torch.Generator().manual_seed(cfg.seed),
                           device=cfg.device)
@@ -1473,7 +1562,7 @@ def run_efficientdet(cfg: EfficientDetCliConfig):
     from ..data.det_synthetic import SyntheticDetectionLoader
     from ..models.efficientdet import EfficientDetConfig, EfficientDetTask
 
-    logger = _common_setup(cfg, "efficientdet")
+    logger = _common_setup(cfg, "efficientdet", only="efficientdet")
     _unported_coco("efficientdet", cfg)
     task = EfficientDetTask(EfficientDetConfig(image_size=cfg.image_size or 512),
                             dtype=_dtype(cfg))

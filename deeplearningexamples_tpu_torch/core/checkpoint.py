@@ -6,7 +6,10 @@ Port of ``deeplearningexamples_tpu/core/checkpoint.py``, which saves the JAX
 step, the parameters (a dict of tensors, or the flat buffer), the optimizer
 state, the EMA parameters, the model state and the dropout generator's state,
 so a resumed run draws the same dropout masks and matches an uninterrupted one
-bit for bit. Keep-last-N and best-metric tracking mirror the reference's
+bit for bit. Under a mesh every rank takes part in ``save`` (ZeRO's moment
+shards and DLRM's table rows are gathered whole) and rank 0 writes the file
+a one-rank run writes; every rank restores, each taking its own rows of a
+sharded tensor, so a checkpoint moves between world sizes. Keep-last-N and best-metric tracking mirror the reference's
 ``Checkpointer`` (``utils.py:39-80``); metrics live in ``metrics.json``.
 """
 
@@ -20,15 +23,18 @@ from typing import Any
 
 import torch
 
+from ..parallel.mesh import current_mesh, gather_sharded, shard_rows_of
+
 __all__ = ["CheckpointManager"]
 
 _NAME = re.compile(r"^ckpt_(\d+)\.pt$")
 
 
 def _to_saved(x: Any) -> Any:
-    """Tensors to CPU copies, named tuples to tuples, containers recursively."""
+    """Tensors to CPU copies (a shard over a mesh axis gathered whole),
+    named tuples to tuples, containers recursively."""
     if isinstance(x, torch.Tensor):
-        return x.detach().cpu().clone()
+        return gather_sharded(x).detach().cpu().clone()
     if isinstance(x, dict):
         return {k: _to_saved(v) for k, v in x.items()}
     if isinstance(x, (tuple, list)):
@@ -41,6 +47,7 @@ def _restore_into(template: Any, saved: Any) -> Any:
     flat buffer and references held by the model stay valid); rebuild
     containers and scalars in the template's types."""
     if isinstance(template, torch.Tensor):
+        saved = shard_rows_of(template, saved)  # a shard's rows of the whole
         if tuple(template.shape) != tuple(saved.shape):
             raise ValueError(f"checkpoint shape {tuple(saved.shape)} != "
                              f"{tuple(template.shape)}")
@@ -95,6 +102,8 @@ class CheckpointManager:
             "model_state": _to_saved(state.model_state),
             "generator": state.generator.get_state(),
         }
+        if not current_mesh().is_primary:
+            return
         path = self._path(int(step))
         tmp = f"{path}.{os.getpid()}.tmp"
         torch.save(blob, tmp)

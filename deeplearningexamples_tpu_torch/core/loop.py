@@ -19,6 +19,10 @@ The framework's single replacement for every recipe's hand-rolled outer loop
   (ConvNets ``early_stopping_patience``, DLRM AUC threshold)
 - rolling checkpoints + best tracking (``Checkpointer`` ``utils.py:39-80``)
 - SIGTERM-safe: checkpoint-and-exit between steps (``TimeoutHandler``)
+- under a data axis every rank runs the same steps and eval batches on its
+  rows; eval outputs are gathered (``eval_reduce``) or averaged over the
+  data axis, so each rank sees the global metrics; only rank 0 logs (the
+  CLI's logger) and writes checkpoints (``CheckpointManager``)
 
 The loop is deliberately host-side and dumb: all compute lives in
 ``train_step``/``eval_step``; the loop only feeds batches and fetches scalars
@@ -36,6 +40,7 @@ from typing import Callable, Iterable, Mapping
 import numpy as np
 import torch
 
+from ..parallel.mesh import gather_data_rows, mean_over_data
 from .checkpoint import CheckpointManager
 from .logging import Logger
 from .preemption import TimeoutHandler
@@ -138,6 +143,11 @@ def train_loop(
                 agg: dict[str, list] = {}
                 for batch in eval_iter_fn():
                     m = eval_step(state.model, state.model_state, batch)
+                    # over the data axis: the global batch's rows, or the
+                    # scalars' means (no-ops on one data rank)
+                    m = ({k: gather_data_rows(torch.as_tensor(v).reshape(-1))
+                          for k, v in m.items()} if eval_reduce
+                         else mean_over_data(m))
                     for k, v in m.items():
                         agg.setdefault(k, []).append(
                             _to_numpy(v) if eval_reduce else float(v))

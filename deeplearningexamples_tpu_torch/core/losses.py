@@ -25,6 +25,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..parallel.mesh import global_flip
+
 __all__ = ["ctc_loss", "cross_entropy", "mixup", "smoothed_cross_entropy",
            "top_k_accuracy"]
 
@@ -60,8 +62,9 @@ def mixup(generator: torch.Generator, alpha: float, images: torch.Tensor,
     seed = int(torch.randint(0, 2**62, (1,), generator=generator))
     lam32 = np.float32(np.random.default_rng(seed).beta(alpha, alpha))
     a, b = float(lam32), float(np.float32(1.0) - lam32)
-    images = a * images + b * images.flip(0)
-    labels = a * one_hot_labels + b * one_hot_labels.flip(0)
+    # the global batch reversed, under a data axis too (as JAX's x[::-1])
+    images = a * images + b * global_flip(images)
+    labels = a * one_hot_labels + b * global_flip(one_hot_labels)
     return images, labels
 
 

@@ -10,7 +10,16 @@ The semantics are JAX's:
 - ``accum_steps`` splits the batch into microbatches (a remainder raises),
   sums their gradients in fp32 and divides by ``accum_steps``; metrics are
   the microbatches' means;
-- ``grad_norm`` is the global norm of those (unclipped) gradients;
+- under a data axis (``parallel/mesh.py``) each rank runs its rows of the
+  global batch, and the gradients are averaged over the data axis in one
+  flat bucket before ``grad_norm`` and the update: each rank's loss is
+  written so that this mean is JAX's gradient of the global batch (a plain
+  batch mean; the MLM loss's numerator over the global denominator, times
+  the data degree). A parameter sharded over the model axis (DLRM's table
+  rows) is not reduced over it. The metrics are their means over the data
+  axis: the global ones;
+- ``grad_norm`` is the global norm of those (unclipped) gradients, a
+  model-sharded parameter's rows summed over the model axis;
 - EMA of the parameters every ``ema_steps`` steps;
 - a transform with ``returns_new_params`` (the flat fused LAMB) has already
   written the new parameters, so no update is added.
@@ -33,6 +42,7 @@ import torch
 from torch import nn
 
 from ..ops.lamb import Transform, global_norm
+from ..parallel.mesh import all_reduce_, all_reduce_mean_, mean_over_data
 
 __all__ = ["TrainState", "create_train_state", "make_eval_step",
            "make_train_step"]
@@ -93,6 +103,22 @@ def _grads(params: Params) -> Params:
             for n, p in params.items()}
 
 
+def _global_grad_norm(params: Params, grads: Params) -> torch.Tensor:
+    """The norm of the whole gradient: a parameter sharded on dim 0 over an
+    axis (DLRM's table rows over the model axis) adds its rows' squares
+    summed over that axis, so every rank reports the one global value."""
+    whole, sharded = [], {}
+    for p, g in zip(_leaves(params), _leaves(grads)):
+        mark = getattr(p, "_dlx_shard", None)
+        (whole if mark is None else sharded.setdefault(mark[0], [])).append(g)
+    if not sharded:
+        return global_norm(whole)
+    squares = global_norm(whole).square() if whole else 0.0
+    for axis, gs in sharded.items():
+        squares = squares + all_reduce_(global_norm(gs).square(), axis)
+    return squares.sqrt()
+
+
 def make_train_step(
     loss_fn: Callable,
     tx: Transform,
@@ -121,9 +147,10 @@ def make_train_step(
         # the span the profiling tools read as the optimizer's part of a step
         with torch.no_grad(), torch.profiler.record_function("optimizer"):
             grads = _grads(params)
+            all_reduce_mean_(_leaves(grads))
             if accum_steps > 1:
                 torch._foreach_div_(_leaves(grads), float(accum_steps))
-            grad_norm = global_norm(_leaves(grads))
+            grad_norm = _global_grad_norm(params, grads)
             updates, opt_state = tx.update(grads, state.opt_state, params)
             if not tx.returns_new_params:
                 torch._foreach_add_(_leaves(params),
@@ -135,7 +162,7 @@ def make_train_step(
                 torch._foreach_mul_(_leaves(ema), ema_decay)
                 torch._foreach_add_(_leaves(ema), torch._foreach_mul(
                     _leaves(params), 1.0 - ema_decay))
-        metrics = {**metrics, "grad_norm": grad_norm}
+        metrics = {**mean_over_data(metrics), "grad_norm": grad_norm}
         return replace(state, step=state.step + 1, opt_state=opt_state,
                        model_state=model_state), metrics
 

@@ -18,7 +18,8 @@
 //   dS[r,c] = round(p * (dp - delta[r]) * scale)  rounded to q's dtype
 //   dQ[r]   = sum_c dS[r,c] k[c]     written once, in q's dtype
 //   dK[c]   = sum_r dS[r,c] q[r]     fp32 sums, cast once at the end
-// The dropout keep mask is the forward's hash of (row, col, seed, b*H + h).
+// The dropout keep mask is the forward's hash of (row, col, seed, (b_offset + b)*H + h),
+// b_offset being the global row of the batch's row 0 under the data axis.
 //
 // Why two kernels: the TPU runs its grid in order and adds dK/dV over the
 // query blocks into one output block. Blocks on this card run in no order,
@@ -110,6 +111,7 @@ struct Params {
   uint32_t threshold;    // keep iff hash >= threshold (int(rate * 2**31))
   float one_minus_rate;  // fp32(1 - rate); kept values scale by 1/this
   uint32_t seed;         // the int32 seed's bits
+  int b_offset;          // global row of batch row 0 (the dropout salt's b)
   int Dv;                // the head dim, <= the instance's tile width D
   int unit;              // bf16: bytes a copy (copy_unit in flash_common.cuh)
 };
@@ -159,7 +161,7 @@ __global__ void __launch_bounds__(NTHREADS) flash_bwd_dq_kernel(const Params p) 
   const float* dop =
       static_cast<const float*>(p.dout) + b * p.sdo.b + h * p.sdo.h;
   float* dqp = static_cast<float*>(p.dq) + b * p.sdq.b + h * p.sdq.h;
-  const uint32_t salt = static_cast<uint32_t>(b * p.H + h);
+  const uint32_t salt = static_cast<uint32_t>((b + p.b_offset) * p.H + h);
   const float keep_scale = 1.0f / p.one_minus_rate;
 
   for (int i = tid; i < BQ * D; i += NTHREADS) {
@@ -342,7 +344,7 @@ __global__ void __launch_bounds__(NTHREADS) flash_bwd_dkv_kernel(const Params p)
       static_cast<const float*>(p.dout) + b * p.sdo.b + h * p.sdo.h;
   float* dkp = static_cast<float*>(p.dk) + b * p.sdk.b + h * p.sdk.h;
   float* dvp = static_cast<float*>(p.dv) + b * p.sdv.b + h * p.sdv.h;
-  const uint32_t salt = static_cast<uint32_t>(b * p.H + h);
+  const uint32_t salt = static_cast<uint32_t>((b + p.b_offset) * p.H + h);
   const float keep_scale = 1.0f / p.one_minus_rate;
 
   for (int i = tid; i < BK * D; i += NTHREADS) {
@@ -556,7 +558,7 @@ __global__ void __launch_bounds__(MMA_THREADS)
   const bf16* op = static_cast<const bf16*>(p.out) + b * p.so.b + h * p.so.h;
   const bf16* dop = static_cast<const bf16*>(p.dout) + b * p.sdo.b + h * p.sdo.h;
   bf16* dqp = static_cast<bf16*>(p.dq) + b * p.sdq.b + h * p.sdq.h;
-  const uint32_t salt = static_cast<uint32_t>(b * p.H + h);
+  const uint32_t salt = static_cast<uint32_t>((b + p.b_offset) * p.H + h);
   const float keep_scale = 1.0f / p.one_minus_rate;
   const int rows[2] = {q0 + warp * 16 + g, q0 + warp * 16 + g + 8};
 
@@ -778,7 +780,7 @@ __global__ void __launch_bounds__(MMA_THREADS)
   const bf16* dop = static_cast<const bf16*>(p.dout) + b * p.sdo.b + h * p.sdo.h;
   bf16* dkp = static_cast<bf16*>(p.dk) + b * p.sdk.b + h * p.sdk.h;
   bf16* dvp = static_cast<bf16*>(p.dv) + b * p.sdv.b + h * p.sdv.h;
-  const uint32_t salt = static_cast<uint32_t>(b * p.H + h);
+  const uint32_t salt = static_cast<uint32_t>((b + p.b_offset) * p.H + h);
   const float keep_scale = 1.0f / p.one_minus_rate;
   // this lane's two keys (rows of the transposed tiles) and their mask
   const int cols[2] = {k0 + warp * 16 + g, k0 + warp * 16 + g + 8};
@@ -982,7 +984,7 @@ int run(bool dq, const void* q, const void* k, const void* v, const void* out,
         void* dkp, void* dvp, float* delta, const long long* strides, int B,
         int H, int Sq, int Sk, int D, int is_bf16, float scale, int causal,
         int dropout, unsigned int threshold, float one_minus_rate,
-        unsigned int seed, void* stream) {
+        unsigned int seed, int b_offset, void* stream) {
   Params p;
   p.q = q;
   p.k = k;
@@ -1009,6 +1011,7 @@ int run(bool dq, const void* q, const void* k, const void* v, const void* out,
   p.threshold = threshold;
   p.one_minus_rate = one_minus_rate;
   p.seed = seed;
+  p.b_offset = b_offset;
   p.Dv = D;
   p.unit = 16;
   if (is_bf16) {
@@ -1047,10 +1050,10 @@ extern "C" int dlx_flash_bwd_dq(
     void* dv, float* delta, const long long* strides, int B, int H, int Sq,
     int Sk, int D, int is_bf16, float scale, int causal, int dropout,
     unsigned int threshold, float one_minus_rate, unsigned int seed,
-    void* stream) {
+    int b_offset, void* stream) {
   return run(true, q, k, v, out, dout, lse, mask, dq, dk, dv, delta, strides,
              B, H, Sq, Sk, D, is_bf16, scale, causal, dropout, threshold,
-             one_minus_rate, seed, stream);
+             one_minus_rate, seed, b_offset, stream);
 }
 
 extern "C" int dlx_flash_bwd_dkv(
@@ -1059,8 +1062,8 @@ extern "C" int dlx_flash_bwd_dkv(
     void* dv, float* delta, const long long* strides, int B, int H, int Sq,
     int Sk, int D, int is_bf16, float scale, int causal, int dropout,
     unsigned int threshold, float one_minus_rate, unsigned int seed,
-    void* stream) {
+    int b_offset, void* stream) {
   return run(false, q, k, v, out, dout, lse, mask, dq, dk, dv, delta, strides,
              B, H, Sq, Sk, D, is_bf16, scale, causal, dropout, threshold,
-             one_minus_rate, seed, stream);
+             one_minus_rate, seed, b_offset, stream);
 }

@@ -94,6 +94,7 @@ struct Params {
   uint32_t threshold;    // keep iff hash >= threshold (int(rate * 2**31))
   float one_minus_rate;  // fp32(1 - rate); kept values scale by 1/this
   uint32_t seed;         // the int32 seed's bits
+  int b_offset;          // global row of batch row 0 (the dropout salt's b)
   int Dv;                // the head dim, <= the instance's tile width D
   int unit;              // bf16: bytes a copy (copy_unit in flash_common.cuh)
 };
@@ -131,7 +132,7 @@ __global__ void __launch_bounds__(NTHREADS) flash_fwd_kernel(const Params p) {
   const float* kp = static_cast<const float*>(p.k) + b * p.sk.b + h * p.sk.h;
   const float* vp = static_cast<const float*>(p.v) + b * p.sv.b + h * p.sv.h;
   float* op = static_cast<float*>(p.out) + b * p.so.b + h * p.so.h;
-  const uint32_t salt = static_cast<uint32_t>(b * p.H + h);
+  const uint32_t salt = static_cast<uint32_t>((b + p.b_offset) * p.H + h);
   const float keep_scale = 1.0f / p.one_minus_rate;
 
   for (int i = tid; i < BQ * D; i += NTHREADS) {
@@ -321,7 +322,7 @@ __global__ void __launch_bounds__(MMA_THREADS)
   const bf16* kp = static_cast<const bf16*>(p.k) + b * p.sk.b + h * p.sk.h;
   const bf16* vp = static_cast<const bf16*>(p.v) + b * p.sv.b + h * p.sv.h;
   bf16* op = static_cast<bf16*>(p.out) + b * p.so.b + h * p.so.h;
-  const uint32_t salt = static_cast<uint32_t>(b * p.H + h);
+  const uint32_t salt = static_cast<uint32_t>((b + p.b_offset) * p.H + h);
   const float keep_scale = 1.0f / p.one_minus_rate;
   // this lane's two query rows: g and g+8 of the warp's 16
   const int rows[2] = {q0 + warp * 16 + g, q0 + warp * 16 + g + 8};
@@ -527,7 +528,7 @@ extern "C" int dlx_flash_fwd(const void* q, const void* k, const void* v,
                              int Sk, int D, int is_bf16, float scale,
                              int causal, int dropout, unsigned int threshold,
                              float one_minus_rate, unsigned int seed,
-                             void* stream) {
+                             int b_offset, void* stream) {
   Params p;
   p.q = q;
   p.k = k;
@@ -549,6 +550,7 @@ extern "C" int dlx_flash_fwd(const void* q, const void* k, const void* v,
   p.threshold = threshold;
   p.one_minus_rate = one_minus_rate;
   p.seed = seed;
+  p.b_offset = b_offset;
   p.Dv = D;
   p.unit = 16;
   using dlx_flash::copy_unit;

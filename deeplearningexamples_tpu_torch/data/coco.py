@@ -142,7 +142,13 @@ class CocoSSDLoader:
         shard: tuple[int, int] = (0, 1),
         n_threads: int | None = None,
         device: str = "cpu",  # the data plane's: "cpu" or "cuda"
+        rows: np.ndarray | None = None,
     ):
+        """``rows``: the positions of this rank's rows in each batch (a data
+        axis, ``parallel.mesh.batch_positions``): only their files are read
+        and only they are yielded (``gt`` too); every row's crop and flip is
+        still drawn, so each rank's rows are the one-rank run's."""
+        self.rows = rows
         self.plane = DataPlane(n_threads, device)
         self.ds = dataset
         self.samples = dataset.samples[shard[0] :: shard[1]]
@@ -174,13 +180,13 @@ class CocoSSDLoader:
             order = np.concatenate(
                 [order, np.full(bs - n_real_total % bs, order[-1])]
             )
+        keep = np.zeros(bs, bool)
+        keep[self.rows if self.rows is not None else slice(None)] = True
         for i in range(0, len(order) - bs + 1, bs):
             n_real = min(bs, n_real_total - i)
             jpegs, crops, flips, loc_t, cls_t, gt_info = [], [], [], [], [], []
             for bi, j in enumerate(order[i : i + bs]):
                 path, boxes, labels, img_id = self.samples[j]
-                with open(path, "rb") as f:
-                    jpegs.append(f.read())
                 crop = None
                 if self.train:
                     result = ssd_random_crop(boxes, labels, rng)
@@ -188,6 +194,10 @@ class CocoSSDLoader:
                         crop, boxes, labels = result
                 crop = crop or (0.0, 0.0, 1.0, 1.0)
                 flip = bool(self.train and rng.random() < 0.5)
+                if not keep[bi]:  # another rank's row: its draws only
+                    continue
+                with open(path, "rb") as f:
+                    jpegs.append(f.read())
                 if flip and len(boxes):
                     boxes = boxes.copy()
                     boxes[:, [0, 2]] = 1.0 - boxes[:, [2, 0]]

@@ -98,7 +98,14 @@ class ImageNetLoader:
         n_threads: int | None = None,
         shard: tuple[int, int] = (0, 1),  # (index, count)
         device: str = "cpu",  # the data plane's: "cpu" or "cuda"
+        rows: np.ndarray | None = None,
     ):
+        """``rows``: the positions of this rank's rows in each batch (a data
+        axis, ``parallel.mesh.batch_positions``): only their files are
+        decoded and only they are yielded; the other rows' crops and flips
+        are still drawn, from the dimensions in their files' headers (read
+        once a file), so each rank's rows are the one-rank run's."""
+        self.rows = rows
         self.plane = DataPlane(n_threads, device)
         self.batch_size = batch_size
         self.image_size = image_size
@@ -148,15 +155,20 @@ class ImageNetLoader:
             # keeps eval shapes static, duplicates < bs samples
             pad = bs - len(order) % bs
             order = np.concatenate([order, order[:pad]])
+        keep = np.zeros(bs, bool)
+        keep[self.rows if self.rows is not None else slice(None)] = True
         for start in range(0, len(order) - bs + 1, bs):
             batch_idx = order[start : start + bs]
             jpegs, labels, crops = [], [], []
-            for i in batch_idx:
+            for k, i in enumerate(batch_idx):
                 path, label = self.samples[i]
-                with open(path, "rb") as f:
-                    data = f.read()
-                jpegs.append(data)
-                labels.append(label)
+                data = b""
+                if keep[k] or int(i) not in self._dims:
+                    with open(path, "rb") as f:
+                        data = f.read()
+                if keep[k]:
+                    jpegs.append(data)
+                    labels.append(label)
                 w, h = self._dims_of(int(i), data)
                 if self.split == "train":
                     crops.append(sample_rrc_pixels(rng, w, h))
@@ -168,7 +180,7 @@ class ImageNetLoader:
                 else np.zeros(bs, np.int32)
             )
             images = self.plane.decode_batch(
-                jpegs, np.asarray(crops, np.float32), flips, self.image_size,
-                MEAN, STD,
+                jpegs, np.asarray(crops, np.float32)[keep], flips[keep],
+                self.image_size, MEAN, STD,
             )
             yield {"image": images, "label": np.asarray(labels, np.int32)}

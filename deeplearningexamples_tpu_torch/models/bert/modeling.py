@@ -48,12 +48,14 @@ from torch import nn
 
 from ...ops.dropout import RegenDropout, regen_dropout
 from ...ops.flash_attention import flash_attention
+from ...parallel.mesh import data_rows
 
 __all__ = [
     "BERT_CONFIGS",
     "BertConfig",
     "BertEmbeddings",
     "BertSelfAttention",
+    "attention_seed",
     "BertLayer",
     "BertModel",
     "BertForMultipleChoice",
@@ -161,6 +163,12 @@ class BertEmbeddings(nn.Module):
         return self.dropout(self.LayerNorm(x), generator)
 
 
+def attention_seed(generator: torch.Generator) -> int:
+    """A fresh int32 seed for K1's dropout hash, as JAX's
+    ``jax.random.randint(-2**31, 2**31 - 1)`` per call."""
+    return int(torch.randint(-2**31, 2**31 - 1, (1,), generator=generator))
+
+
 class BertSelfAttention(nn.Module):
     """q/k/v projections written straight into the (B,S,H,D) layout that the
     flash kernel reads in place: no head transpose is materialised."""
@@ -185,12 +193,11 @@ class BertSelfAttention(nn.Module):
             return self._plain(q, k, v, key_mask, generator).reshape(b, s, hidden)
         rate, seed = 0.0, 0
         if generator is not None and self.attention_dropout > 0.0:
-            # a fresh int32 seed per call, as jax.random.randint(-2**31, 2**31-1)
-            rate = self.attention_dropout
-            seed = int(torch.randint(-2**31, 2**31 - 1, (1,),
-                                     generator=generator))
+            rate, seed = self.attention_dropout, attention_seed(generator)
+        # the hash's batch row is the global one under a data axis
         ctx = flash_attention(q, k, v, key_mask=key_mask, layout="bshd",
-                              dropout_rate=rate, dropout_seed=seed)
+                              dropout_rate=rate, dropout_seed=seed,
+                              dropout_batch_offset=data_rows(b)[0])
         return ctx.reshape(b, s, hidden)
 
     def _plain(self, q, k, v, key_mask, generator):

@@ -3,7 +3,8 @@
 Port of ``BertPretrainTask`` and ``BertSquadTask`` in
 ``deeplearningexamples_tpu/models/bert/task.py``. The losses are the
 reference's: for pretraining, cross-entropy over the masked positions plus
-the NSP cross-entropy; for SQuAD fine-tuning, the mean of the start and end
+the NSP cross-entropy (the MLM mean over the global batch's masked positions
+under a data axis, ``parallel.mesh.data_mean``); for SQuAD fine-tuning, the mean of the start and end
 cross-entropies with the positions clipped to the sequence.
 """
 
@@ -15,6 +16,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ...parallel.mesh import data_mean
 from .modeling import BertConfig, BertForPreTraining, BertForQuestionAnswering
 
 __all__ = ["BertPretrainTask", "BertSquadTask", "init_bert_weights_",
@@ -132,20 +134,23 @@ class BertPretrainTask:
         ce = F.cross_entropy(mlm_logits.float().flatten(0, 1), safe.flatten(),
                              reduction="none").view_as(weights)
         w = weights.float()
-        mlm = (ce * w).sum() / w.sum().clamp(min=1.0)
+        # over the global batch's masked positions (JAX's denominator)
+        mlm = data_mean((ce * w).sum(), w.sum())
         nsp = F.cross_entropy(nsp_logits, batch["nsp_label"].long())
         return mlm + nsp, (model_state, {"mlm_loss": mlm, "nsp_loss": nsp})
 
     @torch.no_grad()
     def metric_fn(self, model: BertForPreTraining, model_state, batch: dict):
         """MLM accuracy over the labelled positions and NSP accuracy, without
-        dropout."""
+        dropout. Under a data axis the MLM accuracy is this rank's share of
+        the global one (``data_mean``), which the eval loop's mean over the
+        data axis sums."""
         mlm_logits, nsp_logits = model(batch["input_ids"],
                                        batch["attention_mask"],
                                        batch["token_type_ids"])
         labels = batch["mlm_labels"]
         valid = labels >= 0
         pred = mlm_logits.argmax(-1)
-        acc = ((pred == labels) & valid).sum() / valid.sum().clamp(min=1)
+        acc = data_mean(((pred == labels) & valid).sum(), valid.sum())
         nsp = (nsp_logits.argmax(-1) == batch["nsp_label"]).float().mean()
         return {"mlm_acc": acc, "nsp_acc": nsp}

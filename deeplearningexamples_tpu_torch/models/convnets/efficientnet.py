@@ -33,6 +33,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ...parallel.mesh import data_rows
 from .layers import BatchNorm2d, Conv2d, Dense, SqueezeExcite, init_weights_
 from .quant import QATConv
 
@@ -181,8 +182,9 @@ class EfficientNet(nn.Module):
         drops, then (B, head) for the dropout; None where nothing is
         drawn."""
         blocks = [blk for stage in self.layers for blk in stage.values()]
-        sizes = [b if self.training and blk.drops else 0 for blk in blocks]
-        sizes.append(b * head if self.training and self.arch.dropout > 0
+        off, rows = data_rows(b)  # the global batch's draw, under a data axis
+        sizes = [rows if self.training and blk.drops else 0 for blk in blocks]
+        sizes.append(rows * head if self.training and self.arch.dropout > 0
                      and not self.features_only else 0)
         if not sum(sizes):
             return [None] * len(sizes)
@@ -193,8 +195,8 @@ class EfficientNet(nn.Module):
         if device.type == "cuda":
             u = u.pin_memory()
         u = u.to(device, non_blocking=True)
-        parts = list(torch.split(u, sizes))
-        return [p if n else None for p, n in zip(parts, sizes)]
+        return [p.view(rows, -1)[off:off + b].reshape(-1) if n else None
+                for p, n in zip(torch.split(u, sizes), sizes)]
 
     def forward(self, x: torch.Tensor,
                 generator: torch.Generator | None = None):

@@ -37,6 +37,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ...parallel.mesh import data_rows
 from .layers import BatchNorm2d, Conv2d, Dense, SqueezeExcite, init_weights_
 from .quant import QATConv
 
@@ -230,7 +231,8 @@ class GPUNet(nn.Module):
         if generator is None:
             raise ValueError("a training forward with dropout needs a "
                              "generator")
-        u = torch.rand(b, HEAD, generator=generator)
+        off, rows = data_rows(b)  # this rank's rows of the global draw
+        u = torch.rand(rows, HEAD, generator=generator)[off:off + b]
         if device.type == "cuda":
             u = u.pin_memory()
         return u.to(device, non_blocking=True)

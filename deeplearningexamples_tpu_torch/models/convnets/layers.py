@@ -28,6 +28,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ...parallel.mesh import DATA_AXIS, current_mesh, sum_over_ranks
+
 __all__ = ["BatchNorm2d", "Conv2d", "Dense", "MOMENTUM", "SqueezeExcite",
            "init_weights_"]
 
@@ -92,12 +94,37 @@ class Dense(nn.Linear):
             self.bias.zero_()
 
 
+def _global_batch_norm(x: torch.Tensor, weight: torch.Tensor,
+                       bias: torch.Tensor, eps: float):
+    """Training-mode BN over the data axis's global batch: (y in x's
+    dtype, mean, biased variance), the statistics in fp32 (float64 for a
+    float64 x)."""
+    acc = torch.promote_types(x.dtype, torch.float32)
+    xf = x.to(acc)
+    dims = [0, *range(2, x.dim())]
+    c = x.shape[1]
+    stats = sum_over_ranks(torch.cat([xf.sum(dims), (xf * xf).sum(dims)]))
+    n = x.numel() // c * current_mesh().size(DATA_AXIS)
+    mean = stats[:c] / n
+    var = (stats[c:] / n - mean * mean).clamp_min(0.0)
+    view = (1, c) + (1,) * (x.dim() - 2)
+    scale = torch.rsqrt(var + eps) * weight.to(acc)
+    y = (xf - mean.view(view)) * scale.view(view) + bias.to(acc).view(view)
+    return y.to(x.dtype), mean.detach(), var.detach()
+
+
 class BatchNorm2d(nn.Module):
     """``nn.BatchNorm(momentum=momentum, epsilon=eps)`` over the channels of
     an NCHW tensor (flax's momentum: torch's is ``1 - momentum``). Training
     normalises with the batch statistics and updates the running ones in
     place; eval normalises with the running ones.
-    ``zero_init`` starts the scale at 0 (a residual branch's last BN)."""
+    ``zero_init`` starts the scale at 0 (a residual branch's last BN).
+
+    Under a data axis (``parallel/mesh.py``) the batch statistics are the
+    global batch's, as under JAX's SPMD: the fp32 sum, sum of squares and
+    count are summed over the data axis (``sum_over_ranks``, whose backward
+    sums the cotangents, so the gradients flow through the global
+    statistics) and the variance is flax's ``E[x^2] - E[x]^2``."""
 
     def __init__(self, c: int, eps: float = 1e-5, zero_init: bool = False,
                  momentum: float = MOMENTUM):
@@ -112,13 +139,19 @@ class BatchNorm2d(nn.Module):
         if not self.training:
             return F.batch_norm(x, self.running_mean, self.running_var,
                                 self.weight, self.bias, False, 0.0, self.eps)
-        y, mean, invstd = torch.ops.aten.native_batch_norm(
-            x, self.weight, self.bias, None, None, True, 0.0, self.eps)
+        if current_mesh().size(DATA_AXIS) > 1:
+            y, mean, var = _global_batch_norm(x, self.weight, self.bias,
+                                              self.eps)
+        else:
+            y, mean, invstd = torch.ops.aten.native_batch_norm(
+                x, self.weight, self.bias, None, None, True, 0.0, self.eps)
+            with torch.no_grad():
+                var = invstd.double().pow(-2).sub(self.eps)
+                var = var.clamp_min(0.0).float()
         with torch.no_grad():
-            var = invstd.double().pow(-2).sub(self.eps).clamp_min(0.0).float()
-            m = self.momentum
-            self.running_mean.mul_(m).add_(mean * (1.0 - m))
-            self.running_var.mul_(m).add_(var * (1.0 - m))
+            m, dt = self.momentum, self.running_mean.dtype
+            self.running_mean.mul_(m).add_(mean.to(dt) * (1.0 - m))
+            self.running_var.mul_(m).add_(var.to(dt) * (1.0 - m))
         return y
 
     def init_(self, generator: torch.Generator) -> None:

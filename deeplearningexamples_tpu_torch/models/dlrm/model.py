@@ -8,7 +8,13 @@ offset), the dot (or cat) interaction, and a top MLP to one click logit.
 The joint table's lookup is ``ops/embedding.py``'s ``embedding_lookup``, whose
 forward on the card is the row-gather kernel K4; the table is stored in
 ``table_dtype`` (fp32 or bf16) and cast to the compute dtype after the
-gather. Parameter names follow the JAX tree: ``embedding_table``,
+gather. Under a model axis (``parallel/mesh.py``, JAX's ``--mesh-model``)
+the joint table is row-sharded: rank m holds rows ``[m R / N, (m + 1) R /
+N)`` of the R rows, looks up the ids it owns (shifted to its rows; the
+others masked to zero rows) and the partial rows are summed over the model
+axis (``sum_partials``: the MLPs and the loss after it are replicated there,
+so the backward is the identity). The table's gradient and its SGD rows
+stay on their rank. Parameter names follow the JAX tree: ``embedding_table``,
 ``bottom_mlp.{i}.weight/bias`` and ``top_mlp.{i}.weight/bias`` (a flax Dense
 ``bottom_mlp_{i}`` kernel, transposed).
 """
@@ -24,6 +30,8 @@ from torch import nn
 
 from ...ops.dot_interaction import dot_interaction, interaction_output_dim
 from ...ops.embedding import embedding_lookup
+from ...parallel.mesh import (MODEL_AXIS, current_mesh, mark_sharded,
+                              rank_rows, sum_partials)
 
 __all__ = ["Dlrm", "DlrmConfig"]
 
@@ -94,8 +102,13 @@ class Dlrm(nn.Module):
         super().__init__()
         self.cfg, self.dtype = cfg, dtype
         table_dtype = torch.bfloat16 if cfg.table_dtype == "bf16" else torch.float32
+        # this rank's rows of the joint table (all of it without a model axis)
+        self.rows = rank_rows(cfg.total_rows, MODEL_AXIS)
+        self.sharded = current_mesh().size(MODEL_AXIS) > 1
         self.embedding_table = nn.Parameter(torch.zeros(
-            cfg.total_rows, cfg.embedding_dim, dtype=table_dtype))
+            self.rows[1] - self.rows[0], cfg.embedding_dim, dtype=table_dtype))
+        if self.sharded:
+            mark_sharded(self.embedding_table, MODEL_AXIS, cfg.total_rows)
         self.bottom_mlp = _mlp_layers(cfg.num_numerical, cfg.bottom_mlp)
         inter = (interaction_output_dim(cfg.num_features, cfg.embedding_dim)
                  if cfg.interaction == "dot"
@@ -111,15 +124,20 @@ class Dlrm(nn.Module):
         """The JAX initialisers, drawn from ``generator`` in a fixed order
         (tables, then the bottom and top MLPs): each table uniform in
         +-1/sqrt(cardinality), pad rows 0; each kernel normal with std
-        sqrt(2 / (in + out)), each bias normal with std sqrt(1 / out)."""
+        sqrt(2 / (in + out)), each bias normal with std sqrt(1 / out). A
+        row shard keeps its rows of the same draws."""
+        lo, hi = self.rows
+        self.embedding_table.zero_()
         row = 0
         for c in self.cfg.categorical_cardinalities:
             bound = 1.0 / np.sqrt(c)
             part = torch.empty(c, self.cfg.embedding_dim, dtype=torch.float32)
             part.uniform_(-bound, bound, generator=generator)
-            self.embedding_table[row:row + c] = part.to(self.embedding_table)
+            a, b = max(row, lo), min(row + c, hi)
+            if a < b:
+                self.embedding_table[a - lo:b - lo] = part[a - row:b - row].to(
+                    self.embedding_table)
             row += c
-        self.embedding_table[row:] = 0
         for lin in (*self.bottom_mlp, *self.top_mlp):
             d_out, d_in = lin.weight.shape
             w = torch.empty(d_out, d_in).normal_(
@@ -136,8 +154,16 @@ class Dlrm(nn.Module):
             categorical = torch.remainder(categorical, self.cardinalities[None, :])
         # int32 suffices: a joint table of Criteo-1TB's size is ~880M rows
         flat_idx = categorical.to(torch.int32) + self.offsets[None, :]
-        emb = embedding_lookup(self.embedding_table, flat_idx,
-                               cfg.embedding_grad).to(self.dtype)  # (B, 26, D)
+        if self.sharded:  # the rows this rank owns, then the sum of parts
+            local = flat_idx - self.rows[0]
+            mine = (local >= 0) & (local < self.rows[1] - self.rows[0])
+            emb = sum_partials(embedding_lookup(
+                self.embedding_table, local, cfg.embedding_grad, valid=mine),
+                MODEL_AXIS)
+        else:
+            emb = embedding_lookup(self.embedding_table, flat_idx,
+                                   cfg.embedding_grad)
+        emb = emb.to(self.dtype)  # (B, 26, D)
         bottom = _mlp(numerical, self.bottom_mlp, self.dtype)  # (B, D)
         if cfg.interaction == "dot":
             inter = dot_interaction(bottom, emb)

@@ -14,6 +14,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ...parallel.mesh import gather_objects
 from .boxes import nms_single
 from .coco_eval import CocoMAP
 
@@ -31,9 +32,11 @@ def evaluate_ssd(
 ) -> dict:
     """Detection over a loader of batches with a numpy ``image`` (B, 300,
     300, 3) and host-side ``gt`` entries ``(image_id, boxes, labels)``, on
-    the model's device. Returns {"mAP", "mAP50"}."""
+    the model's device. Returns {"mAP", "mAP50"}. Under a data axis each
+    rank detects on its rows and every rank scores all ranks' images."""
     device = next(model.parameters()).device
     scorer = CocoMAP()
+    seen = []
     for batch in val_loader:
         images = torch.as_tensor(batch["image"]).to(device)
         boxes, probs = task.predict_fn(model, None, images)
@@ -43,5 +46,8 @@ def evaluate_ssd(
                 boxes[i], probs[i], criteria=nms_criteria,
                 max_output=max_output, score_thresh=score_thresh,
             )
-            scorer.add_image(det_b, det_l, det_s, gt_boxes, gt_labels)
+            seen.append((det_b, det_l, det_s, gt_boxes, gt_labels))
+    for part in gather_objects(seen):
+        for image in part:
+            scorer.add_image(*image)
     return scorer.compute()

@@ -32,6 +32,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ...parallel.mesh import data_rows
 from .boxes import DefaultBoxes, dboxes300_coco, decode_batch
 from .model import SSD300
 
@@ -89,7 +90,9 @@ def sample_color_twist_params(generator: torch.Generator, batch: int,
     ranges (``coco_pipeline.py:91-93``), drawn on the host from
     ``generator`` (a CPU generator) and copied to ``device`` from pinned
     memory, so the copy does not wait for the steps already queued."""
-    u = torch.rand(len(_TWIST_RANGES), batch, generator=generator)
+    off, rows = data_rows(batch)  # this rank's rows of the global draw
+    u = torch.rand(len(_TWIST_RANGES), rows, generator=generator)
+    u = u[:, off:off + batch].contiguous()
     if torch.device(device).type == "cuda":
         u = u.pin_memory().to(device, non_blocking=True)
     return {name: lo + (hi - lo) * u[k]

@@ -8,6 +8,11 @@ device. Semantics are inverted dropout: keep with probability ``1 - rate``,
 kept values scaled by ``1 / (1 - rate)`` in fp32 and then cast to the input's
 dtype, as in JAX. The bits come from ``torch.Generator`` and cannot match
 ``jax.random``'s, so parity with JAX is checked by statistics.
+
+Under a data axis (``parallel/mesh.py``) a rank holds rows ``[off, off +
+n)`` of the global batch on dim 0, and draws the global batch's mask and
+keeps its rows: the mask the one-rank run draws for those rows, at the cost
+of drawing the data degree's times the uniforms.
 """
 
 from __future__ import annotations
@@ -15,6 +20,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 from torch import nn
+
+from ..parallel.mesh import data_rows
 
 __all__ = ["RegenDropout", "draw_seed", "regen_dropout"]
 
@@ -28,7 +35,10 @@ def draw_seed(generator: torch.Generator) -> int:
 def _keep_scale(seed: int, shape, rate: float, device) -> torch.Tensor:
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
-    u = torch.rand(shape, generator=gen, device=device)
+    off, rows = data_rows(shape[0])
+    u = torch.rand((rows, *shape[1:]), generator=gen, device=device)
+    if rows != shape[0]:  # this rank's rows of the global draw
+        u = u[off:off + shape[0]]
     return torch.where(u >= rate, float(np.float32(1.0) / np.float32(1.0 - rate)),
                        0.0)
 

@@ -231,9 +231,16 @@ def _segment_sum(g: torch.Tensor, idx: torch.Tensor, v: int) -> torch.Tensor:
 class _EmbeddingLookup(torch.autograd.Function):
 
     @staticmethod
-    def forward(ctx, table, flat_idx, grad):
-        idx = flat_idx.reshape(-1).to(torch.int32).contiguous()
-        out = gather_rows(table, idx)
+    def forward(ctx, table, flat_idx, grad, valid):
+        idx = flat_idx.reshape(-1).to(torch.int32)
+        if valid is not None:  # masked ids read row 0, then give zero rows
+            keep = valid.reshape(-1)
+            idx = torch.where(keep, idx, 0)
+        out = gather_rows(table, idx.contiguous())
+        if valid is not None:
+            out = torch.where(keep[:, None], out, 0)
+            # ... and no gradient: index V, which the segment sum drops
+            idx = torch.where(keep, idx, table.shape[0])
         ctx.save_for_backward(idx)
         ctx.shape, ctx.dtype, ctx.grad = tuple(table.shape), table.dtype, grad
         return out.view(*flat_idx.shape, table.shape[1])
@@ -246,13 +253,18 @@ class _EmbeddingLookup(torch.autograd.Function):
         idx = idx.long()
         if ctx.grad == "scatter":  # jnp.take's gradient: [-V, 0) wraps
             idx = torch.where(idx < 0, idx + v, idx)
-        return _segment_sum(g, idx, v).to(ctx.dtype), None, None
+        return _segment_sum(g, idx, v).to(ctx.dtype), None, None, None
 
 
 def embedding_lookup(table: torch.Tensor, flat_idx: torch.Tensor,
-                     grad: str = "scatter") -> torch.Tensor:
+                     grad: str = "scatter",
+                     valid: torch.Tensor | None = None) -> torch.Tensor:
     """table (V, D); flat_idx (...,) int -> (..., D) in the table's dtype,
-    differentiable in the table. ``grad``: ``"scatter"`` or ``"sorted"``."""
+    differentiable in the table. ``grad``: ``"scatter"`` or ``"sorted"``.
+    ``valid`` (flat_idx's shape, bool): where False the row is 0 and takes
+    no gradient, whatever the id (a row-sharded table's lookup of the ids
+    another rank owns); the kernel reads row 0 there, never an id out of
+    range."""
     if grad not in ("scatter", "sorted"):
         raise ValueError(f"unknown embedding grad {grad!r}")
-    return _EmbeddingLookup.apply(table, flat_idx, grad)
+    return _EmbeddingLookup.apply(table, flat_idx, grad, valid)

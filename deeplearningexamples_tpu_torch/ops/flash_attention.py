@@ -21,7 +21,9 @@ fp32 runs on the FMA pipe.
 Semantics follow the JAX kernels exactly: scale, then mask to ``NEG_INF``
 (-1e30, so a row with every key masked averages V uniformly); causal masking
 compares global row and column; probability dropout multiplies the numerator
-only, by a stateless hash of (row, col, seed, b*H + h); P is rounded to the
+only, by a stateless hash of (row, col, seed, b*H + h), where b is the
+global batch row (the local row plus ``dropout_batch_offset``, which the data
+axis sets so that two ranks never draw one mask); P is rounded to the
 input dtype before the PV product and divided by the row sum at the end.
 
 The backward follows the TPU kernels' rounding: P times the keep mask is
@@ -118,7 +120,8 @@ def _acc(q):
 
 
 def mha_reference(q, k, v, key_mask=None, causal=False, sm_scale=None, *,
-                  layout="bhsd", dropout_rate=0.0, dropout_seed=0):
+                  layout="bhsd", dropout_rate=0.0, dropout_seed=0,
+                  dropout_batch_offset=0):
     """Plain PyTorch attention with the kernel's semantics. Returns ``(out,
     lse)``: out in the input layout and dtype, lse (B, H, Sq) fp32 (float64
     for float64 inputs, which it computes in float64 throughout)."""
@@ -139,7 +142,8 @@ def mha_reference(q, k, v, key_mask=None, causal=False, sm_scale=None, *,
     p = torch.exp(s - m)
     l = p.sum(dim=-1, keepdim=True)
     if dropout_rate > 0.0:
-        salt = (torch.arange(b, device=q.device)[:, None] * h
+        salt = ((torch.arange(b, device=q.device)[:, None]
+                 + dropout_batch_offset) * h
                 + torch.arange(h, device=q.device)[None, :])[:, :, None, None]
         p = p * dropout_scale(rows, cols, dropout_seed, salt, dropout_rate)
     o = torch.einsum("bhqk,bhkd->bhqd", f(p.to(v.dtype)), f(v))
@@ -152,7 +156,7 @@ def mha_reference(q, k, v, key_mask=None, causal=False, sm_scale=None, *,
 
 def mha_backward_reference(q, k, v, key_mask, out, lse, dout, causal=False,
                            sm_scale=None, *, layout="bhsd", dropout_rate=0.0,
-                           dropout_seed=0):
+                           dropout_seed=0, dropout_batch_offset=0):
     """Plain PyTorch backward with the kernels' arithmetic (JAX
     ``_bwd_kernel_bshd``). ``lse`` is the forward's (B, H, Sq) fp32; the rest
     are in ``layout``. Returns ``(dq, dk, dv)`` in the inputs' layout and
@@ -174,7 +178,8 @@ def mha_backward_reference(q, k, v, key_mask, out, lse, dout, causal=False,
     dp = torch.einsum("bhqd,bhkd->bhqk", f(dout), f(v))
     p_used = p
     if dropout_rate > 0.0:
-        salt = (torch.arange(b, device=q.device)[:, None] * h
+        salt = ((torch.arange(b, device=q.device)[:, None]
+                 + dropout_batch_offset) * h
                 + torch.arange(h, device=q.device)[None, :])[:, :, None, None]
         drop = dropout_scale(rows, cols, dropout_seed, salt, dropout_rate)
         p_used = p * drop
@@ -197,7 +202,8 @@ def mha_backward_reference(q, k, v, key_mask, out, lse, dout, causal=False,
 _kernel_fns: dict = {}
 
 # dlx_flash_fwd: q, k, v, mask, out, lse, strides (4 x 4), B, H, Sq, Sk, D,
-# is_bf16, scale, causal, dropout, threshold, 1 - rate, seed, stream.
+# is_bf16, scale, causal, dropout, threshold, 1 - rate, seed, batch offset,
+# stream.
 # dlx_flash_bwd_dq / _dkv: q, k, v, out, dout, lse, mask, dq, dk, dv, delta,
 # strides (8 x 4), then the same scalars and the stream.
 _ARGTYPES = {
@@ -207,7 +213,7 @@ _ARGTYPES = {
 }
 _SCALARS = ([ctypes.POINTER(ctypes.c_longlong)] + [ctypes.c_int] * 6
             + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_uint,
-               ctypes.c_float, ctypes.c_uint, ctypes.c_void_p])
+               ctypes.c_float, ctypes.c_uint, ctypes.c_int, ctypes.c_void_p])
 
 
 def _kernel(name: str = "dlx_flash_fwd"):
@@ -279,13 +285,14 @@ def _check(q, k, v, key_mask, layout, rate):
     return b, h, sq, sk, d, mask
 
 
-def _scalars(b, h, sq, sk, d, q, scale, causal, rate, seed):
+def _scalars(b, h, sq, sk, d, q, scale, causal, rate, seed, b_offset):
     return (b, h, sq, sk, d, int(q.dtype == torch.bfloat16), scale,
             int(causal), int(rate > 0.0), int(rate * 2147483648.0), 1.0 - rate,
-            int(seed) & 0xFFFFFFFF)
+            int(seed) & 0xFFFFFFFF, int(b_offset))
 
 
-def _flash_cuda(q, k, v, key_mask, causal, scale, layout, rate, seed):
+def _flash_cuda(q, k, v, key_mask, causal, scale, layout, rate, seed,
+                b_offset=0):
     global launches
     b, h, sq, sk, d, mask = _check(q, k, v, key_mask, layout, rate)
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
@@ -298,7 +305,8 @@ def _flash_cuda(q, k, v, key_mask, causal, scale, layout, rate, seed):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                  None if mask is None else mask.data_ptr(),
                  out.data_ptr(), lse.data_ptr(), strides,
-                 *_scalars(b, h, sq, sk, d, q, scale, causal, rate, seed),
+                 *_scalars(b, h, sq, sk, d, q, scale, causal, rate, seed,
+                           b_offset),
                  stream)
     _raise_on(err, "flash_fwd")
     with _count_lock:
@@ -307,7 +315,7 @@ def _flash_cuda(q, k, v, key_mask, causal, scale, layout, rate, seed):
 
 
 def _bwd_buffers(q, k, v, key_mask, out, lse, dout, causal, scale, layout,
-                 rate, seed):
+                 rate, seed, b_offset=0):
     """Validate, allocate dq, dk, dv and delta, and build the arguments both
     backward kernels take (all but the stream)."""
     b, h, sq, sk, d, mask = _check(q, k, v, key_mask, layout, rate)
@@ -331,18 +339,19 @@ def _bwd_buffers(q, k, v, key_mask, out, lse, dout, causal, scale, layout,
             dout.data_ptr(), lse.data_ptr(),
             None if mask is None else mask.data_ptr(), dq.data_ptr(),
             dk.data_ptr(), dv.data_ptr(), delta.data_ptr(), strides,
-            *_scalars(b, h, sq, sk, d, q, scale, causal, rate, seed))
+            *_scalars(b, h, sq, sk, d, q, scale, causal, rate, seed, b_offset))
     # the tensors behind the pointers live as long as the arguments
     return (dq, dk, dv), args, (mask, out, dout, lse, delta)
 
 
 def _flash_bwd_cuda(q, k, v, key_mask, out, lse, dout, causal, scale, layout,
-                    rate, seed):
+                    rate, seed, b_offset=0):
     """Launches the dq kernel (which also writes delta = rowsum(dO * O)),
     then the dk/dv kernel, on the current stream."""
     global launches_bwd_dq, launches_bwd_dkv
     grads, args, _keep = _bwd_buffers(q, k, v, key_mask, out, lse, dout,
-                                      causal, scale, layout, rate, seed)
+                                      causal, scale, layout, rate, seed,
+                                      b_offset)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = _kernel("dlx_flash_bwd_dq")(*args, stream)
@@ -367,32 +376,35 @@ class _FlashAttention(torch.autograd.Function):
     (CPU) forward and backward, with the probabilities recomputed from lse."""
 
     @staticmethod
-    def forward(ctx, q, k, v, key_mask, causal, scale, layout, rate, seed):
+    def forward(ctx, q, k, v, key_mask, causal, scale, layout, rate, seed,
+                b_offset):
         if _device_kind(q) == "cuda":
             out, lse = _flash_cuda(q, k, v, key_mask, causal, scale, layout,
-                                   rate, seed)
+                                   rate, seed, b_offset)
         else:
             out, lse = mha_reference(q, k, v, key_mask, causal, scale,
                                      layout=layout, dropout_rate=rate,
-                                     dropout_seed=seed)
+                                     dropout_seed=seed,
+                                     dropout_batch_offset=b_offset)
         ctx.save_for_backward(q, k, v, key_mask, out, lse)
-        ctx.args = (causal, scale, layout, rate, seed)
+        ctx.args = (causal, scale, layout, rate, seed, b_offset)
         ctx.mark_non_differentiable(lse)
         return out, lse
 
     @staticmethod
     def backward(ctx, dout, _dlse):
         q, k, v, key_mask, out, lse = ctx.saved_tensors
-        causal, scale, layout, rate, seed = ctx.args
+        causal, scale, layout, rate, seed, b_offset = ctx.args
         if _device_kind(q) == "cuda":
             grads = _flash_bwd_cuda(q, k, v, key_mask, out, lse, dout, causal,
-                                    scale, layout, rate, seed)
+                                    scale, layout, rate, seed, b_offset)
         else:
             grads = mha_backward_reference(q, k, v, key_mask, out, lse, dout,
                                            causal, scale, layout=layout,
                                            dropout_rate=rate,
-                                           dropout_seed=seed)
-        return (*grads, None, None, None, None, None, None)
+                                           dropout_seed=seed,
+                                           dropout_batch_offset=b_offset)
+        return (*grads, None, None, None, None, None, None, None)
 
 
 # ---------------------------------------------------------------------------
@@ -402,7 +414,7 @@ class _FlashAttention(torch.autograd.Function):
 
 def flash_attention_with_lse(q, k, v, key_mask=None, *, causal=False,
                              sm_scale=None, layout="bhsd", dropout_rate=0.0,
-                             dropout_seed=0):
+                             dropout_seed=0, dropout_batch_offset=0):
     """``flash_attention`` that also returns the logsumexp, (B, H, Sq) fp32.
     Differentiable in q, k and v."""
     if layout not in ("bhsd", "bshd"):
@@ -410,18 +422,22 @@ def flash_attention_with_lse(q, k, v, key_mask=None, *, causal=False,
     d = q.shape[-1]
     scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(d)
     return _FlashAttention.apply(q, k, v, key_mask, causal, scale, layout,
-                                 float(dropout_rate), int(dropout_seed))
+                                 float(dropout_rate), int(dropout_seed),
+                                 int(dropout_batch_offset))
 
 
 def flash_attention(q, k, v, key_mask=None, *, causal=False, sm_scale=None,
-                    layout="bhsd", dropout_rate=0.0, dropout_seed=0):
+                    layout="bhsd", dropout_rate=0.0, dropout_seed=0,
+                    dropout_batch_offset=0):
     """Fused MHA. key_mask: (batch, seq_k) with 1 = attend.
 
     ``layout="bhsd"``: q, k, v are (batch, heads, seq, head_dim);
     ``layout="bshd"``: (batch, seq, heads, head_dim), read in place by the
     kernel. The output has the input's layout and dtype. ``dropout_rate`` > 0
     drops attention probabilities by the stateless hash seeded by the int32
-    ``dropout_seed``."""
+    ``dropout_seed``; batch row b hashes as row ``b + dropout_batch_offset``
+    of the global batch."""
     return flash_attention_with_lse(
         q, k, v, key_mask, causal=causal, sm_scale=sm_scale, layout=layout,
-        dropout_rate=dropout_rate, dropout_seed=dropout_seed)[0]
+        dropout_rate=dropout_rate, dropout_seed=dropout_seed,
+        dropout_batch_offset=dropout_batch_offset)[0]

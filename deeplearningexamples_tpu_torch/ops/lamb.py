@@ -11,6 +11,12 @@ math, per tensor::
     ratio = ||p|| / ||u||  (1 where either is 0), only where use_nvlamb or wd
     p += lr(count) * (-ratio * u)
 
+With ``zero`` (a ``parallel.zero.ZeroPlan``, ZeRO-1 over the data axis) the
+moments of a sharded leaf hold this rank's rows only: m, v and u are computed
+on them, ||p|| and ||u|| from the squares summed over the ranks' rows, and the
+update's rows are gathered whole. The clip reads the whole gradient, which
+every rank holds after the data axis's mean.
+
 ``lr`` is evaluated at the update count before this update (optax's
 ``scale_by_schedule``), where the flat path (``core/flat.py``) uses the count
 after it: the two JAX paths disagree, and the port keeps both as they are.
@@ -78,17 +84,21 @@ def lamb(
     grad_clip_norm: float | None = 1.0,
     moment_dtype: torch.dtype = torch.float32,
     use_nvlamb: bool = False,
+    zero=None,
 ) -> Transform:
     """NVLAMB: global-norm clip, LAMB trust-ratio update, lr. ``params`` and
     ``grads`` are dicts name -> tensor; ``mask`` is True where weight decay
-    (and, with ``use_nvlamb=False``, the trust ratio) applies."""
+    (and, with ``use_nvlamb=False``, the trust ratio) applies; ``zero`` a
+    ``ZeroPlan`` that shards the moments (see the module docstring)."""
+    local = zero.local if zero is not None else (lambda n, t: t)
+    mark = zero.mark if zero is not None else (lambda n, t: t)
+
+    def moments(params: Mapping[str, torch.Tensor]) -> dict:
+        return {n: mark(n, torch.zeros_like(local(n, p), dtype=moment_dtype))
+                for n, p in params.items()}
 
     def init(params: Mapping[str, torch.Tensor]) -> LambState:
-        return LambState(
-            0,
-            {n: torch.zeros_like(p, dtype=moment_dtype) for n, p in params.items()},
-            {n: torch.zeros_like(p, dtype=moment_dtype) for n, p in params.items()},
-        )
+        return LambState(0, moments(params), moments(params))
 
     def update(grads: Mapping[str, torch.Tensor], state: LambState,
                params: Mapping[str, torch.Tensor]):
@@ -105,21 +115,22 @@ def lamb(
         c1 = float(np.float32(1) - np.float32(b1) ** np.float32(count))
         c2 = float(np.float32(1) - np.float32(b2) ** np.float32(count))
 
+        g = [local(n, x) for n, x in zip(names, g)]
         m32 = torch._foreach_add(
             torch._foreach_mul([state.mu[n].float() for n in names], b1),
             torch._foreach_mul(g, 1 - b1))
         v32 = torch._foreach_add(
             torch._foreach_mul([state.nu[n].float() for n in names], b2),
             torch._foreach_mul(torch._foreach_mul(g, g), 1 - b2))
-        mu = {n: m.to(moment_dtype) for n, m in zip(names, m32)}
-        nu = {n: v.to(moment_dtype) for n, v in zip(names, v32)}
+        mu = {n: mark(n, m.to(moment_dtype)) for n, m in zip(names, m32)}
+        nu = {n: mark(n, v.to(moment_dtype)) for n, v in zip(names, v32)}
 
         # u from the stored (rounded) moments, as JAX's upd() upcasts them
         u = list(torch._foreach_div(
             torch._foreach_div([mu[n].float() for n in names], c1),
             torch._foreach_add(torch._foreach_sqrt(
                 torch._foreach_div([nu[n].float() for n in names], c2)), eps)))
-        p32 = [params[n].float() for n in names]
+        p32 = [local(n, params[n]).float() for n in names]
         decays = [weight_decay if (weight_decay and (mask is None or mask[n]))
                   else 0.0 for n in names]
         dec = [i for i, wd in enumerate(decays) if wd]
@@ -128,6 +139,9 @@ def lamb(
                 [p32[i] for i in dec], weight_decay))
         w_norm = norms(p32)
         u_norm = norms(u)
+        if zero is not None and zero.rows:  # the leaf's norms from its rows'
+            w_norm, u_norm = ([x.sqrt() for x in zero.sum_squares(
+                names, [y * y for y in ys])] for ys in (w_norm, u_norm))
         one = torch.ones((), device=g[0].device)
         # multi_tensor_lamb.cu:276-283: the ratio only where use_nvlamb or wd
         neg_ratio = [
@@ -136,6 +150,8 @@ def lamb(
             for w, n, wd in zip(w_norm, u_norm, decays)]
         lr = learning_rate(state.count) if callable(learning_rate) else learning_rate
         upd = torch._foreach_mul(torch._foreach_mul(u, neg_ratio), lr)
+        if zero is not None:
+            upd = zero.gather(names, upd)
         updates = {n: x.to(params[n].dtype) for n, x in zip(names, upd)}
         return updates, LambState(count, mu, nu)
 

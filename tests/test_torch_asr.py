@@ -543,14 +543,14 @@ def test_wav2vec2_step_launches_k1_and_k2_once_per_layer(monkeypatch):
     no mask and no dropout."""
     seen = []
 
-    def fwd(q, k, v, key_mask, causal, scale, layout, rate, seed):
+    def fwd(q, k, v, key_mask, causal, scale, layout, rate, seed, b_offset):
         fa.launches += 1
         seen.append((key_mask is None, rate, causal))
         return fa.mha_reference(q, k, v, key_mask, causal, scale,
                                 layout=layout)
 
     def bwd(q, k, v, key_mask, out, lse, dout, causal, scale, layout, rate,
-            seed):
+            seed, b_offset):
         fa.launches_bwd_dq += 1
         fa.launches_bwd_dkv += 1
         return fa.mha_backward_reference(q, k, v, key_mask, out, lse, dout,

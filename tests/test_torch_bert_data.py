@@ -247,9 +247,13 @@ def test_cli_trains_on_the_corpus_and_refuses_what_is_not_ported(corpus, tmp_pat
         "--steps-per-epoch", "3", "--batch-size", str(B), "--lr", "0.01",
         "--device", "cpu", "--workspace", str(tmp_path)])
     assert state.step == 3 and np.isfinite(best)
-    for flags in (["--zero"], ["--attention-impl", "ring"],
-                  ["--mesh-data", "2"]):
-        with pytest.raises(SystemExit, match="not ported"):
+    # --zero and --mesh-* are ported: --zero refuses --flat-lamb as JAX
+    # does, and a mesh of 2 ranks in one process is JAX's mesh error
+    for flags, error, match in (
+            (["--zero", "--flat-lamb"], SystemExit, "mutually exclusive"),
+            (["--attention-impl", "ring"], SystemExit, "not ported"),
+            (["--mesh-data", "2"], ValueError, "!= 1 devices")):
+        with pytest.raises(error, match=match):
             cli(["bert-pretrain", "--device", "cpu", "--workspace",
                  str(tmp_path), *flags])
 

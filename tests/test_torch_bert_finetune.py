@@ -622,7 +622,8 @@ def test_cli_finetune_lr_never_falls_back_and_flags_refused(tmp_path):
              "--batch-size", "2", "--max-seq-length", "32",
              "--steps-per-epoch", "1", "--workspace", str(tmp_path)])
     assert spy.call_args.args[0] == 0.1
-    with pytest.raises(SystemExit, match="not ported"):
+    # --mesh-* is ported: 2 data ranks in one process is JAX's mesh error
+    with pytest.raises(ValueError, match="!= 1 devices"):
         cli(["bert-squad", *TINY_FLAGS, "--mesh-data", "2"])
     (tmp_path / "model.ckpt.index").write_text("")
     with pytest.raises(SystemExit, match="TF checkpoint"):

@@ -65,6 +65,9 @@ CASES = [
     dict(layout="bshd", d=64, s=900, h=1, rate=0.1, seed=-7),
     dict(layout="bshd", d=64, s=32, h=1, rate=0.1, seed=3),
     dict(layout="bhsd", d=64, s=49, h=12, masked=False),
+    # a data rank's rows: the dropout hash's batch row is offset + b
+    dict(layout="bshd", d=64, s=128, b=4, h=16, rate=0.1, seed=-3, offset=32),
+    dict(layout="bhsd", d=26, s=130, b=3, rate=0.1, seed=9, offset=7),
 ]
 
 
@@ -101,7 +104,8 @@ def _case_inputs(case, dtype, device):
                             sk=case.get("sk"), dead=case.get("dead", 0))
     kw = dict(causal=case.get("causal", False), layout=case["layout"],
               dropout_rate=case.get("rate", 0.0),
-              dropout_seed=case.get("seed", 0))
+              dropout_seed=case.get("seed", 0),
+              dropout_batch_offset=case.get("offset", 0))
     return q, k, v, (mask if case.get("masked", True) else None), kw
 
 
@@ -118,7 +122,9 @@ def test_flash_fwd_matches_plain(cuda, dtype, case):
     ref, ref_lse = fa.mha_reference(q, k, v, mask, kw["causal"],
                                     layout=kw["layout"],
                                     dropout_rate=kw["dropout_rate"],
-                                    dropout_seed=kw["dropout_seed"])
+                                    dropout_seed=kw["dropout_seed"],
+                                    dropout_batch_offset=kw[
+                                        "dropout_batch_offset"])
     tol_out, tol_lse = TOL[dtype]
     torch.testing.assert_close(out.float(), ref.float(), atol=tol_out, rtol=0)
     torch.testing.assert_close(lse, ref_lse, atol=tol_lse, rtol=0)
@@ -172,6 +178,9 @@ BWD_CASES = [
     dict(layout="bshd", d=64, s=900, h=1, rate=0.1, seed=-7),
     dict(layout="bshd", d=64, s=32, h=1, rate=0.1, seed=3),
     dict(layout="bhsd", d=64, s=49, h=12, masked=False),
+    # a data rank's rows: the dropout hash's batch row is offset + b
+    dict(layout="bshd", d=64, s=128, b=4, h=16, rate=0.1, seed=-3, offset=32),
+    dict(layout="bhsd", d=26, s=130, b=3, rate=0.1, seed=9, offset=7),
 ]
 
 
@@ -198,7 +207,8 @@ def test_flash_bwd_matches_plain(cuda, dtype, case):
     out, lse, *grads = _backward(q, k, v, mask, kw, dout)
     want = fa.mha_backward_reference(
         q, k, v, mask, out, lse, dout, kw["causal"], layout=kw["layout"],
-        dropout_rate=kw["dropout_rate"], dropout_seed=kw["dropout_seed"])
+        dropout_rate=kw["dropout_rate"], dropout_seed=kw["dropout_seed"],
+        dropout_batch_offset=kw["dropout_batch_offset"])
     for name, got, ref in zip("qkv", grads, want):
         assert got.dtype == dtype and got.shape == ref.shape
         err = float((got.float() - ref.float()).abs().max())

@@ -346,8 +346,11 @@ def test_cli_trains_dlrm_on_the_cpu(tmp_path):
                     "--epochs", "3", "--auc-threshold", "0.01", "--device",
                     "cpu", "--workspace", str(tmp_path / "t")])
     assert state.step == 2
-    for flags in (["--data-backend", "parquet"], ["--mesh-model", "2"]):
-        with pytest.raises(SystemExit, match="not ported"):
+    # --mesh-model is ported: 2 ranks in one process is JAX's mesh error
+    for flags, error, match in (
+            (["--data-backend", "parquet"], SystemExit, "not ported"),
+            (["--mesh-model", "2"], ValueError, "1 devices")):
+        with pytest.raises(error, match=match):
             cli(["dlrm", "--device", "cpu", "--workspace", str(tmp_path), *flags])
 
 

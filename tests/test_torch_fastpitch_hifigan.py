@@ -538,14 +538,14 @@ def test_fastpitch_step_launches_k1_and_k2_once_per_block(monkeypatch):
     mask and dropout reach them."""
     seen = []
 
-    def fwd(q, k, v, key_mask, causal, scale, layout, rate, seed):
+    def fwd(q, k, v, key_mask, causal, scale, layout, rate, seed, b_offset):
         fa.launches += 1
         seen.append((layout, key_mask is not None, rate))
         return fa.mha_reference(q, k, v, key_mask, causal, scale, layout=layout,
                                 dropout_rate=rate, dropout_seed=seed)
 
     def bwd(q, k, v, key_mask, out, lse, dout, causal, scale, layout, rate,
-            seed):
+            seed, b_offset):
         fa.launches_bwd_dq += 1
         fa.launches_bwd_dkv += 1
         return fa.mha_backward_reference(q, k, v, key_mask, out, lse, dout,

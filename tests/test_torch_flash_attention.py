@@ -140,6 +140,44 @@ def test_dropout_hash_matches_jax_bit_for_bit(rate):
     assert abs(kept - (1.0 - rate)) < 0.05
 
 
+@pytest.mark.parametrize("layout", ["bshd", "bhsd"])
+def test_dropout_batch_offset_takes_rows_of_the_global_batch(layout):
+    """A data rank's rows k.. of a batch, with ``dropout_batch_offset=k``,
+    draw JAX's one-device mask for those rows (its hash salt (k + b) H + h):
+    the forward against JAX's ``_fwd`` on the whole batch, the plain
+    backward against the whole batch's rows."""
+    q, k, v, mask = _inputs(layout, b=4, seed=3)
+    mask[-1] = 1  # every row attends somewhere
+    seed, rate, off = 99173, 0.2, 2
+    scale = 1.0 / np.sqrt(64)
+    want_out, want_lse = _fwd(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                              jnp.asarray(mask), False, scale, 512,
+                              bshd=layout == "bshd", rate=rate, seed=seed)
+    tq, tk, tv, tm = _torch(q, k, v, mask)
+    part = [t[off:].clone().requires_grad_(t.is_floating_point())
+            for t in (tq, tk, tv, tm)]
+    out, lse = fa.flash_attention_with_lse(*part, layout=layout,
+                                           dropout_rate=rate, dropout_seed=seed,
+                                           dropout_batch_offset=off)
+    np.testing.assert_allclose(_np(out.detach()), np.asarray(want_out)[off:],
+                               atol=ATOL_F32, rtol=ATOL_F32)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(want_lse)[off:, ..., 0],
+                               atol=ATOL_LSE, rtol=ATOL_LSE)
+    unshifted = fa.flash_attention(*part, layout=layout, dropout_rate=rate,
+                                   dropout_seed=seed)
+    assert not torch.allclose(out, unshifted)  # row 0's mask is not row 2's
+    whole = [t.clone().requires_grad_(t.is_floating_point())
+             for t in (tq, tk, tv, tm)]
+    dout = torch.from_numpy(np.random.default_rng(4).normal(
+        size=out.shape).astype(np.float32))
+    full = fa.flash_attention(*whole, layout=layout, dropout_rate=rate,
+                              dropout_seed=seed)
+    full.backward(torch.cat([torch.zeros_like(dout)[:off], dout]))
+    out.backward(dout)
+    for p, w in zip(part[:3], whole[:3]):
+        torch.testing.assert_close(p.grad, w.grad[off:], rtol=1e-6, atol=1e-6)
+
+
 def test_cpu_tensors_take_the_plain_version():
     q, k, v, mask = _torch(*_inputs("bshd", s=16))
     before = fa.launches

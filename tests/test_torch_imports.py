@@ -43,7 +43,8 @@ for name in ("core.train", "core.flat", "core.loop", "core.checkpoint",
              "models.wav2vec2", "serving.recipes", "native", "ops.resample",
              "ops.detection", "data.prefetch", "data.imagenet", "data.coco",
              "data.det_synthetic", "data.jpeg_trees",
-             "models.convnets.gpunet", "models.efficientdet"):
+             "models.convnets.gpunet", "models.efficientdet", "parallel",
+             "parallel.dist", "parallel.mesh", "parallel.zero"):
     assert f"deeplearningexamples_tpu_torch.{name}" in names, name
 # importing builds and loads nothing: the data plane and the kernels are
 # built at first use
