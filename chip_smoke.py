@@ -166,11 +166,22 @@ and it imports nothing of JAX. Phases, one line each:
     against the one-rank run of the same global batch on rank 0 (losses,
     parameters in norm, BN running statistics), with each rank's optimizer
     state and table rows
+28. breadth families, where no TPU kernel lies: one fp32 step of NCF, TFT,
+    nnU-Net's 2-D DynUNet, Transformer-XL (on a second segment, its memory
+    live) and MoFlow at small widths on the card, TF32 off, dropout 0,
+    against the same step on the CPU in float64 (the bf16 step the control
+    for the three that train in bf16); ``ncf`` (B=131,072), ``tft``
+    (configs.yml's section, 2 epochs), ``nnunet`` (B=64, 128 x 128),
+    ``transformer-xl`` (B=32, segments and memories of 192) and ``moflow``
+    (B=512) through the CLI's runners, 10 or more steps each, every step on
+    CUDA events and two under torch.profiler: losses that fall, the median
+    step, the rate, the device idle share and kernel time by part
+    (``chiprun_out/phase28.json``)
 
 The phases run in this order: 1, then 19-22 while ``nvcc`` builds the
 kernels on the host's cores (phase 2, joined before phase 3), then 3-18 and
-23-27. The float64 CPU references of phases 19, 22, 23 and 25 run on a host
-thread while the card runs the rest of their phase (19's beside 20), so
+23-28. The float64 CPU references of phases 19, 22, 23, 25 and 28 run on a
+host thread while the card runs the rest of their phase (19's beside 20), so
 the times that phases 20-22 print are taken with the host under load (they
 say so); each phase's seconds are printed before the kernels line.
 
@@ -181,10 +192,10 @@ phase 20; SSD300's training, resume and inference in phase 21; Tacotron2's
 and WaveGlow's training and the TTS pipeline in phase 22; the beam searches
 and each encoder-decoder run of phase 23; each CLI run of phase 24; each
 speech command, both speech endpoints and the CTC step of phase 25; each
-CLI run of phase 26; the mesh runs of phase 27 in their processes) runs
-with the launch counts set to 0 just before it
+CLI run of phase 26; the mesh runs of phase 27 in their processes; each
+CLI run of phase 28) runs with the launch counts set to 0 just before it
 and read just after; on the ConvNets, SSD300, TTS, GNMT, ``--attention-impl
-xla``, HiFi-GAN and Jasper paths every count must stay 0, on the
+xla``, HiFi-GAN, Jasper and phase 28's paths every count must stay 0, on the
 Transformer and BART paths K1 and K2 must launch and K3-K6 must not,
 FastPitch and wav2vec2 launch K1 12 and K2 12 + 12 times a step, and on
 phase 26's real-data paths the resample kernel launches once a batch and
@@ -206,6 +217,7 @@ import dataclasses
 import json
 import math
 import os
+import re
 import shutil
 import signal
 import statistics
@@ -324,6 +336,14 @@ from deeplearningexamples_tpu_torch.models.translation import (
     beam_search,
     beam_search_cached,
 )
+from deeplearningexamples_tpu_torch.models.moflow import MoFlowConfig, MoFlowTask
+from deeplearningexamples_tpu_torch.models.ncf import NcfConfig, NcfTask
+from deeplearningexamples_tpu_torch.models.tft import TFTConfig, TFTTask
+from deeplearningexamples_tpu_torch.models.transformer_xl import (
+    TransformerXLConfig,
+    TransformerXLTask,
+)
+from deeplearningexamples_tpu_torch.models.unet import UNetConfig, UNetTask
 from deeplearningexamples_tpu_torch.models.dlrm import (
     Dlrm,
     DlrmConfig,
@@ -350,7 +370,7 @@ from deeplearningexamples_tpu_torch.ops import flash_attention as fa
 from deeplearningexamples_tpu_torch.ops import fused_lamb as fused
 from deeplearningexamples_tpu_torch.ops import quantization as quant
 from deeplearningexamples_tpu_torch.ops.lamb import lamb
-from deeplearningexamples_tpu_torch.tools import profile_seq2seq
+from deeplearningexamples_tpu_torch.tools import profile_pretrain, profile_seq2seq
 from deeplearningexamples_tpu_torch.tools.dlrm_hotrow import flat_ids
 from deeplearningexamples_tpu_torch.utils.jax_bridge import bert_pretrain_jax_order
 from deeplearningexamples_tpu_torch.serving import (
@@ -5702,6 +5722,336 @@ def phase_mesh() -> tuple[float, dict[str, int]]:
     return err, launched
 
 
+# -- phase 28 ----------------------------------------------------------------
+
+# 28a: one fp32 step of each family at a small width, B below, on the card
+# (TF32 off, dropout 0, MoFlow's dequantisation noise the same draws on both
+# sides, Transformer-XL's step on a second segment whose memory is live)
+# against the same step on the CPU in float64 (on ``_HOST``): the loss to
+# the first limit relative, each gradient to the second of its own largest
+# entry (or FLOOR times the largest of all, where that is more) and to the
+# third of the largest of all. Where the family trains in bf16 (ncf,
+# nnunet, transformer-xl) the bf16 step is the control and must miss them.
+BREADTH_PARITY = {
+    "ncf": dict(cfg=dict(nb_users=2000, nb_items=1000, mf_dim=16,
+                         mlp_layer_sizes=(64, 64, 32, 16), dropout=0.0), b=256),
+    "tft": dict(cfg=dict(n_observed=2, n_known=2, hidden=32, n_heads=4,
+                         encoder_len=48, horizon=12, dropout=0.0), b=16),
+    "nnunet": dict(cfg=dict(spatial_rank=2, base_filters=8, depth=3,
+                            max_filters=32), b=2, size=32),
+    "transformer-xl": dict(cfg=dict(vocab_size=1000, d_model=64, n_heads=4,
+                                    d_head=16, d_ff=128, n_layers=2,
+                                    seg_len=32, mem_len=32, dropout=0.0), b=2),
+    "moflow": dict(cfg={}, b=16),  # MoFlowConfig(): the command's QM9 width
+}
+# (loss relative; of a tensor's own largest entry, of the largest of all),
+# about 10x above this phase's first readings on an NVIDIA H100 80GB HBM3 at
+# 700.00 W (PERF.md): loss 9.1e-8, 2.1e-8, 8.1e-9, 6.1e-8, 8.5e-8; own 1.60e-6,
+# 5.98e-6, 3.04e-6, 5.99e-7, 3.59e-5 (MoFlow's BNs over 3 x 3 bond maps);
+# all 8.4e-7, 6.3e-7, 3.9e-7, 4.5e-7, 9.3e-8 (ncf, tft, nnunet,
+# transformer-xl, moflow). The bf16 controls read 1.25e-1 / 1.03e-1 (ncf),
+# 4.97e-1 / 1.45e-1 (nnunet), 1.39e-1 / 6.26e-2 (transformer-xl)
+TOL_BREADTH = {"ncf": (1e-6, 3e-5, 1e-5), "tft": (1e-6, 1e-4, 1e-5),
+               "nnunet": (1e-6, 1e-4, 1e-5),
+               "transformer-xl": (1e-6, 1e-5, 1e-5),
+               "moflow": (1e-6, 1e-3, 1e-5)}
+BREADTH_CONTROL = ("ncf", "nnunet", "transformer-xl")
+# 28b: the five commands through the CLI's runners at full width, with the
+# rates passed explicitly (the JAX runners' fallbacks; configs.yml's for
+# tft), each step timed on CUDA events, two steps traced for the device's
+# idle share: (batch size, arguments, what a sample is, samples a row)
+BREADTH_CLI = {
+    "ncf": (131072, ["--steps-per-epoch", "10", "--lr", "2.5e-3"],
+            "samples", 1),
+    "tft": (64, ["--config-file", str(ROOT / "configs.yml"), "--epochs",
+                 "2", "--lr", "1e-3"], "windows", 1),
+    "nnunet": (64, ["--steps-per-epoch", "5", "--epochs", "2", "--lr",
+                    "1e-3"], "images", 1),
+    "transformer-xl": (32, ["--steps-per-epoch", "5", "--epochs", "2",
+                            "--lr", "2.5e-4"], "tokens", 192),
+    "moflow": (512, ["--steps-per-epoch", "5", "--epochs", "2", "--lr",
+                     "1e-3"], "molecules", 1),
+}
+BREADTH_TRACED = (3, 5)  # the steps [3, 5) of each run run under the profiler
+BREADTH_KINDS = [
+    ("conv", re.compile(r"conv|fprop|dgrad|wgrad|winograd|implicit", re.I)),
+    ("GEMM", re.compile(r"gemm|nvjet|xmma|cutlass|cublas|sm90_", re.I)),
+    ("LSTM", re.compile(r"lstm|rnn", re.I)),
+    ("BN", re.compile(r"batch_norm|batchnorm", re.I)),
+    ("softmax/CE", re.compile(r"softmax|nll_loss|cross_entropy", re.I)),
+    ("reduction", re.compile(r"reduce", re.I)),
+    ("index/scatter", re.compile(r"index|gather|scatter|embedding", re.I)),
+    ("elementwise", re.compile(r"elementwise|CatArray|copy", re.I)),
+]
+
+
+def _breadth_kind(name: str) -> str:
+    for kind, pat in BREADTH_KINDS:
+        if pat.search(name):
+            return kind
+    return "other"
+
+
+def _breadth_init(kind: str, dtype=torch.float32):
+    """28a's task and model (on the CPU, from SEED) for one family."""
+    p = BREADTH_PARITY[kind]
+    gen = torch.Generator().manual_seed(SEED)
+    if kind == "ncf":
+        task = NcfTask(NcfConfig(**p["cfg"]), dtype)
+    elif kind == "tft":
+        task = TFTTask(TFTConfig(**p["cfg"]), dtype)
+    elif kind == "nnunet":
+        task = UNetTask(UNetConfig(**p["cfg"]), dtype)
+    elif kind == "transformer-xl":
+        task = TransformerXLTask(TransformerXLConfig(**p["cfg"]), dtype)
+    else:
+        task = MoFlowTask(MoFlowConfig(**p["cfg"]))
+    model = task.init(gen, "cpu")
+    if kind == "moflow":  # every ActNorm off the identity, BN statistics off 0/1
+        with torch.no_grad():
+            for n, t in model.state_dict().items():
+                if n.endswith(("actnorm.scale", "running_var")):
+                    t.copy_(1.0 + 0.2 * torch.rand(t.shape, generator=gen))
+                elif n.endswith(("actnorm.loc", "running_mean")):
+                    t.copy_(0.1 * torch.randn(t.shape, generator=gen))
+    return task, model
+
+
+def _breadth_batch(kind: str) -> list[dict]:
+    """28a's batches (numpy, from SEED): two segments for Transformer-XL,
+    the batch and MoFlow's noise for MoFlow, one batch otherwise."""
+    p, rng = BREADTH_PARITY[kind], np.random.default_rng(SEED)
+    b, c = p["b"], p["cfg"]
+    if kind == "ncf":
+        return [{"user": rng.integers(0, c["nb_users"], b).astype(np.int32),
+                 "item": rng.integers(0, c["nb_items"], b).astype(np.int32),
+                 "label": rng.integers(0, 2, b).astype(np.float32)}]
+    if kind == "tft":
+        enc, hor = c["encoder_len"], c["horizon"]
+        return [{"observed": rng.normal(size=(b, enc, 2)).astype(np.float32),
+                 "known": rng.normal(size=(b, enc + hor, 2)).astype(np.float32),
+                 "target": rng.normal(size=(b, hor)).astype(np.float32)}]
+    if kind == "nnunet":
+        s = p["size"]
+        return [{"image": rng.normal(size=(b, s, s, 1)).astype(np.float32),
+                 "label": rng.integers(0, 3, (b, s, s)).astype(np.int32)}]
+    if kind == "transformer-xl":
+        toks = rng.integers(0, c["vocab_size"], (b, 2 * c["seg_len"] + 1))
+        t = c["seg_len"]
+        return [{"tokens": toks[:, i:i + t].astype(np.int32),
+                 "targets": toks[:, i + 1:i + t + 1].astype(np.int32)}
+                for i in (0, t)]
+    cfg = MoFlowConfig(**c)
+    n, e, a = cfg.n_node, cfg.n_bond_types, cfg.n_atom_types
+    atoms = np.eye(a, dtype=np.float32)[rng.integers(0, a, (b, n))]
+    bonds = np.triu(rng.integers(0, e, (b, n, n)), 1)
+    adj = np.eye(e, dtype=np.float32)[bonds + bonds.transpose(0, 2, 1)]
+    batch = {"atoms": atoms, "adj": adj.transpose(0, 3, 1, 2).copy()}
+    noise = {k: rng.uniform(size=v.shape).astype(np.float32)
+             for k, v in batch.items()}
+    return [batch, noise]
+
+
+def _breadth_grads(kind: str, model, batches: list[dict], device) -> dict:
+    """The loss and every gradient of one step of ``model`` (moved to
+    ``device``, in its own compute dtype; float inputs in its parameters'
+    dtype), on the CPU."""
+    model = model.to(device).train()
+    pdt = next(model.parameters()).dtype
+
+    def put(batch):
+        return {k: torch.from_numpy(v).to(device, pdt if v.dtype.kind == "f"
+                                          else None)
+                for k, v in batch.items()}
+
+    gen = torch.Generator().manual_seed(SEED)
+    params = dict(model.named_parameters())
+    if kind == "transformer-xl":
+        t = TransformerXLTask(model.cfg, model.dtype)
+        with torch.no_grad():
+            _, (state, _) = t.loss_fn(model, {}, put(batches[0]), gen)
+        loss, _ = t.loss_fn(model, state, put(batches[1]), gen)
+    elif kind == "moflow":
+        t = MoFlowTask(model.cfg)
+        noise = put(batches[1])
+        with mock.patch.object(t, "draws", lambda g, b: noise):
+            loss, _ = t.loss_fn(model, t.model_state(model), put(batches[0]),
+                                gen)
+    else:
+        t = {"ncf": NcfTask, "tft": TFTTask, "nnunet": UNetTask}[kind](
+            model.cfg, model.dtype)
+        loss, _ = t.loss_fn(model, {}, put(batches[0]), gen)
+    grads = torch.autograd.grad(loss, list(params.values()), allow_unused=True)
+    return {"loss": float(loss.detach()),
+            "grads": {n: (torch.zeros_like(p) if g is None else g).detach().cpu()
+                      for (n, p), g in zip(params.items(), grads)}}
+
+
+def _breadth_references() -> dict:
+    """28a's models and batches, and each family's float64 CPU step started
+    on the host thread (``_HOST``) beside 28b."""
+    refs = {}
+    for kind in BREADTH_PARITY:
+        _, init = _breadth_init(kind)
+        batches = _breadth_batch(kind)
+        refs[kind] = (init, batches, _HOST.submit(
+            _breadth_grads, kind, _float64(copy.deepcopy(init)), batches,
+            "cpu"))
+    return refs
+
+
+def phase_breadth_parity(refs: dict) -> None:
+    """28a on each family's ``_breadth_references``: every family runs
+    before the first failure is raised."""
+    t0 = time.perf_counter()
+    flags = (torch.backends.cudnn.benchmark, torch.backends.cudnn.deterministic)
+    torch.backends.cudnn.benchmark, torch.backends.cudnn.deterministic = \
+        False, True
+    failed, lines = [], []
+    try:
+        for kind, (init, batches, f64) in refs.items():
+            gpu = _breadth_grads(kind, copy.deepcopy(init), batches, DEV)
+            f64 = f64.result()
+            loss_lim, *lim = TOL_BREADTH[kind]
+            g_rel = _worst(gpu["grads"], f64["grads"])
+            rel_loss = abs(gpu["loss"] - f64["loss"]) / abs(f64["loss"])
+            line = (f"{kind} B={BREADTH_PARITY[kind]['b']}: loss "
+                    f"{gpu['loss']:.7f} vs {f64['loss']:.7f} ({rel_loss:.2e}, "
+                    f"limit {loss_lim:.0e}); worst gradients {_fmt(g_rel)} "
+                    f"(limits {lim[0]:.0e}, {lim[1]:.0e})")
+            ok = rel_loss <= loss_lim and _within(g_rel, lim)
+            if kind in BREADTH_CONTROL:
+                b16 = _breadth_grads(kind, _s2s_copy(init, torch.bfloat16),
+                                     batches, DEV)
+                w16 = _worst(b16["grads"], f64["grads"])
+                line += (f"; bf16 control: loss {b16['loss']:.6f}, worst "
+                         f"gradients {_fmt(w16)}")
+                ok = ok and math.isfinite(b16["loss"]) and not _within(w16, lim)
+            lines.append(line)
+            if not ok:
+                failed.append(line)
+    finally:
+        torch.backends.cudnn.benchmark, torch.backends.cudnn.deterministic = \
+            flags
+    say("28 breadth", "parity, one fp32 step, card vs CPU float64: "
+        + "; ".join(lines) + f" ({time.perf_counter() - t0:.1f} s)")
+    check(not failed, "; ".join(failed))
+
+
+def _clocked_cli(args: list[str]):
+    """``cli(args)`` with every train step between two CUDA events and the
+    steps ``BREADTH_TRACED`` under ``torch.profiler``: (what the runner
+    returned, per-step event ms, the traced steps' device kernels)."""
+    events, prof = [], torch.profiler.profile(activities=[
+        torch.profiler.ProfilerActivity.CPU,
+        torch.profiler.ProfilerActivity.CUDA])
+    lo, hi = BREADTH_TRACED
+    orig = cli_main.train_loop
+
+    def loop(state, train_step, *a, **k):
+        def step(state, batch):
+            i = len(events)
+            if i == lo:
+                torch.cuda.synchronize()
+                prof.start()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = train_step(state, batch)
+            end.record()
+            events.append((start, end))
+            if i == hi - 1:
+                torch.cuda.synchronize()
+                prof.stop()
+            return out
+        return orig(state, step, *a, **k)
+
+    with mock.patch.object(cli_main, "train_loop", loop):
+        out = cli(args)
+    torch.cuda.synchronize()
+    ms = [s.elapsed_time(e) for s, e in events]
+    return out, ms, profile_pretrain.device_kernels(prof.events())
+
+
+def phase_breadth() -> dict[str, int]:
+    """28b and 28c: the five commands through the CLI's runners at full
+    width, K1-K6 launching 0 times on each; returns those launches."""
+    t0 = time.perf_counter()
+    work = ROOT / "workspace" / "chip_smoke" / "breadth"
+    total = dict.fromkeys(_counts(), 0)
+    lines, profile = [], {}
+    lo, hi = BREADTH_TRACED
+    for name, (b, args, unit, per_row) in BREADTH_CLI.items():
+        ws = work / name
+        shutil.rmtree(ws, ignore_errors=True)
+        torch.cuda.reset_peak_memory_stats()
+        _reset_counts()  # this path starts here
+        t1 = time.perf_counter()
+        out, ms, kernels = _clocked_cli(
+            [name, "--batch-size", str(b), *args, "--workspace", str(ws)])
+        wall = time.perf_counter() - t1
+        launched = _counts()
+        check(launched == dict.fromkeys(launched, 0),
+              f"{name}: K1-K6 launched {launched}")
+        losses = [d["train.loss"] for d in _raport_data(
+            ws / f"{name.replace('-', '_')}_raport.json") if "train.loss" in d]
+        check(len(losses) == len(ms) >= hi + 2
+              and all(map(math.isfinite, losses)), f"{name}: losses {losses}")
+        head, tail = statistics.mean(losses[:3]), statistics.mean(losses[-3:])
+        check(tail < head, f"{name}: losses do not fall: {losses}")
+        timed = ms[1:lo] + ms[hi:]  # the first warms up; traced ones apart
+        med = statistics.median(timed)
+        busy = profile_pretrain._union_us(
+            [(e.time_range.start, e.time_range.end) for e in kernels])
+        by_kind: dict[str, float] = {}
+        for e in kernels:
+            k = _breadth_kind(e.name)
+            by_kind[k] = by_kind.get(k, 0.0) + (e.time_range.end
+                                                - e.time_range.start)
+        busy_ms = busy / (hi - lo) / 1e3
+        idle = 1.0 - busy_ms / med
+        rate = b * per_row / med * 1e3
+        extra = ""
+        if name == "tft":
+            metrics = out[2]
+            check(metrics and all(map(math.isfinite, metrics.values())),
+                  f"tft: test metrics {metrics}")
+            extra = (f", test MAE {metrics['test.MAE']:.4f} P50 "
+                     f"{metrics['test.P50']:.4f} P90 {metrics['test.P90']:.4f}")
+        if name == "transformer-xl":
+            state = out[0]
+            check(int(state.model_state["mem_valid"]) == 192,
+                  f"transformer-xl: mem_valid {state.model_state['mem_valid']}")
+        profile[name] = {
+            "batch": b, "steps": len(ms), "step_ms": ms, "median_ms": med,
+            "rate": rate, "unit": unit, "device_busy_ms": busy_ms,
+            "device_idle_share": idle, "launches_per_step": len(kernels)
+            / (hi - lo), "kernel_ms_by_kind": {
+                k: v / (hi - lo) / 1e3 for k, v in sorted(by_kind.items())},
+            "losses": losses, "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+        lines.append(
+            f"{name} B={b}: {len(ms)} steps, loss {losses[0]:.4f} -> "
+            f"{losses[-1]:.4f}{extra}; median step {med:.2f} ms (CUDA events), "
+            f"{rate:,.0f} {unit}/s, device idle {idle:.1%} "
+            f"({len(kernels) / (hi - lo):.0f} kernels a step; "
+            + ", ".join(f"{k} {v / (hi - lo) / 1e3:.2f}"
+                        for k, v in sorted(by_kind.items(),
+                                           key=lambda kv: -kv[1]))
+            + f" ms); peak {profile[name]['peak_gb']:.1f} GB; {wall:.1f} s "
+            "for the run; launches 0")
+        for k, v in launched.items():
+            total[k] += v
+        shutil.rmtree(ws, ignore_errors=True)
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    (out_dir / "phase28.json").write_text(json.dumps(
+        {"card": card(), **profile}, indent=1))
+    say("28 breadth", f"commands on {card()}: " + "; ".join(lines)
+        + f". K1-K6 launched 0 times on these paths "
+        f"({time.perf_counter() - t0:.1f} s)")
+    return total
+
+
 # The float64 references of phases 23 and 25 run here, one at a time, while
 # the card runs the phase's other work (torch's CPU ops release the GIL)
 _HOST = concurrent.futures.ThreadPoolExecutor(1, thread_name_prefix="float64")
@@ -5835,6 +6185,11 @@ def main() -> None:
                                             mesh_err)
         for k, v in mesh_launched.items():
             launched[k] += v
+    with _phase("28"):
+        refs = _breadth_references()  # float64 on the host thread, beside 28b
+        for k, v in phase_breadth().items():  # counts set to 0 there
+            launched[k] += v
+        phase_breadth_parity(refs)
     say("phases", "seconds: " + ", ".join(
         f"{k} {v:.1f}" for k, v in PHASE_SECONDS.items())
         + f"; all {time.perf_counter() - T_START:.1f}")

@@ -4,7 +4,10 @@
 ``gpunet-0``, ``gpunet-1``, ``gpunet-2``, ``ssd300``, ``efficientdet``,
 ``bert-pretrain``, ``bert-squad``, ``bert-glue``, ``bert-swag``,
 ``dlrm``, ``tacotron2``, ``waveglow``, ``transformer``, ``bart``,
-``gnmt``, ``fastpitch``, ``hifigan``, ``jasper`` and ``wav2vec2``.
+``gnmt``, ``fastpitch``, ``hifigan``, ``jasper``, ``wav2vec2``, ``ncf``,
+``tft``, ``nnunet``, ``transformer-xl`` and ``moflow``: 29 of
+``dlx-train``'s 31 commands (``maskrcnn`` and ``se3-transformer`` exit
+with a message that they are not ported).
 
 Port of ``deeplearningexamples_tpu/cli/main.py`` for the models the port
 trains so far, the ConvNets and GPUNets (``run_convnet``, on synthetic
@@ -14,8 +17,10 @@ pretraining (``run_bert_pretrain``), BERT fine-tuning on SQuAD, GLUE and SWAG
 (``run_bert_squad``, ``run_bert_glue``, ``run_bert_swag``), DLRM
 (``run_dlrm``), Tacotron2 and WaveGlow (``run_tts``), the Transformer NMT
 (``run_transformer``), BART (``run_bart``: denoising pretraining or
-summarization with beam-decoded ROUGE), GNMT, FastPitch, Jasper and
-wav2vec 2.0 (``run_breadth``) and HiFi-GAN (``run_hifigan``), with the
+summarization with beam-decoded ROUGE), GNMT, FastPitch, Jasper,
+wav2vec 2.0, nnU-Net, Transformer-XL and MoFlow (``run_breadth``),
+HiFi-GAN (``run_hifigan``), NCF (``run_ncf``) and TFT (``run_tft``, on a
+synthetic or ``.npy`` panel, with the test split's forecast metrics), with the
 flag names and defaults of ``dlx-train``. The run is
 on the card unless ``--device cpu`` is given.
 
@@ -33,8 +38,8 @@ checkpoints.
 Flags whose machinery is not ported yet exit with a message that says so,
 rather than being ignored: ``--mesh-sequence`` above 1 (ring attention)
 everywhere; for ``efficientdet``, ``tacotron2``, ``waveglow``,
-``transformer``, ``bart``, ``gnmt`` and the speech commands any mesh of
-more than one rank (their global loss denominators and BN statistics wait);
+``transformer``, ``bart``, ``gnmt``, the speech commands, ``ncf``, ``tft``,
+``nnunet``, ``transformer-xl`` and ``moflow`` any mesh of more than one rank (their global loss denominators and BN statistics wait);
 for ``ssd300`` and ``efficientdet`` a ``--data-backend`` other than
 synthetic and coco; for ``bert-pretrain`` ``--attention-impl ring`` and
 ``--zero`` with ``--flat-lamb``; for the fine-tuning commands an
@@ -76,16 +81,17 @@ from ..parallel.mesh import (DATA_AXIS, MeshSpec, batch_positions,
 __all__ = ["BartCliConfig", "BertCliConfig", "BertPretrainRun", "BreadthRun",
            "CommonConfig", "ConvNetCliConfig", "ConvNetRun", "DlrmCliConfig",
            "DlrmRun", "EfficientDetCliConfig", "FinetuneRun", "GlueCliConfig",
-           "MODELS", "Seq2SeqRun",
+           "MODELS", "NcfRun", "Seq2SeqRun",
            "SgdCliConfig", "SquadCliConfig", "SsdRun", "SwagCliConfig",
-           "TtsRun", "build_bert_pretrain", "build_bert_squad", "build_breadth",
-           "build_convnet", "build_dlrm", "build_ssd", "build_transformer",
-           "build_tts", "cli",
+           "TftRun", "TtsRun", "build_bert_pretrain", "build_bert_squad",
+           "build_breadth", "build_convnet", "build_dlrm", "build_ncf",
+           "build_ssd", "build_tft", "build_transformer", "build_tts", "cli",
            "featurize_swag", "read_swag", "run_bert_glue",
            "run_bert_pretrain", "run_bert_squad", "run_bert_swag",
            "run_bart", "run_breadth", "run_convnet", "run_dlrm",
-           "run_efficientdet", "run_hifigan", "run_ssd",
-           "run_transformer", "run_tts", "to_device"]
+           "run_efficientdet", "run_hifigan", "run_ncf", "run_ssd",
+           "run_tft", "run_transformer", "run_tts", "tft_test_metrics",
+           "to_device"]
 
 INPUTS = ("input_ids", "attention_mask", "token_type_ids")
 # run_convnet lets cuDNN pick its algorithms by timing them, as the
@@ -1388,6 +1394,141 @@ def run_bart(cfg: BartCliConfig):
     return state, out
 
 
+@dataclass
+class NcfRun:
+    """What ``run_ncf`` trains with, built by ``build_ncf``."""
+
+    task: Any
+    tx: Any
+    state: Any
+    train_step: Any
+    loader: Any
+
+
+def build_ncf(cfg: CommonConfig) -> NcfRun:
+    """NeuMF at ``NcfConfig()`` (ML-20M's 138,493 users and 26,744 items),
+    one synthetic batch (users, items and labels in {0, 1} drawn from the
+    seed) repeated ``steps_per_epoch`` times, Adam, the state and the step,
+    as JAX's ``run_ncf``. As there, the rate is ``cfg.lr or 2.5e-3``, which
+    never falls back: without ``--lr`` it is CommonConfig's 0.1; and the
+    step takes no ``--accum-steps``."""
+    from ..models.ncf import NcfConfig, NcfTask
+
+    _unported_mesh("ncf", cfg)
+    ncfg = NcfConfig()
+    task = NcfTask(ncfg, _dtype(cfg))
+    model = task.init(torch.Generator().manual_seed(cfg.seed), device=cfg.device)
+    rng = np.random.default_rng(cfg.seed)
+    bs = cfg.batch_size
+    loader = [{
+        "user": rng.integers(0, ncfg.nb_users, bs).astype(np.int32),
+        "item": rng.integers(0, ncfg.nb_items, bs).astype(np.int32),
+        "label": rng.integers(0, 2, bs).astype(np.float32),
+    }] * cfg.steps_per_epoch
+    tx = opt.adam(cfg.lr or 2.5e-3)
+    state = create_train_state(model, tx, cfg.seed + 1)
+    return NcfRun(task, tx, state, make_train_step(task.loss_fn, tx), loader)
+
+
+def run_ncf(cfg: CommonConfig):
+    """Train NeuMF (``build_ncf``) with checkpoints in
+    ``{workspace}/ncf_ckpt``; no evaluation. As JAX's ``run_ncf``, it reads
+    neither ``--resume`` nor ``--data-backend``. Returns ``(state, best)``."""
+    logger = _common_setup(cfg, "ncf", only="ncf", accum_steps=1)
+    run = build_ncf(cfg)
+    ckpt = CheckpointManager(f"{cfg.workspace}/ncf_ckpt")
+    return train_loop(
+        run.state, run.train_step, lambda: to_device(run.loader, cfg.device),
+        cfg=_loop_cfg(cfg), logger=logger, checkpoints=ckpt,
+        batch_size=cfg.batch_size)
+
+
+@dataclass
+class TftRun:
+    """What ``run_tft`` trains with, built by ``build_tft``."""
+
+    task: Any
+    tx: Any
+    state: Any
+    train_step: Any
+    loader: Any
+    panel: Any  # (series, steps, columns)
+    spec: Any
+
+
+def build_tft(cfg: CommonConfig) -> TftRun:
+    """TFT on the time-series platform, as JAX's ``run_tft``: the panel
+    (``--data-backend npy``: ``{data_dir}/panel.npy``, (series, steps,
+    columns); otherwise ``make_synthetic_series()``), columns 0-1 observed
+    (0 the target) and 2-3 known, 168 steps of history and 24 of horizon,
+    the train split's windows, clip by global norm 1.0 then Adam under
+    ``lr_poly_warmup(lr, total // 20, total)``. As there, the rate is
+    ``cfg.lr or 1e-3``, which never falls back: without ``--lr`` it is
+    CommonConfig's 0.1. fp32 whatever ``--amp``."""
+    from ..data.timeseries import (TimeSeriesSpec, WindowedTimeSeriesDataset,
+                                   make_synthetic_series)
+    from ..models.tft import TFTConfig, TFTTask
+
+    _unported_mesh("tft", cfg)
+    if cfg.data_backend == "npy":
+        panel = np.load(f"{cfg.data_dir}/panel.npy")
+    else:
+        panel = make_synthetic_series()
+    spec = TimeSeriesSpec(observed=(0, 1), known=(2, 3), target=0,
+                          encoder_length=168, horizon=24)
+    task = TFTTask(TFTConfig(n_observed=len(spec.observed),
+                             n_known=len(spec.known),
+                             encoder_len=spec.encoder_length,
+                             horizon=spec.horizon))
+    loader = WindowedTimeSeriesDataset(panel, spec, cfg.batch_size,
+                                       split="train", seed=cfg.seed)
+    model = task.init(torch.Generator().manual_seed(cfg.seed), device=cfg.device)
+    total = cfg.epochs * len(loader)
+    sched = lr_poly_warmup(cfg.lr or 1e-3, max(total // 20, 1), total)
+    tx = opt.chain(opt.clip_by_global_norm(1.0), opt.adam(sched))
+    state = create_train_state(model, tx, cfg.seed + 1)
+    train_step = make_train_step(task.loss_fn, tx, accum_steps=cfg.accum_steps)
+    return TftRun(task, tx, state, train_step, loader, panel, spec)
+
+
+def tft_test_metrics(cfg: CommonConfig, run: TftRun, model) -> dict:
+    """The test split's forecasts without dropout, and their
+    ``forecast_metrics`` (MAE, RMSE, SMAPE, ND, P50, P90); {} when the
+    split has no whole batch."""
+    from ..data.timeseries import WindowedTimeSeriesDataset, forecast_metrics
+
+    test = WindowedTimeSeriesDataset(run.panel, run.spec, cfg.batch_size,
+                                     split="test", seed=cfg.seed)
+    preds, targets = [], []
+    for batch in to_device(test, cfg.device):
+        preds.append(run.task.predict_fn(model, batch["observed"],
+                                         batch["known"]).cpu().numpy())
+        targets.append(batch["target"].cpu().numpy())
+    if not preds:
+        return {}
+    return forecast_metrics(np.concatenate(preds), np.concatenate(targets),
+                            run.task.cfg.quantiles)
+
+
+def run_tft(cfg: CommonConfig):
+    """Train TFT (``build_tft``) with checkpoints in ``{workspace}/tft_ckpt``
+    (``--resume`` reads them), then the test split's metrics, logged as
+    ``test.*``. Returns ``(state, best, test metrics)``."""
+    logger = _common_setup(cfg, "tft", only="tft")
+    run = build_tft(cfg)
+    ckpt = CheckpointManager(f"{cfg.workspace}/tft_ckpt")
+    state, start_epoch = _maybe_resume(cfg, ckpt, run.state, len(run.loader))
+    state, best = train_loop(
+        state, run.train_step, lambda: to_device(run.loader, cfg.device),
+        cfg=_loop_cfg(cfg), logger=logger, checkpoints=ckpt,
+        batch_size=cfg.batch_size, start_epoch=start_epoch)
+    metrics = {f"test.{k}": v
+               for k, v in tft_test_metrics(cfg, run, state.model).items()}
+    if metrics:
+        logger.log((), metrics)
+    return state, best, metrics
+
+
 def _breadth_spec(name: str, cfg: CommonConfig):
     """(task, init, batch factory, optimizer) of JAX's ``_breadth_spec`` for
     the families the port trains through ``run_breadth``, on its synthetic
@@ -1401,7 +1542,16 @@ def _breadth_spec(name: str, cfg: CommonConfig):
     - ``gnmt``: ``GnmtConfig()``, src (B, 48), tgt BOS + src[:, :46] + EOS;
       Adam (1e-3);
     - ``fastpitch``: text (B, 32) in [1, n_symbols), durations in [1, 6),
-      pitch N(0, 1), mel (B, 900, 80) N(0, 1); Adam (1e-3)."""
+      pitch N(0, 1), mel (B, 900, 80) N(0, 1); Adam (1e-3);
+    - ``nnunet``: the 2-D ``DynUNet`` (depth 4, 32-320 filters, 3
+      classes), images (B, 128, 128, 1) N(0, 1), labels in [0, 3); Adam
+      (1e-3);
+    - ``transformer-xl``: WT103's base model (16 layers, d 512, segment and
+      memory 192), tokens (B, 193) in [0, vocab), inputs and next-token
+      targets; Adam (2.5e-4);
+    - ``moflow``: ``MoFlowConfig()`` (QM9's 9 atoms of 5 types, 4 bond
+      types), one-hot atoms and symmetric one-hot bonds; Adam (1e-3), fp32
+      whatever ``--amp``."""
     rng = np.random.default_rng(cfg.seed)
     bs = cfg.batch_size
     if name == "jasper":
@@ -1464,6 +1614,45 @@ def _breadth_spec(name: str, cfg: CommonConfig):
                                   ).astype(np.float32),
             }
         tx = opt.adam(cfg.lr or 1e-3)
+    elif name == "nnunet":
+        from ..models.unet import UNetConfig, UNetTask
+
+        task = UNetTask(UNetConfig(spatial_rank=2), dtype=_dtype(cfg))
+
+        def batch():
+            return {
+                "image": rng.normal(size=(bs, 128, 128, 1)
+                                    ).astype(np.float32),
+                "label": rng.integers(0, task.cfg.n_classes,
+                                      (bs, 128, 128)).astype(np.int32),
+            }
+        tx = opt.adam(cfg.lr or 1e-3)
+    elif name == "transformer-xl":
+        from ..models.transformer_xl import TransformerXLTask
+
+        task = TransformerXLTask(dtype=_dtype(cfg))
+        seg = task.cfg.seg_len
+
+        def batch():
+            toks = rng.integers(0, task.cfg.vocab_size, (bs, seg + 1))
+            return {"tokens": toks[:, :-1].astype(np.int32),
+                    "targets": toks[:, 1:].astype(np.int32)}
+        tx = opt.adam(cfg.lr or 2.5e-4)
+    elif name == "moflow":
+        from ..models.moflow import MoFlowConfig, MoFlowTask
+
+        task = MoFlowTask(MoFlowConfig())
+        c = task.cfg
+
+        def batch():
+            atoms = np.eye(c.n_atom_types, dtype=np.float32)[
+                rng.integers(0, c.n_atom_types, (bs, c.n_node))]
+            bonds = rng.integers(0, c.n_bond_types, (bs, c.n_node, c.n_node))
+            bonds = np.triu(bonds, 1)
+            bonds = bonds + bonds.transpose(0, 2, 1)
+            adj = np.eye(c.n_bond_types, dtype=np.float32)[bonds]
+            return {"atoms": atoms, "adj": adj.transpose(0, 3, 1, 2)}
+        tx = opt.adam(cfg.lr or 1e-3)
     else:
         raise KeyError(name)
 
@@ -1487,15 +1676,20 @@ class BreadthRun:
 def build_breadth(name: str, cfg: CommonConfig) -> BreadthRun:
     """The model, optimizer, state, step and loader of a ``run_breadth``
     command: ``min(steps_per_epoch, 16)`` distinct synthetic batches
-    repeated to ``steps_per_epoch``, the task's BN statistics (Jasper's) in
-    the state."""
+    repeated to ``steps_per_epoch``; in the state the task's BN statistics
+    (Jasper's, MoFlow's), or Transformer-XL's memories of a fresh sequence
+    (zeros, none valid: the step JAX takes from ``{}``)."""
     task, init, batch_fn, tx = _breadth_spec(name, cfg)
     model = init()
     loader = [batch_fn() for _ in range(min(cfg.steps_per_epoch, 16))]
     loader = (loader * (-(-cfg.steps_per_epoch // len(loader))))[
         :cfg.steps_per_epoch]
-    model_state = task.model_state(model) if hasattr(task, "model_state") \
-        else None
+    if hasattr(task, "initial_state"):
+        model_state = task.initial_state(
+            model, cfg.batch_size // cfg.accum_steps)
+    else:
+        model_state = task.model_state(model) \
+            if hasattr(task, "model_state") else None
     state = create_train_state(model, tx, cfg.seed + 1,
                                model_state=model_state)
     train_step = make_train_step(task.loss_fn, tx, accum_steps=cfg.accum_steps)
@@ -1622,6 +1816,8 @@ def run_efficientdet(cfg: EfficientDetCliConfig):
 CONVNETS = ("resnet50", "resnext101-32x4d", "se-resnext101-32x4d",
             "efficientnet-b0", "efficientnet-b4", "gpunet-0", "gpunet-1",
             "gpunet-2")
+BREADTH = ("gnmt", "jasper", "wav2vec2", "fastpitch", "nnunet",
+           "transformer-xl", "moflow")
 MODELS = {**{a: (lambda cfg, a=a: run_convnet(a, cfg)) for a in CONVNETS},
           "ssd300": run_ssd, "bert-pretrain": run_bert_pretrain,
           "bert-squad": run_bert_squad,
@@ -1630,9 +1826,11 @@ MODELS = {**{a: (lambda cfg, a=a: run_convnet(a, cfg)) for a in CONVNETS},
           **{m: (lambda cfg, m=m: run_tts(m, cfg))
              for m in ("tacotron2", "waveglow")},
           "transformer": run_transformer, "bart": run_bart,
-          **{m: (lambda cfg, m=m: run_breadth(m, cfg))
-             for m in ("gnmt", "jasper", "wav2vec2", "fastpitch")},
-          "hifigan": run_hifigan, "efficientdet": run_efficientdet}
+          **{m: (lambda cfg, m=m: run_breadth(m, cfg)) for m in BREADTH},
+          "hifigan": run_hifigan, "efficientdet": run_efficientdet,
+          "ncf": run_ncf, "tft": run_tft,
+          **{m: (lambda cfg, m=m: _unported(m, [(True, "the command")]))
+             for m in ("maskrcnn", "se3-transformer")}}
 _CONFIG_CLS = {**dict.fromkeys(CONVNETS, ConvNetCliConfig),
                "ssd300": SgdCliConfig, "bert-pretrain": BertCliConfig,
                "bert-squad": SquadCliConfig,
@@ -1640,8 +1838,8 @@ _CONFIG_CLS = {**dict.fromkeys(CONVNETS, ConvNetCliConfig),
                "dlrm": DlrmCliConfig,
                "tacotron2": CommonConfig, "waveglow": CommonConfig,
                "transformer": CommonConfig, "bart": BartCliConfig,
-               **dict.fromkeys(("gnmt", "jasper", "wav2vec2", "fastpitch",
-                                "hifigan"), CommonConfig),
+               **dict.fromkeys((*BREADTH, "hifigan", "ncf", "tft", "maskrcnn",
+                                "se3-transformer"), CommonConfig),
                "efficientdet": EfficientDetCliConfig}
 
 

@@ -13,7 +13,10 @@ and of ``convert_nmt_transformer``, ``convert_bart`` and ``convert_gnmt`` for
 the encoder-decoder models, and of ``convert_fastpitch``,
 ``convert_hifigan_generator``, ``convert_wav2vec2`` and ``convert_jasper``
 for the speech models (with HiFi-GAN's discriminators, wav2vec2's CTC model
-and QuartzNet's separable blocks, which no JAX converter covers). The word table keeps its ``padded_vocab`` rows, and the MLM decoder, tied to it, has no entry of its own. The mapping is
+and QuartzNet's separable blocks, which no JAX converter covers), and of
+``convert_ncf``, ``convert_tft``, ``convert_brats_unet3d``,
+``convert_transformer_xl`` and ``convert_moflow`` (its ``batch_stats``
+too), with nnU-Net's ``DynUNet``, which no JAX converter covers. The word table keeps its ``padded_vocab`` rows, and the MLM decoder, tied to it, has no entry of its own. The mapping is
 structural, so it carries any tree of that shape across:
 parameters, or the gradients ``jax.grad`` returns for them.
 """
@@ -27,12 +30,14 @@ import numpy as np
 __all__ = [
     "bart_state_dict_from_jax",
     "bert_classifier_state_dict_from_jax",
+    "brats_unet3d_state_dict_from_jax",
     "bert_model_state_dict_from_jax",
     "bert_pretrain_jax_order",
     "bert_pretrain_state_dict_from_jax",
     "bert_qa_state_dict_from_jax",
     "distill_student_state_dict_from_jax",
     "dlrm_state_dict_from_jax",
+    "dynunet_state_dict_from_jax",
     "efficientdet_state_dict_from_jax",
     "efficientnet_state_dict_from_jax",
     "fastpitch_state_dict_from_jax",
@@ -41,10 +46,14 @@ __all__ = [
     "hifigan_discriminators_state_dict_from_jax",
     "hifigan_generator_state_dict_from_jax",
     "jasper_state_dict_from_jax",
+    "moflow_state_dict_from_jax",
+    "ncf_state_dict_from_jax",
     "resnet_state_dict_from_jax",
     "ssd300_state_dict_from_jax",
     "tacotron2_state_dict_from_jax",
+    "tft_state_dict_from_jax",
     "transformer_state_dict_from_jax",
+    "transformer_xl_state_dict_from_jax",
     "waveglow_state_dict_from_jax",
     "wav2vec2_state_dict_from_jax",
 ]
@@ -767,4 +776,232 @@ def jasper_state_dict_from_jax(params: Mapping[str, Any],
             first = 4 * int(r)
             sd[f"{dst}.conv.{first}.weight"] = _conv1d(src["conv"]["kernel"])
             sd.update(bn(src["bn"], stats, f"{dst}.conv.{first + 1}"))
+    return sd
+
+
+def ncf_state_dict_from_jax(tree: Mapping[str, Any]) -> dict[str, np.ndarray]:
+    """JAX ``NeuMF`` params, or their gradients -> the port's ``NeuMF``
+    ``state_dict`` (the reference's names): the inverse of ``convert_ncf``."""
+    sd = {f"{name}_embed.weight": np.asarray(tree[name]["embedding"])
+          for name in ("mf_user", "mf_item", "mlp_user", "mlp_item")}
+    for i in range(sum(k.startswith("mlp_") and k[4:].isdigit() for k in tree)):
+        sd.update(_dense_sd(tree[f"mlp_{i}"], f"mlp.{i}"))
+    sd.update(_dense_sd(tree["final"], "final"))
+    return sd
+
+
+def _tft_grn(tree: Mapping[str, Any], dst: str) -> dict:
+    sd: dict = {}
+    for name in ("lin_a", "lin_c", "lin_i", "out_proj"):
+        if name in tree:
+            sd.update(_dense_sd(tree[name], f"{dst}.{name}"))
+    sd.update(_dense_sd(tree["glu"]["lin"], f"{dst}.glu.lin"))
+    if "ln" in tree:
+        sd.update(_ln(tree["ln"], f"{dst}.layer_norm.ln"))
+    return sd
+
+
+def _tft_vsn(tree: Mapping[str, Any], dst: str) -> dict:
+    sd = _tft_grn(tree["joint_grn"], f"{dst}.joint_grn")
+    for key, src in tree.items():
+        if key.startswith("var_grn_"):
+            sd.update(_tft_grn(src, f"{dst}.var_grns.{key[len('var_grn_'):]}"))
+    return sd
+
+
+def tft_state_dict_from_jax(tree: Mapping[str, Any]) -> dict[str, np.ndarray]:
+    """JAX ``TFT`` params, or their gradients -> the port's ``TFT``
+    ``state_dict`` (the reference's names): the inverse of ``convert_tft``.
+    The two ``OptimizedLSTMCell``s become ``nn.LSTM`` layers (``_l0``, flax's
+    bias in ``bias_hh_l0``)."""
+    emb = tree["embedding"]
+    sd = {}
+    for src, dst in (("k_cont", "t_cont_k"), ("o_cont", "t_cont_o"),
+                     ("target", "t_tgt")):
+        if f"{src}_vectors" in emb:
+            sd[f"embedding.{dst}_embedding_vectors"] = np.asarray(
+                emb[f"{src}_vectors"])
+            sd[f"embedding.{dst}_embedding_bias"] = np.asarray(
+                emb[f"{src}_bias"])
+    for key, src in emb.items():
+        if key.startswith("s_cat_"):
+            sd[f"embedding.s_cat_embed.{key[len('s_cat_'):]}.weight"] = \
+                np.asarray(src["embedding"])
+    static = tree["static_encoder"]
+    sd.update(_tft_vsn(static["vsn"], "static_encoder.vsn"))
+    for i in range(4):
+        sd.update(_tft_grn(static[f"context_grn_{i}"],
+                           f"static_encoder.context_grns.{i}"))
+    p2 = "TFTpart2"
+    for name in ("history_vsn", "future_vsn"):
+        sd.update(_tft_vsn(tree[name], f"{p2}.{name}"))
+    for name in ("history_encoder", "future_encoder"):
+        sd.update(_lstm_cell(tree[name], f"{p2}.{name}", "_l0"))
+    for name in ("input_gate", "attention_gate", "decoder_gate"):
+        sd.update(_dense_sd(tree[name]["lin"], f"{p2}.{name}.lin"))
+    for name in ("input_gate_ln", "attention_ln", "decoder_ln"):
+        sd.update(_ln(tree[name], f"{p2}.{name}"))
+    for name in ("enrichment_grn", "positionwise_grn"):
+        sd.update(_tft_grn(tree[name], f"{p2}.{name}"))
+    att = tree["attention"]
+    sd.update(_dense_sd(att["qkv"], f"{p2}.attention.qkv_linears"))
+    sd.update(_dense_sd(att["out_proj"], f"{p2}.attention.out_proj"))
+    sd.update(_dense_sd(tree["quantile_proj"], f"{p2}.quantile_proj"))
+    return sd
+
+
+def _conv_nd(kernel: Any) -> np.ndarray:
+    """flax kernel (*k, in, out) -> torch (out, in, *k)."""
+    k = np.asarray(kernel)
+    r = k.ndim - 2
+    return np.ascontiguousarray(k.transpose(r + 1, r, *range(r)))
+
+
+def _conv_nd_sd(tree: Mapping[str, Any], dst: str) -> dict:
+    sd = {f"{dst}.weight": _conv_nd(tree["kernel"])}
+    if "bias" in tree:
+        sd[f"{dst}.bias"] = np.asarray(tree["bias"])
+    return sd
+
+
+def dynunet_state_dict_from_jax(tree: Mapping[str, Any]
+                                ) -> dict[str, np.ndarray]:
+    """JAX ``DynUNet`` params, or their gradients -> the port's ``DynUNet``
+    ``state_dict`` (JAX's names; no reference converter exists). An
+    ``up_{d}`` kernel (*k, in, out) becomes ``ConvTranspose``'s (in, out,
+    *k) reversed in space (flax's transposed convolution does not flip
+    it)."""
+    sd: dict = {}
+    for key, src in tree.items():
+        if key.startswith("up_"):
+            k = np.asarray(src["kernel"])
+            r = k.ndim - 2
+            k = k[(slice(None, None, -1),) * r].transpose(r, r + 1, *range(r))
+            sd[f"{key}.weight"] = np.ascontiguousarray(k)
+            sd[f"{key}.bias"] = np.asarray(src["bias"])
+        elif "kernel" in src:  # the heads
+            sd.update(_conv_nd_sd(src, key))
+        else:  # a ConvBlock
+            for name, leaf in src.items():
+                if name.startswith("conv"):
+                    sd.update(_conv_nd_sd(leaf, f"{key}.{name}"))
+                else:
+                    sd[f"{key}.{name}"] = np.asarray(leaf)
+    return sd
+
+
+def brats_unet3d_state_dict_from_jax(tree: Mapping[str, Any]
+                                     ) -> dict[str, np.ndarray]:
+    """JAX ``BratsUNet3D`` params, or their gradients -> the port's
+    ``BratsUNet3D`` ``state_dict`` (the reference's names): the inverse of
+    ``convert_brats_unet3d``."""
+
+    def layer(t, dst):
+        return {**_conv_nd_sd(t["conv"], f"{dst}.conv"),
+                f"{dst}.norm.weight": np.asarray(t["in_scale"]),
+                f"{dst}.norm.bias": np.asarray(t["in_bias"])}
+
+    def block(t, dst):
+        return {**layer(t["conv1"], f"{dst}.conv1"),
+                **layer(t["conv2"], f"{dst}.conv2")}
+
+    sd = {**_conv_nd_sd(tree["in_conv1"], "input_block.conv1"),
+          **_conv_nd_sd(tree["in_conv2"], "input_block.conv2"),
+          "input_block.norm.weight": np.asarray(tree["in_scale"]),
+          "input_block.norm.bias": np.asarray(tree["in_bias"]),
+          **_conv_nd_sd(tree["out_conv"], "output_block.conv"),
+          **block(tree["bottleneck"], "bottleneck")}
+    for key, src in tree.items():
+        kind, _, i = key.partition("_")
+        if kind == "down":
+            sd.update(block(src, f"downsamples.{i}"))
+        elif kind == "up":
+            sd.update(block(src, f"upsamples.{i}.conv_block"))
+        elif kind == "ds":
+            sd.update(_conv_nd_sd(src, f"deep_supervision_heads.{i}.conv"))
+    return sd
+
+
+def transformer_xl_state_dict_from_jax(tree: Mapping[str, Any]
+                                       ) -> dict[str, np.ndarray]:
+    """JAX ``TransformerXL`` params, or their gradients -> the port's
+    ``TransformerXL`` ``state_dict`` (the reference's names, the table and
+    the softmax bias with their ``padded_vocab`` rows): the inverse of
+    ``convert_transformer_xl``. The q, k and v kernels stack into
+    ``qkv_net``."""
+    sd = {"word_emb.emb_layers.0.weight": np.asarray(tree["embed"]["embedding"]),
+          "r_w_bias": np.asarray(tree["r_w_bias"]),
+          "r_r_bias": np.asarray(tree["r_r_bias"]),
+          "crit.out_layers_biases.0": np.asarray(tree["softmax_bias"])}
+    for key, src in tree.items():
+        if not key.startswith("layer_"):
+            continue
+        dst, att = f"layers.{key[len('layer_'):]}", src["attn"]
+        sd[f"{dst}.dec_attn.qkv_net.weight"] = np.concatenate(
+            [_t(att[k]["kernel"]) for k in "qkv"])
+        sd[f"{dst}.dec_attn.r_net.weight"] = _t(att["r"]["kernel"])
+        sd[f"{dst}.dec_attn.o_net.weight"] = _t(att["o"]["kernel"])
+        sd.update(_ln(src["ln1"], f"{dst}.dec_attn.layer_norm"))
+        sd.update(_dense_sd(src["ff1"], f"{dst}.pos_ff.CoreNet.0"))
+        sd.update(_dense_sd(src["ff2"], f"{dst}.pos_ff.CoreNet.3"))
+        sd.update(_ln(src["ln2"], f"{dst}.pos_ff.layer_norm"))
+    return sd
+
+
+def moflow_state_dict_from_jax(params: Mapping[str, Any],
+                               batch_stats: Mapping[str, Any] | None = None
+                               ) -> dict[str, np.ndarray]:
+    """JAX ``MoFlow`` params (with ``ln_var``), or their gradients, and
+    optionally its ``batch_stats`` -> the port's ``MoFlow`` ``state_dict``
+    (the reference's names): the inverse of ``convert_moflow``. An ActNorm's
+    (C,) ``loc`` and ``scale`` become (1, C, 1, 1) for the bonds and (1, N,
+    1) for the atoms."""
+
+    def bn(p, s, dst):
+        sd = _ln(p, dst)
+        if s is not None:
+            sd[f"{dst}.running_mean"] = np.asarray(s["mean"])
+            sd[f"{dst}.running_var"] = np.asarray(s["var"])
+        return sd
+
+    def actnorm(t, dst, shape):
+        return {f"{dst}.actnorm.{k}": np.asarray(t[k]).reshape(shape)
+                for k in ("loc", "scale")}
+
+    sd: dict = {}
+    if "ln_var" in params:
+        sd["ln_var"] = np.asarray(params["ln_var"])
+    for side, dst_side in (("bond_glow", "bond_model"),
+                           ("atom_flow", "atom_model")):
+        tree = params[side]
+        stats = (batch_stats or {}).get(side, {})
+        n = sum(k.startswith("actnorm") for k in tree)
+        for i in range(n):
+            dst = f"{dst_side}.blocks.0.flows.{i}"
+            cp, st = tree[f"coupling{i}"], stats.get(f"coupling{i}", {}).get
+            if side == "bond_glow":
+                sd.update(actnorm(tree[f"actnorm{i}"], dst, (1, -1, 1, 1)))
+                hidden = sum(k.startswith("conv") for k in cp)
+                for j in range(hidden):
+                    sd.update(_conv_nd_sd(cp[f"conv{j}"],
+                                          f"{dst}.coupling.layers.{3 * j}"))
+                    sd.update(bn(cp[f"bn{j}"], st(f"bn{j}"),
+                                 f"{dst}.coupling.layers.{3 * j + 1}"))
+                sd.update(_conv_nd_sd(cp["out"],
+                                      f"{dst}.coupling.layers.{3 * hidden}"))
+                continue
+            sd.update(actnorm(tree[f"actnorm{i}"], dst, (1, -1, 1)))
+            for k in range(sum(key.startswith("gnn_bn") for key in cp)):
+                g = f"{dst}.coupling.net_conv.{k}"
+                sd.update(_dense_sd(cp[f"gnn{k}"]["self"],
+                                    f"{g}.graph_conv.graph_linear_self"))
+                sd.update(_dense_sd(cp[f"gnn{k}"]["edge"],
+                                    f"{g}.graph_conv.graph_linear_edge"))
+                sd.update(bn(cp[f"gnn_bn{k}"], st(f"gnn_bn{k}"), f"{g}.bn"))
+            n_lin = sum(key.startswith("lin_bn") for key in cp)
+            for k in range(n_lin):
+                li = f"{dst}.coupling.net_lin.{k}"
+                sd.update(_dense_sd(cp[f"lin{k}"], f"{li}.lin"))
+                sd.update(bn(cp[f"lin_bn{k}"], st(f"lin_bn{k}"), f"{li}.bn"))
+            sd.update(_dense_sd(cp["out"], f"{dst}.coupling.net_lin.{n_lin}"))
     return sd

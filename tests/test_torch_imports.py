@@ -44,7 +44,9 @@ for name in ("core.train", "core.flat", "core.loop", "core.checkpoint",
              "ops.detection", "data.prefetch", "data.imagenet", "data.coco",
              "data.det_synthetic", "data.jpeg_trees",
              "models.convnets.gpunet", "models.efficientdet", "parallel",
-             "parallel.dist", "parallel.mesh", "parallel.zero"):
+             "parallel.dist", "parallel.mesh", "parallel.zero",
+             "data.timeseries", "models.ncf", "models.tft", "models.unet",
+             "models.transformer_xl", "models.moflow"):
     assert f"deeplearningexamples_tpu_torch.{name}" in names, name
 # importing builds and loads nothing: the data plane and the kernels are
 # built at first use
@@ -74,8 +76,9 @@ def test_port_imports_with_jax_blocked():
     # and the speech families (FastPitch, HiFi-GAN, Jasper and QuartzNet,
     # wav2vec2, the serving recipes), and the real-data readers with their
     # data plane (the host's C++ plane and the card's nvJPEG path and
-    # resample kernel), GPUNet and EfficientDet
-    assert int(res.stdout.strip()) >= 103
+    # resample kernel), GPUNet and EfficientDet, and NCF, TFT with its
+    # time-series reader, the U-Nets, Transformer-XL and MoFlow
+    assert int(res.stdout.strip()) >= 109
 
 
 def test_chip_smoke_fails_without_a_card():
