@@ -177,10 +177,21 @@ and it imports nothing of JAX. Phases, one line each:
     CUDA events and two under torch.profiler: losses that fall, the median
     step, the rate, the device idle share and kernel time by part
     (``chiprun_out/phase28.json``)
+29. Mask R-CNN and the SE(3)-Transformer, where no TPU kernel lies either:
+    one fp32 step of each at a small width on the card (Mask R-CNN on the
+    float64 step's proposals, both samplers on the same uniforms) against
+    the CPU in float64, the bf16 step the control; ``maskrcnn
+    --config-file configs.yml`` (R50-FPN, 800 x 800, B=16, bf16, 8 steps on
+    CUDA events, two under torch.profiler with kernel time by the loss's
+    spans and the NMS loop's launches), ``maskrcnn --data-backend coco`` on
+    a COCO tree of the fixtures with polygons (box and mask mAP on its val
+    split), ``se3-transformer`` B=256 and one ``SE3RegressionTask(
+    SE3Config())`` step at the reference's width on 29 atoms, B=48
+    (``chiprun_out/phase29.json``)
 
 The phases run in this order: 1, then 19-22 while ``nvcc`` builds the
 kernels on the host's cores (phase 2, joined before phase 3), then 3-18 and
-23-28. The float64 CPU references of phases 19, 22, 23, 25 and 28 run on a
+23-29. The float64 CPU references of phases 19, 22, 23, 25, 28 and 29 run on a
 host thread while the card runs the rest of their phase (19's beside 20), so
 the times that phases 20-22 print are taken with the host under load (they
 say so); each phase's seconds are printed before the kernels line.
@@ -193,12 +204,15 @@ and WaveGlow's training and the TTS pipeline in phase 22; the beam searches
 and each encoder-decoder run of phase 23; each CLI run of phase 24; each
 speech command, both speech endpoints and the CTC step of phase 25; each
 CLI run of phase 26; the mesh runs of phase 27 in their processes; each
-CLI run of phase 28) runs with the launch counts set to 0 just before it
+CLI run of phase 28 and each run of phase 29) runs with the launch counts
+set to 0 just before it
 and read just after; on the ConvNets, SSD300, TTS, GNMT, ``--attention-impl
-xla``, HiFi-GAN, Jasper and phase 28's paths every count must stay 0, on the
+xla``, HiFi-GAN, Jasper, phase 28's and phase 29's synthetic paths every
+count must stay 0, on the
 Transformer and BART paths K1 and K2 must launch and K3-K6 must not,
 FastPitch and wav2vec2 launch K1 12 and K2 12 + 12 times a step, and on
-phase 26's real-data paths the resample kernel launches once a batch and
+phase 26's and 29's real-data paths the resample kernel launches once a
+batch and
 K1-K6 never (the ``kernels`` line lists it beside K1-K6: it is not a TPU
 kernel, but the host plane's fused resample, which the card runs for want
 of libjpeg). Then one JSON
@@ -361,6 +375,17 @@ from deeplearningexamples_tpu_torch.data.jpeg_trees import coco_tree, imagenet_t
 from deeplearningexamples_tpu_torch.models.efficientdet import (
     EfficientDetConfig,
     EfficientDetTask,
+)
+from deeplearningexamples_tpu_torch.models.maskrcnn import (
+    SPANS,
+    MaskRCNN,
+    MaskRCNNConfig,
+    MaskRCNNTask,
+    fpn_anchors,
+)
+from deeplearningexamples_tpu_torch.models.se3_transformer import (
+    SE3Config,
+    SE3RegressionTask,
 )
 from deeplearningexamples_tpu_torch.native import MEAN, STD, DataPlane
 from deeplearningexamples_tpu_torch.ops import _build
@@ -2368,14 +2393,15 @@ def _redraw_bn(model, gen: torch.Generator) -> None:
             m.bias.copy_(0.1 * torch.randn(m.bias.shape, generator=gen))
 
 
-def _float64(model):
-    """The model computing in float64 (its layers' compute dtype too: a
-    ``dtype``, or a ``compute_dtype`` that is set)."""
-    model = model.double()
+def _float64(model, dtype=torch.float64):
+    """The model computing in float64, or ``dtype``, parameters and all (its
+    layers' compute dtype too: a ``dtype``, or a ``compute_dtype`` that is
+    set)."""
+    model = model.to(dtype)
     for m in model.modules():
         for attr in ("dtype", "compute_dtype"):
             if getattr(m, attr, None) is not None:
-                setattr(m, attr, torch.float64)
+                setattr(m, attr, dtype)
     return model
 
 
@@ -5970,7 +5996,10 @@ def _clocked_cli(args: list[str]):
         out = cli(args)
     torch.cuda.synchronize()
     ms = [s.elapsed_time(e) for s, e in events]
-    return out, ms, profile_pretrain.device_kernels(prof.events())
+    if len(events) < hi:  # a run shorter than the traced steps
+        return out, ms, [], []
+    return out, ms, profile_pretrain.device_kernels(prof.events()), \
+        prof.events()
 
 
 def phase_breadth() -> dict[str, int]:
@@ -5987,7 +6016,7 @@ def phase_breadth() -> dict[str, int]:
         torch.cuda.reset_peak_memory_stats()
         _reset_counts()  # this path starts here
         t1 = time.perf_counter()
-        out, ms, kernels = _clocked_cli(
+        out, ms, kernels, _ = _clocked_cli(
             [name, "--batch-size", str(b), *args, "--workspace", str(ws)])
         wall = time.perf_counter() - t1
         launched = _counts()
@@ -6047,6 +6076,391 @@ def phase_breadth() -> dict[str, int]:
     (out_dir / "phase28.json").write_text(json.dumps(
         {"card": card(), **profile}, indent=1))
     say("28 breadth", f"commands on {card()}: " + "; ".join(lines)
+        + f". K1-K6 launched 0 times on these paths "
+        f"({time.perf_counter() - t0:.1f} s)")
+    return total
+
+
+# -- phase 29 ----------------------------------------------------------------
+
+# 29a: one fp32 step of Mask R-CNN and of the SE(3)-Transformer at a small
+# width on the card (TF32 off) against the same step on the CPU in float64
+# (on ``_HOST``), the samplers on the same uniforms. Mask R-CNN's proposals
+# are the float64 step's, fed to the card (a proposal is decoded through
+# ``exp`` of the RPN's deltas, so fp32 moves its corners by 1e-3 px and the
+# top-k and NMS may pick other boxes); its ROI and anchor samples follow
+# from them on the same draws. The bf16 step is the control and must miss.
+MRCNN_PARITY = dict(cfg=dict(backbone="resnet18", image_size=128,
+                             num_classes=6, fpn_width=32, head_fc_dim=64,
+                             rpn_pre_nms_top_n=200, rpn_post_nms_top_n=64,
+                             rpn_batch_per_image=64, roi_batch_per_image=32),
+                    b=2, g=4)
+SE3_PARITY = dict(cfg=dict(num_layers=2, num_degrees=3, num_channels=8,
+                           num_heads=2), b=4, n=12)
+# (loss relative, each loss term too; of a tensor's own largest entry, of
+# the largest of all). Readings on an NVIDIA H100 80GB HBM3 at 700.00 W
+# (PERF.md): Mask R-CNN 3.1e-7, 1.9e-5, 1.1e-6, SE(3) 1.4e-8, 8.6e-7,
+# 2.3e-7; the bf16 controls 5.2e-1 / 1.7e-1 and 2.5e-1 / 4.1e-2. Mask
+# R-CNN's own-entry limit leaves room for its mask head's ReLUs near their
+# kink (the CPU's fp32 step reads 1.8e-3 there)
+TOL_LAST = {"maskrcnn": (1e-5, 1e-2, 1e-4), "se3": (1e-6, 1e-5, 1e-5)}
+# 29b: ``maskrcnn --config-file configs.yml`` (R50-FPN, 800 x 800, B=16, 81
+# classes, bf16) on synthetic batches with masks, steps on CUDA events, two
+# under the profiler; a short ``--data-backend coco`` run on a COCO tree of
+# the JPEG fixtures with polygons, with box and mask mAP on its val split;
+# ``se3-transformer`` at the CLI's config; one ``SE3RegressionTask(
+# SE3Config())`` step at the reference's QM9 width (7 layers, degrees 0-3,
+# 32 channels, 8 heads) on 29 atoms at the largest batch under about 60 GB
+MRCNN_STEPS = 8
+MRCNN_COCO = (8, 4, 4)  # train images, val images, batch
+SE3_CLI_B = 256
+SE3_FULL = (48, 29, 4)  # batch, atoms, steps
+
+
+def _mrcnn_parity_init(dtype=torch.float32):
+    """29a's Mask R-CNN task and model (on the CPU, from SEED), every BN
+    redrawn as phase 19's."""
+    task = MaskRCNNTask(MaskRCNNConfig(**MRCNN_PARITY["cfg"]), dtype)
+    gen = torch.Generator().manual_seed(SEED)
+    model = task.init(gen, "cpu")
+    _redraw_bn(model, gen)
+    return task, model
+
+
+def _mrcnn_parity_batch():
+    """29a's batch and sampler uniforms (numpy, from SEED)."""
+    p, cfg = MRCNN_PARITY, MaskRCNNConfig(**MRCNN_PARITY["cfg"])
+    batch = next(iter(SyntheticDetectionLoader(
+        p["b"], cfg.image_size, cfg.num_classes - 1, max_gt=p["g"], steps=1,
+        with_masks=True, mask_grid=32, seed=SEED)))
+    rng = np.random.default_rng(SEED)
+    a = sum(x.shape[0] for x in fpn_anchors(cfg))
+    r = cfg.rpn_post_nms_top_n + p["g"]
+    draws = {k: rng.uniform(size=(p["b"], n)).astype(np.float32)
+             for k, n in (("rpn_pos", a), ("rpn_neg", a), ("roi_pos", r),
+                          ("roi_neg", r))}
+    return batch, draws
+
+
+def _mrcnn_grads(model, batch: dict, draws: dict, device, pinned=None):
+    """The loss terms and every gradient of one training step of ``model``
+    (moved to ``device``, its images in its parameters' dtype) on
+    ``draws``, on the proposals ``pinned`` where given; the proposals it
+    ran on."""
+    model = model.to(device).train()
+    task = MaskRCNNTask(model.cfg, model.dtype)
+    pdt = next(model.parameters()).dtype
+    t = {k: torch.from_numpy(v).to(device, pdt if k == "image" else None)
+         for k, v in batch.items()}
+    u = {k: torch.from_numpy(v).to(device) for k, v in draws.items()}
+    used = {}
+    orig = task.proposals
+
+    def proposals(logits, deltas):
+        out = orig(logits, deltas) if pinned is None else \
+            tuple(x.to(device) for x in pinned)
+        used["proposals"] = tuple(x.cpu() for x in out)
+        return out
+
+    with mock.patch.object(task, "draws", lambda g, b: u), \
+            mock.patch.object(task, "proposals", proposals):
+        loss, (_, terms) = task.loss_fn(model, task.model_state(model), t,
+                                        torch.Generator())
+    params = dict(model.named_parameters())
+    grads = torch.autograd.grad(loss, list(params.values()))
+    return {"loss": float(loss.detach()),
+            "terms": {k: float(v) for k, v in terms.items()},
+            "grads": {n: g.detach().cpu() for n, g in zip(params, grads)},
+            "proposals": used["proposals"]}
+
+
+def _se3_parity_batch() -> dict:
+    p, rng = SE3_PARITY, np.random.default_rng(SEED)
+    b, n = p["b"], p["n"]
+    mask = np.ones((b, n), np.float32)
+    mask[1, n - 3:] = 0.0  # padded atoms
+    return {"positions": rng.normal(size=(b, n, 3)).astype(np.float32) * 2,
+            "species": np.eye(6, dtype=np.float32)[rng.integers(0, 6, (b, n))],
+            "mask": mask, "target": rng.normal(size=b).astype(np.float32)}
+
+
+def _se3_grads(model, batch: dict, device) -> dict:
+    model = model.to(device).train()
+    pdt = next(model.parameters()).dtype
+    t = {k: torch.from_numpy(v).to(device, pdt) for k, v in batch.items()}
+    loss, _ = SE3RegressionTask(model.cfg).loss_fn(model, {}, t, None)
+    params = dict(model.named_parameters())
+    grads = torch.autograd.grad(loss, list(params.values()))
+    return {"loss": float(loss.detach()),
+            "grads": {n: g.detach().cpu() for n, g in zip(params, grads)}}
+
+
+def _last_two_references() -> dict:
+    """29a's models and batches, and their float64 CPU steps started on the
+    host thread (``_HOST``) beside 29b."""
+    _, mrcnn = _mrcnn_parity_init()
+    batch, draws = _mrcnn_parity_batch()
+    se3 = SE3RegressionTask(SE3Config(**SE3_PARITY["cfg"])).init(
+        torch.Generator().manual_seed(SEED), "cpu")
+    se3_batch = _se3_parity_batch()
+    return {
+        "maskrcnn": (mrcnn, (batch, draws), _HOST.submit(
+            _mrcnn_grads, _float64(copy.deepcopy(mrcnn)), batch, draws,
+            "cpu")),
+        "se3": (se3, se3_batch, _HOST.submit(
+            _se3_grads, _float64(copy.deepcopy(se3)), se3_batch, "cpu"))}
+
+
+def phase_last_two_parity(refs: dict) -> None:
+    """29a on ``_last_two_references``: both models run before the first
+    failure is raised."""
+    t0 = time.perf_counter()
+    failed, lines = [], []
+    for kind, (init, data, f64) in refs.items():
+        f64 = f64.result()
+        if kind == "maskrcnn":
+            props = tuple(x.float() if x.is_floating_point() else x
+                          for x in f64["proposals"])
+            gpu = _mrcnn_grads(copy.deepcopy(init), *data, DEV, props)
+            ctl = MaskRCNN(init.cfg, torch.bfloat16)
+            ctl.load_state_dict(init.state_dict())
+            b16 = _mrcnn_grads(ctl, *data, DEV, props)
+            terms = max((abs(gpu["terms"][k] - v) / abs(v), k)
+                        for k, v in f64["terms"].items())
+            extra = f"; worst term {terms[1]} {terms[0]:.2e}"
+            shape = (f"B={MRCNN_PARITY['b']} resnet18-FPN 128 x 128, the "
+                     "float64 step's proposals fed to the card")
+        else:
+            gpu = _se3_grads(copy.deepcopy(init), data, DEV)
+            b16 = _se3_grads(_float64(copy.deepcopy(init), torch.bfloat16),
+                             data, DEV)
+            terms, extra = (0.0, ""), ""
+            shape = (f"B={SE3_PARITY['b']} N={SE3_PARITY['n']} (3 atoms "
+                     "padded), 2 layers, degrees 0-2, 8 channels")
+        loss_lim, *lim = TOL_LAST[kind]
+        rel_loss = max(abs(gpu["loss"] - f64["loss"]) / abs(f64["loss"]),
+                       terms[0])
+        g_rel = _worst(gpu["grads"], f64["grads"])
+        w16 = _worst(b16["grads"], f64["grads"])
+        line = (f"{kind} {shape}: loss {gpu['loss']:.7f} vs {f64['loss']:.7f} "
+                f"({rel_loss:.2e} with the terms, limit {loss_lim:.0e}"
+                f"{extra}); worst gradients {_fmt(g_rel)} (limits "
+                f"{lim[0]:.0e}, {lim[1]:.0e}); bf16 control: loss "
+                f"{b16['loss']:.6f}, worst gradients {_fmt(w16)}")
+        lines.append(line)
+        if not (rel_loss <= loss_lim and _within(g_rel, lim)
+                and math.isfinite(b16["loss"]) and not _within(w16, lim)):
+            failed.append(line)
+    say("29 Mask R-CNN and SE(3)", "parity, one fp32 step, card vs CPU "
+        "float64: " + "; ".join(lines)
+        + f" ({time.perf_counter() - t0:.1f} s)")
+    check(not failed, "; ".join(failed))
+
+
+def _parts(events, spans) -> tuple[dict[str, float], dict[str, int]]:
+    """Device kernel time (us) and launches by the span their launch ran
+    in: a span of ``spans``, ``optimizer``, ``backward`` (launched by
+    autograd's engine) or ``other``."""
+    us: dict[str, float] = {}
+    launches: dict[str, int] = {}
+    for e in events:
+        if e.device_type != torch.autograd.DeviceType.CPU or not e.kernels:
+            continue
+        part, p = "other", e
+        while p is not None:
+            if p.name in spans or p.name == "optimizer":
+                part = p.name
+                break
+            if p.name.startswith("autograd::engine"):
+                part = "backward"
+                break
+            p = p.cpu_parent
+        us[part] = us.get(part, 0.0) + sum(k.duration for k in e.kernels)
+        launches[part] = launches.get(part, 0) + len(e.kernels)
+    return us, launches
+
+
+def _last_two_run(name: str, args: list[str], ws: Path, spans=()) -> dict:
+    """One CLI run of 29b through ``_clocked_cli`` with the counts set to 0
+    before it: its launches, losses, step times, idle share, kernels by
+    kind and by span."""
+    shutil.rmtree(ws, ignore_errors=True)
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()  # this path starts here
+    t0 = time.perf_counter()
+    out, ms, kernels, events = _clocked_cli([name, *args, "--workspace",
+                                             str(ws)])
+    wall = time.perf_counter() - t0
+    launched = _counts()
+    data = _raport_data(next(ws.glob("*_raport.json")))
+    losses = [d["train.loss"] for d in data if "train.loss" in d]
+    lo, hi = BREADTH_TRACED
+    res = {"launched": launched, "losses": losses, "step_ms": ms,
+           "wall": wall, "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "val": [d for d in data if any(k.startswith("val.") for k in d)],
+           "out": out}
+    if len(ms) >= hi + 2:
+        timed = ms[1:lo] + ms[hi:]
+        med = statistics.median(timed)
+        busy = profile_pretrain._union_us(
+            [(e.time_range.start, e.time_range.end) for e in kernels]) \
+            / (hi - lo) / 1e3
+        by_kind: dict[str, float] = {}
+        for e in kernels:
+            k = _breadth_kind(e.name)
+            by_kind[k] = by_kind.get(k, 0.0) + (e.time_range.end
+                                                - e.time_range.start)
+        res.update(median_ms=med, device_busy_ms=busy,
+                   device_idle_share=1.0 - busy / med,
+                   launches_per_step=len(kernels) / (hi - lo),
+                   kernel_ms_by_kind={k: v / (hi - lo) / 1e3
+                                      for k, v in sorted(by_kind.items())})
+        if spans:  # the proposals' span holds the NMS loop's launches
+            us, launches = _parts(events, spans)
+            res["kernel_ms_by_part"] = {k: v / (hi - lo) / 1e3
+                                        for k, v in sorted(us.items())}
+            res["launches_by_part"] = {k: v / (hi - lo)
+                                       for k, v in sorted(launches.items())}
+    shutil.rmtree(ws, ignore_errors=True)
+    return res
+
+
+def _fmt_run(name: str, b: int, r: dict, unit: str) -> str:
+    rate = b / r["median_ms"] * 1e3
+    line = (f"{name} B={b}: {len(r['step_ms'])} steps, loss "
+            f"{r['losses'][0]:.4f} -> {r['losses'][-1]:.4f}; median step "
+            f"{r['median_ms']:.2f} ms (CUDA events), {rate:,.1f} {unit}/s, "
+            f"device idle {r['device_idle_share']:.1%} "
+            f"({r['launches_per_step']:.0f} kernels a step; "
+            + ", ".join(f"{k} {v:.2f}" for k, v in sorted(
+                r["kernel_ms_by_kind"].items(), key=lambda kv: -kv[1]))
+            + f" ms); peak {r['peak_gb']:.1f} GB; {r['wall']:.1f} s for the "
+            "run")
+    if "kernel_ms_by_part" in r:
+        line += "; by part " + ", ".join(
+            f"{k.removeprefix('maskrcnn.')} {v:.2f}" for k, v in sorted(
+                r["kernel_ms_by_part"].items(), key=lambda kv: -kv[1])) \
+            + " ms; launches a step by span " + ", ".join(
+                f"{k.removeprefix('maskrcnn.')} {v:.0f}"
+                for k, v in r["launches_by_part"].items())
+    return line
+
+
+def phase_last_two() -> dict[str, int]:
+    """29b and 29c: ``maskrcnn`` (synthetic at full width, and a COCO run
+    with box and mask mAP), ``se3-transformer`` and a full-width SE(3)
+    step, K1-K6 launching 0 times on each; returns the launches (the card's
+    data plane's resample kernel on the COCO run)."""
+    t0 = time.perf_counter()
+    work = ROOT / "workspace" / "chip_smoke" / "last_two"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    total = dict.fromkeys(_counts(), 0)
+    lines, profile = [], {"card": card()}
+    lo, hi = BREADTH_TRACED
+    cfg_file = str(ROOT / "configs.yml")
+
+    def done(name, r, zero=True):
+        launched = r["launched"]
+        others = {k: v for k, v in launched.items()
+                  if k != "resample_normalize" or zero}
+        check(others == dict.fromkeys(others, 0),
+              f"{name}: K1-K6 launched {launched}")
+        check(r["losses"] and all(map(math.isfinite, r["losses"])),
+              f"{name}: losses {r['losses']}")
+        for k, v in launched.items():
+            total[k] += v
+
+    # Mask R-CNN at full width on synthetic batches with masks
+    r = _last_two_run("maskrcnn", ["--config-file", cfg_file,
+                                   "--steps-per-epoch", str(MRCNN_STEPS),
+                                   "--epochs", "1"], work / "mrcnn", SPANS)
+    done("maskrcnn", r)
+    head, tail = statistics.mean(r["losses"][:3]), \
+        statistics.mean(r["losses"][-3:])
+    check(len(r["losses"]) == MRCNN_STEPS >= hi + 2 and tail < head,
+          f"maskrcnn: losses {r['losses']}")
+    lines.append(_fmt_run("maskrcnn (configs.yml: R50-FPN 800 x 800, 81 "
+                          "classes, bf16)", 16, r, "images"))
+    profile["maskrcnn"] = {k: v for k, v in r.items() if k != "out"}
+
+    # Mask R-CNN on a COCO tree of the fixtures with polygons: box and mask AP
+    n_train, n_val, b = MRCNN_COCO
+    root = coco_tree(sorted(FIXTURES.glob("*.jpg")), work / "coco", n_train,
+                     n_val, seed=SEED, polygons=True)
+    r = _last_two_run("maskrcnn", ["--config-file", cfg_file,
+                                   "--data-backend", "coco", "--data-dir",
+                                   str(root), "--batch-size", str(b),
+                                   "--epochs", "1"], work / "mrcnn_coco")
+    done("maskrcnn on COCO", r, zero=False)
+    val = r["out"][2]
+    check(r["launched"]["resample_normalize"] > 0 and val and set(val) == {
+        "val.bbox_mAP", "val.bbox_mAP50", "val.segm_mAP", "val.segm_mAP50"}
+        and all(0.0 <= v <= 1.0 for v in val.values()),
+        f"maskrcnn on COCO: val {val}, {r['launched']}")
+    lines.append(
+        f"maskrcnn --data-backend coco (800 x 800, B={b}, {n_train} train "
+        f"and {n_val} val images, the fixtures' JPEGs with a diamond polygon "
+        f"a box): loss " + " ".join(f"{x:.4f}" for x in r["losses"])
+        + "; val " + ", ".join(f"{k} {v:.5f}" for k, v in val.items())
+        + f"; resample_normalize launched {r['launched']['resample_normalize']}"
+        f" times; {r['wall']:.1f} s")
+    profile["maskrcnn_coco"] = {"losses": r["losses"], "val": val}
+
+    # the SE(3)-Transformer through the CLI, then at the reference's width
+    r = _last_two_run("se3-transformer", ["--batch-size", str(SE3_CLI_B),
+                                          "--steps-per-epoch", "8", "--lr",
+                                          "3e-3"], work / "se3")
+    done("se3-transformer", r)
+    lines.append(_fmt_run("se3-transformer (4 layers, degrees 0-2, 16 "
+                          "channels, 12 atoms)", SE3_CLI_B, r, "molecules"))
+    profile["se3-transformer"] = {k: v for k, v in r.items() if k != "out"}
+
+    b, n, steps = SE3_FULL
+    _reset_counts()  # this path starts here
+    torch.cuda.reset_peak_memory_stats()
+    task = SE3RegressionTask(SE3Config())
+    model = task.init(torch.Generator().manual_seed(SEED), DEV)
+    tx = adam(1e-3)
+    state = create_train_state(model, tx, SEED)
+    step = make_train_step(task.loss_fn, tx)
+    rng = np.random.default_rng(SEED)
+    pos = rng.normal(size=(b, n, 3)).astype(np.float32) * 2
+    d = np.linalg.norm(pos[:, :, None] - pos[:, None, :], axis=-1) \
+        + np.eye(n) * 1e9
+    batch = {k: torch.from_numpy(v).to(DEV) for k, v in {
+        "positions": pos, "species": np.eye(6, dtype=np.float32)[
+            rng.integers(0, 6, (b, n))], "mask": np.ones((b, n), np.float32),
+        "target": ((1.0 / np.maximum(d, 0.5)).sum(axis=(1, 2)) * 0.05
+                   ).astype(np.float32)}.items()}
+    ms, losses = [], []
+    for _ in range(steps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        state, metrics = step(state, batch)
+        end.record()
+        torch.cuda.synchronize()
+        ms.append(start.elapsed_time(end))
+        losses.append(float(metrics["loss"]))
+    launched = _counts()
+    check(launched == dict.fromkeys(launched, 0) and all(
+        map(math.isfinite, losses)), f"se3 full width: {launched}, {losses}")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    lines.append(
+        f"SE3RegressionTask(SE3Config()) (7 layers, degrees 0-3, 32 channels,"
+        f" 8 heads) B={b} N={n}: loss " + " ".join(f"{x:.4f}" for x in losses)
+        + f"; steps {', '.join(f'{x:.1f}' for x in ms)} ms (CUDA events; "
+        f"the first builds), peak {peak:.1f} GB")
+    profile["se3_full"] = {"batch": b, "atoms": n, "step_ms": ms,
+                           "losses": losses, "peak_gb": peak}
+    del state, model, step, batch
+    torch.cuda.empty_cache()
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    (out_dir / "phase29.json").write_text(json.dumps(profile, indent=1,
+                                                     default=str))
+    say("29 Mask R-CNN and SE(3)", f"on {card()}: " + "; ".join(lines)
         + f". K1-K6 launched 0 times on these paths "
         f"({time.perf_counter() - t0:.1f} s)")
     return total
@@ -6190,6 +6604,11 @@ def main() -> None:
         for k, v in phase_breadth().items():  # counts set to 0 there
             launched[k] += v
         phase_breadth_parity(refs)
+    with _phase("29"):
+        refs = _last_two_references()  # float64 on the host thread, beside 29b
+        for k, v in phase_last_two().items():  # counts set to 0 there
+            launched[k] += v
+        phase_last_two_parity(refs)
     say("phases", "seconds: " + ", ".join(
         f"{k} {v:.1f}" for k, v in PHASE_SECONDS.items())
         + f"; all {time.perf_counter() - T_START:.1f}")

@@ -5,20 +5,22 @@
 ``bert-pretrain``, ``bert-squad``, ``bert-glue``, ``bert-swag``,
 ``dlrm``, ``tacotron2``, ``waveglow``, ``transformer``, ``bart``,
 ``gnmt``, ``fastpitch``, ``hifigan``, ``jasper``, ``wav2vec2``, ``ncf``,
-``tft``, ``nnunet``, ``transformer-xl`` and ``moflow``: 29 of
-``dlx-train``'s 31 commands (``maskrcnn`` and ``se3-transformer`` exit
-with a message that they are not ported).
+``tft``, ``nnunet``, ``transformer-xl``, ``moflow``, ``maskrcnn`` and
+``se3-transformer``: all 31 of ``dlx-train``'s commands.
 
 Port of ``deeplearningexamples_tpu/cli/main.py`` for the models the port
 trains so far, the ConvNets and GPUNets (``run_convnet``, on synthetic
 images or ImageNet's class folders), SSD300 (``run_ssd``, on synthetic
-images or COCO with its mAP), EfficientDet-D0 (``run_efficientdet``), BERT
+images or COCO with its mAP), EfficientDet-D0 (``run_efficientdet``),
+Mask R-CNN (``run_maskrcnn``, on synthetic batches or COCO with its box and
+mask mAP), BERT
 pretraining (``run_bert_pretrain``), BERT fine-tuning on SQuAD, GLUE and SWAG
 (``run_bert_squad``, ``run_bert_glue``, ``run_bert_swag``), DLRM
 (``run_dlrm``), Tacotron2 and WaveGlow (``run_tts``), the Transformer NMT
 (``run_transformer``), BART (``run_bart``: denoising pretraining or
 summarization with beam-decoded ROUGE), GNMT, FastPitch, Jasper,
-wav2vec 2.0, nnU-Net, Transformer-XL and MoFlow (``run_breadth``),
+wav2vec 2.0, nnU-Net, Transformer-XL, MoFlow and the SE(3)-Transformer
+(``run_breadth``),
 HiFi-GAN (``run_hifigan``), NCF (``run_ncf``) and TFT (``run_tft``, on a
 synthetic or ``.npy`` panel, with the test split's forecast metrics), with the
 flag names and defaults of ``dlx-train``. The run is
@@ -39,8 +41,9 @@ Flags whose machinery is not ported yet exit with a message that says so,
 rather than being ignored: ``--mesh-sequence`` above 1 (ring attention)
 everywhere; for ``efficientdet``, ``tacotron2``, ``waveglow``,
 ``transformer``, ``bart``, ``gnmt``, the speech commands, ``ncf``, ``tft``,
-``nnunet``, ``transformer-xl`` and ``moflow`` any mesh of more than one rank (their global loss denominators and BN statistics wait);
-for ``ssd300`` and ``efficientdet`` a ``--data-backend`` other than
+``nnunet``, ``transformer-xl``, ``moflow``, ``maskrcnn`` and
+``se3-transformer`` any mesh of more than one rank (their global loss denominators and BN statistics wait);
+for ``ssd300``, ``efficientdet`` and ``maskrcnn`` a ``--data-backend`` other than
 synthetic and coco; for ``bert-pretrain`` ``--attention-impl ring`` and
 ``--zero`` with ``--flat-lamb``; for the fine-tuning commands an
 ``--init-checkpoint`` in TF format. argparse refuses ``--zero`` for the
@@ -80,7 +83,7 @@ from ..parallel.mesh import (DATA_AXIS, MeshSpec, batch_positions,
 
 __all__ = ["BartCliConfig", "BertCliConfig", "BertPretrainRun", "BreadthRun",
            "CommonConfig", "ConvNetCliConfig", "ConvNetRun", "DlrmCliConfig",
-           "DlrmRun", "EfficientDetCliConfig", "FinetuneRun", "GlueCliConfig",
+           "DlrmRun", "DetectorCliConfig", "FinetuneRun", "GlueCliConfig",
            "MODELS", "NcfRun", "Seq2SeqRun",
            "SgdCliConfig", "SquadCliConfig", "SsdRun", "SwagCliConfig",
            "TftRun", "TtsRun", "build_bert_pretrain", "build_bert_squad",
@@ -89,7 +92,8 @@ __all__ = ["BartCliConfig", "BertCliConfig", "BertPretrainRun", "BreadthRun",
            "featurize_swag", "read_swag", "run_bert_glue",
            "run_bert_pretrain", "run_bert_squad", "run_bert_swag",
            "run_bart", "run_breadth", "run_convnet", "run_dlrm",
-           "run_efficientdet", "run_hifigan", "run_ncf", "run_ssd",
+           "run_efficientdet", "run_hifigan", "run_maskrcnn", "run_ncf",
+           "run_ssd",
            "run_tft", "run_transformer", "run_tts", "tft_test_metrics",
            "to_device"]
 
@@ -148,11 +152,12 @@ class ConvNetCliConfig(SgdCliConfig):
 
 
 @dataclass
-class EfficientDetCliConfig(SgdCliConfig):
-    """``efficientdet``'s config: JAX's ``CommonConfig`` fields that
-    ``run_efficientdet`` reads, with JAX's defaults."""
+class DetectorCliConfig(SgdCliConfig):
+    """``efficientdet``'s and ``maskrcnn``'s config: JAX's ``CommonConfig``
+    fields that ``run_efficientdet`` and ``run_maskrcnn`` read, with JAX's
+    defaults."""
 
-    image_size: int = 0  # 0: EfficientDet-D0's 512
+    image_size: int = 0  # 0: EfficientDet-D0's 512, Mask R-CNN's 800
 
 
 @dataclass
@@ -1551,7 +1556,11 @@ def _breadth_spec(name: str, cfg: CommonConfig):
       targets; Adam (2.5e-4);
     - ``moflow``: ``MoFlowConfig()`` (QM9's 9 atoms of 5 types, 4 bond
       types), one-hot atoms and symmetric one-hot bonds; Adam (1e-3), fp32
-      whatever ``--amp``."""
+      whatever ``--amp``;
+    - ``se3-transformer``: ``SE3Config(num_layers=4, num_degrees=3,
+      num_channels=16)`` on 12 atoms, positions 2 N(0, 1), one-hot species,
+      the target 0.05 times the sum of 1 / max(distance, 0.5) over the
+      pairs; Adam (3e-3), fp32 whatever ``--amp``."""
     rng = np.random.default_rng(cfg.seed)
     bs = cfg.batch_size
     if name == "jasper":
@@ -1638,6 +1647,24 @@ def _breadth_spec(name: str, cfg: CommonConfig):
             return {"tokens": toks[:, :-1].astype(np.int32),
                     "targets": toks[:, 1:].astype(np.int32)}
         tx = opt.adam(cfg.lr or 2.5e-4)
+    elif name == "se3-transformer":
+        from ..models.se3_transformer import SE3Config, SE3RegressionTask
+
+        task = SE3RegressionTask(
+            SE3Config(num_layers=4, num_degrees=3, num_channels=16))
+        n = 12
+
+        def batch():
+            pos = rng.normal(size=(bs, n, 3)).astype(np.float32) * 2
+            species = np.eye(task.cfg.node_feature_dim, dtype=np.float32)[
+                rng.integers(0, task.cfg.node_feature_dim, (bs, n))]
+            mask = np.ones((bs, n), np.float32)
+            d = np.linalg.norm(pos[:, :, None] - pos[:, None, :], axis=-1)
+            d = d + np.eye(n) * 1e9
+            target = (1.0 / np.maximum(d, 0.5)).sum(axis=(1, 2)) * 0.05
+            return {"positions": pos, "species": species, "mask": mask,
+                    "target": target.astype(np.float32)}
+        tx = opt.adam(cfg.lr or 3e-3)
     elif name == "moflow":
         from ..models.moflow import MoFlowConfig, MoFlowTask
 
@@ -1744,7 +1771,7 @@ def run_hifigan(cfg: CommonConfig):
     return gen, disc, out
 
 
-def run_efficientdet(cfg: EfficientDetCliConfig):
+def run_efficientdet(cfg: DetectorCliConfig):
     """EfficientDet-D0 training (reference ``Efficientdet/train.py``), as
     JAX's ``run_efficientdet``: synthetic COCO-shaped batches, or with
     ``--data-backend coco`` ``train2017`` under ``--data-dir`` through
@@ -1813,11 +1840,94 @@ def run_efficientdet(cfg: EfficientDetCliConfig):
     return state, best, metrics
 
 
+def run_maskrcnn(cfg: DetectorCliConfig):
+    """Mask R-CNN R50-FPN training (reference ``MaskRCNN/.../train_net.py``),
+    as JAX's ``run_maskrcnn``: synthetic COCO-shaped batches with dense
+    instance masks, or with ``--data-backend coco`` ``train2017`` under
+    ``--data-dir`` through ``CocoRawLoader(with_masks=True)`` (flip only,
+    polygons rasterized on 64 x 64 grids); clip by global norm 10, then SGD
+    with momentum on ``--lr-schedule`` (the step policy decays at epochs
+    30, 60 and 80, and no ``--weight-decay`` reaches the optimizer, as in
+    JAX). When ``annotations/instances_val2017.json`` exists, COCO box and
+    mask AP on val2017 after training (``CocoMAP``, ``MaskMAP``; top 50
+    detections an image), logged as ``val.bbox_mAP``, ``val.bbox_mAP50``,
+    ``val.segm_mAP`` and ``val.segm_mAP50``. Returns ``(state, best, val
+    metrics or None)``."""
+    from ..data.det_synthetic import SyntheticDetectionLoader
+    from ..models.maskrcnn import MaskRCNNConfig, MaskRCNNTask
+
+    logger = _common_setup(cfg, "maskrcnn", only="maskrcnn")
+    _unported_coco("maskrcnn", cfg)
+    task = MaskRCNNTask(MaskRCNNConfig(image_size=cfg.image_size or 800),
+                        dtype=_dtype(cfg))
+    model = task.init(torch.Generator().manual_seed(cfg.seed), device=cfg.device)
+    ds_val = None
+    real = cfg.data_backend == "coco"
+    if real:
+        from ..data.coco import CocoDetectionDataset, CocoRawLoader
+
+        ds = CocoDetectionDataset(
+            f"{cfg.data_dir}/train2017",
+            f"{cfg.data_dir}/annotations/instances_train2017.json")
+        loader = CocoRawLoader(ds, cfg.batch_size, task.cfg.image_size,
+                               max_gt=16, with_masks=True, seed=cfg.seed,
+                               device=cfg.device)
+        val_ann = f"{cfg.data_dir}/annotations/instances_val2017.json"
+        if os.path.exists(val_ann):
+            ds_val = CocoDetectionDataset(f"{cfg.data_dir}/val2017", val_ann)
+    else:
+        loader = SyntheticDetectionLoader(
+            cfg.batch_size, task.cfg.image_size, task.cfg.num_classes - 1,
+            max_gt=16, steps=cfg.steps_per_epoch, with_masks=True,
+            seed=cfg.seed)
+    tx = opt.chain(opt.clip_by_global_norm(10.0),
+                   opt.sgd(_make_schedule(cfg, len(loader)), cfg.momentum))
+    state = create_train_state(model, tx, cfg.seed + 1,
+                               model_state=task.model_state(model))
+    ckpt = CheckpointManager(f"{cfg.workspace}/maskrcnn_ckpt")
+    state, start_epoch = _maybe_resume(cfg, ckpt, state, len(loader))
+    train_step = make_train_step(task.loss_fn, tx, accum_steps=cfg.accum_steps)
+    state, best = train_loop(
+        state, train_step, lambda: _feed(loader, cfg.device, real),
+        cfg=_loop_cfg(cfg), logger=logger, checkpoints=ckpt,
+        batch_size=cfg.batch_size, start_epoch=start_epoch)
+    if ds_val is None:
+        return state, best, None
+    # COCO box + mask AP on the val split (reference tools/test_net.py runs
+    # COCOeval bbox + segm after training)
+    from ..models.ssd.coco_eval import CocoMAP, MaskMAP
+
+    val = CocoRawLoader(ds_val, cfg.batch_size, task.cfg.image_size,
+                        max_gt=16, with_masks=True, train=False,
+                        device=cfg.device)
+    box_ev, mask_ev = CocoMAP(), MaskMAP(image_size=float(task.cfg.image_size))
+    for batch in to_device(val, cfg.device):
+        out = task.predict(state.model, batch["image"], max_out=50,
+                           score_threshold=0.05)
+        boxes, scores, labels, valid, masks = (t.cpu().numpy() for t in out)
+        gt_boxes, gt_labels, gt_valid, gt_masks = (
+            batch[k].cpu().numpy() for k in ("boxes", "labels", "valid",
+                                             "masks"))
+        for i in range(batch["n_valid"]):
+            keep, gv = valid[i], gt_valid[i]
+            box_ev.add_image(boxes[i][keep], labels[i][keep], scores[i][keep],
+                             gt_boxes[i][gv], gt_labels[i][gv])
+            mask_ev.add_image_masks(boxes[i][keep], masks[i][keep],
+                                    labels[i][keep], scores[i][keep],
+                                    gt_masks[i][gv], gt_labels[i][gv])
+    box_m, mask_m = box_ev.compute(), mask_ev.compute()
+    metrics = {"val.bbox_mAP": box_m["mAP"], "val.bbox_mAP50": box_m["mAP50"],
+               "val.segm_mAP": mask_m["mAP"],
+               "val.segm_mAP50": mask_m["mAP50"]}
+    logger.log((), metrics)
+    return state, best, metrics
+
+
 CONVNETS = ("resnet50", "resnext101-32x4d", "se-resnext101-32x4d",
             "efficientnet-b0", "efficientnet-b4", "gpunet-0", "gpunet-1",
             "gpunet-2")
 BREADTH = ("gnmt", "jasper", "wav2vec2", "fastpitch", "nnunet",
-           "transformer-xl", "moflow")
+           "transformer-xl", "moflow", "se3-transformer")
 MODELS = {**{a: (lambda cfg, a=a: run_convnet(a, cfg)) for a in CONVNETS},
           "ssd300": run_ssd, "bert-pretrain": run_bert_pretrain,
           "bert-squad": run_bert_squad,
@@ -1828,9 +1938,7 @@ MODELS = {**{a: (lambda cfg, a=a: run_convnet(a, cfg)) for a in CONVNETS},
           "transformer": run_transformer, "bart": run_bart,
           **{m: (lambda cfg, m=m: run_breadth(m, cfg)) for m in BREADTH},
           "hifigan": run_hifigan, "efficientdet": run_efficientdet,
-          "ncf": run_ncf, "tft": run_tft,
-          **{m: (lambda cfg, m=m: _unported(m, [(True, "the command")]))
-             for m in ("maskrcnn", "se3-transformer")}}
+          "maskrcnn": run_maskrcnn, "ncf": run_ncf, "tft": run_tft}
 _CONFIG_CLS = {**dict.fromkeys(CONVNETS, ConvNetCliConfig),
                "ssd300": SgdCliConfig, "bert-pretrain": BertCliConfig,
                "bert-squad": SquadCliConfig,
@@ -1838,9 +1946,10 @@ _CONFIG_CLS = {**dict.fromkeys(CONVNETS, ConvNetCliConfig),
                "dlrm": DlrmCliConfig,
                "tacotron2": CommonConfig, "waveglow": CommonConfig,
                "transformer": CommonConfig, "bart": BartCliConfig,
-               **dict.fromkeys((*BREADTH, "hifigan", "ncf", "tft", "maskrcnn",
-                                "se3-transformer"), CommonConfig),
-               "efficientdet": EfficientDetCliConfig}
+               **dict.fromkeys((*BREADTH, "hifigan", "ncf", "tft"),
+                               CommonConfig),
+               **dict.fromkeys(("efficientdet", "maskrcnn"),
+                               DetectorCliConfig)}
 
 
 def cli(argv=None):

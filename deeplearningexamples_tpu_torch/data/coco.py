@@ -1,5 +1,5 @@
 """Port of ``deeplearningexamples_tpu/data/coco.py``: the COCO detection
-pipelines of SSD300 and EfficientDet.
+pipelines of SSD300, EfficientDet and Mask R-CNN.
 
 Covers the reference's DALI COCO pipeline (``ssd/coco_pipeline.py:27-160``:
 COCO reader → RandomBBoxCrop → decode → flip → resize → normalize →
@@ -14,9 +14,12 @@ BoxEncoder) and the torch-path ``SSDCropping`` (``ssd/utils.py:294-386``) +
   or nvJPEG and the resample kernel on the card, by ``device``)
 - host-side anchor encoding (``models/ssd/boxes.encode``) producing
   static-shape targets
+- Mask R-CNN's instance masks (``CocoRawLoader(with_masks=True)``): flip
+  only, and each instance's polygons rasterized on a dense grid
+  (``rasterize_polygons``: even-odd ray casting in the crop window, with the
+  flip)
 
-The draws, and so the batches, are JAX's. Mask R-CNN's part
-(``with_masks``, ``rasterize_polygons``) waits for Mask R-CNN.
+The draws, and so the batches, are JAX's, bit for bit.
 """
 
 from __future__ import annotations
@@ -31,7 +34,7 @@ from ..models.ssd.boxes import DefaultBoxes, dboxes300_coco, encode
 from ..native import DataPlane
 
 __all__ = ["CocoDetectionDataset", "ssd_random_crop", "CocoSSDLoader",
-           "CocoRawLoader"]
+           "CocoRawLoader", "rasterize_polygons"]
 
 
 def ssd_random_crop(
@@ -238,18 +241,22 @@ class CocoRawLoader:
                  train: bool = True, seed: int = 0,
                  shard: tuple[int, int] = (0, 1),
                  n_threads: int | None = None,
-                 with_masks: bool = False, device: str = "cpu"):
-        if with_masks:
-            raise NotImplementedError("with_masks (Mask R-CNN's instance "
-                                      "masks) is not ported yet")
+                 with_masks: bool = False, mask_grid: int = 64,
+                 device: str = "cpu"):
         self.plane = DataPlane(n_threads, device)
         self.samples = dataset.samples[shard[0]::shard[1]]
+        self.segmentations = dataset.segmentations[shard[0]::shard[1]]
         self.batch_size = batch_size
         self.image_size = image_size
         self.max_gt = max_gt
         self.train = train
         self.seed = seed
         self.epoch = 0
+        # with_masks: Mask R-CNN mode, flip-only augmentation (the reference
+        # Mask R-CNN augments with resize + flip, no SSD crop) and dense
+        # per-instance grids rasterized from COCO's polygons
+        self.with_masks = with_masks
+        self.mask_grid = mask_grid
 
     def __len__(self):
         if self.train:
@@ -275,13 +282,16 @@ class CocoRawLoader:
             out_boxes = np.zeros((bs, g, 4), np.float32)
             out_labels = np.zeros((bs, g), np.int32)
             out_valid = np.zeros((bs, g), bool)
+            mg = self.mask_grid
+            out_masks = (np.zeros((bs, g, mg, mg), np.float32)
+                         if self.with_masks else None)
             img_ids = []
             for bi, j in enumerate(order[i:i + bs]):
                 path, boxes, labels, img_id = self.samples[j]
                 with open(path, "rb") as f:
                     jpegs.append(f.read())
                 crop = None
-                if self.train:
+                if self.train and not self.with_masks:
                     result = ssd_random_crop(boxes, labels, rng)
                     if result is not None:
                         crop, boxes, labels = result
@@ -298,6 +308,14 @@ class CocoRawLoader:
                 # here use 0-based category ids
                 out_labels[bi, :n] = labels[:n] - 1
                 out_valid[bi, :n] = True
+                if self.with_masks:
+                    cx, cy, cw, ch = crop
+                    window = (cx, cy, cx + cw, cy + ch)
+                    for k in range(n):
+                        polys = self.segmentations[j][k]
+                        if polys:
+                            out_masks[bi, k] = rasterize_polygons(
+                                polys, mg, window, flip)
                 img_ids.append(img_id)
             images = self.plane.decode_batch(
                 jpegs, np.asarray(crops, np.float32),
@@ -307,8 +325,45 @@ class CocoRawLoader:
                 "image": images, "boxes": out_boxes,
                 "labels": out_labels, "valid": out_valid,
             }
+            if self.with_masks:
+                batch["masks"] = out_masks
             if not self.train:
                 batch["image_ids"] = np.asarray(img_ids, np.int64)
                 batch["n_valid"] = n_real
             yield batch
 
+
+def rasterize_polygons(polygons: list, grid: int,
+                       window: tuple[float, float, float, float] = (0, 0, 1, 1),
+                       flip: bool = False) -> np.ndarray:
+    """Dense (grid, grid) binary mask from COCO polygons (fraction coords).
+
+    The reference rasterizes polygons on the device
+    (``csrc/cuda/generate_mask_targets.cu``); here an even-odd ray cast over
+    the sample grid, evaluated inside the crop ``window`` (x0, y0, x1, y1
+    fractions) with an optional horizontal flip, so that the mask sees
+    exactly the augmented image the loader emits.
+    """
+    x0, y0, x1, y1 = window
+    js = (np.arange(grid) + 0.5) / grid
+    u = x0 + js * (x1 - x0)  # sample x fractions in original image
+    v = y0 + js * (y1 - y0)
+    if flip:
+        u = u[::-1]
+    px, py = np.meshgrid(u, v)  # (grid, grid)
+    inside = np.zeros((grid, grid), bool)
+    for poly in polygons:
+        pts = np.asarray(poly, np.float64).reshape(-1, 2)
+        if len(pts) < 3:
+            continue
+        xs, ys = pts[:, 0], pts[:, 1]
+        xs2, ys2 = np.roll(xs, -1), np.roll(ys, -1)
+        crossing = np.zeros((grid, grid), np.int32)
+        for ax, ay, bx, by in zip(xs, ys, xs2, ys2):
+            if ay == by:
+                continue
+            cond = (py >= min(ay, by)) & (py < max(ay, by))
+            xint = ax + (py - ay) * (bx - ax) / (by - ay)
+            crossing += (cond & (px < xint)).astype(np.int32)
+        inside ^= (crossing % 2).astype(bool)  # even-odd rule per polygon
+    return inside.astype(np.float32)

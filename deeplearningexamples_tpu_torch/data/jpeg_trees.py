@@ -63,10 +63,12 @@ def imagenet_tree(jpegs: list[Path], root: Path, n_classes: int,
 
 
 def coco_tree(jpegs: list[Path], root: Path, n_train: int, n_val: int,
-              seed: int = 0) -> Path:
+              seed: int = 0, polygons: bool = False) -> Path:
     """``root`` in COCO's layout with 1-3 boxes (categories ``CATEGORIES``)
     on each readable image; an unreadable JPEG is listed with no boxes.
-    Returns ``root``."""
+    With ``polygons`` each box carries a ``segmentation``: the diamond
+    through the midpoints of its sides (Mask R-CNN's masks). Returns
+    ``root``."""
     rng = np.random.default_rng(seed)
     k = 0
     for split, n in (("train", n_train), ("val", n_val)):
@@ -89,6 +91,10 @@ def coco_tree(jpegs: list[Path], root: Path, n_train: int, n_val: int,
                              "category_id": int(rng.choice(CATEGORIES)),
                              "bbox": [x, y, bw, bh], "area": bw * bh,
                              "iscrowd": 0})
+                if polygons:
+                    anns[-1]["segmentation"] = [[
+                        x + bw / 2, y, x + bw, y + bh / 2, x + bw / 2,
+                        y + bh, x, y + bh / 2]]
         doc = {"images": images, "annotations": anns,
                "categories": [{"id": c, "name": f"c{c}"} for c in CATEGORIES]}
         ann = root / "annotations" / f"instances_{split}2017.json"

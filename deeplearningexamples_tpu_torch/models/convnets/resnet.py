@@ -117,7 +117,8 @@ class BasicBlock(_Block):
 class ResNet(nn.Module):
     """``forward(x)``: x (B, 3, H, W) (an NHWC batch permuted) -> fp32
     logits (B, num_classes); with ``return_features`` the four stages'
-    outputs instead."""
+    outputs instead. ``num_classes=0`` builds no ``fc`` (a detection
+    backbone: JAX's ResNet creates its ``fc`` only when it reaches it)."""
 
     def __init__(self, arch: ResNetArch = ResNetArch(), num_classes: int = 1000,
                  dtype: torch.dtype = torch.bfloat16, quantized: bool = False):
@@ -135,7 +136,8 @@ class ResNet(nn.Module):
                 blocks.append(block(cin, width, stride, arch, conv, dtype))
                 cin = width * arch.expansion
             setattr(self, f"layer{i + 1}", nn.Sequential(*blocks))
-        self.fc = Dense(cin, num_classes, torch.float32)
+        self.fc = Dense(cin, num_classes, torch.float32) if num_classes \
+            else None
 
     def init_weights_(self, generator: torch.Generator) -> None:
         init_weights_(self, generator)

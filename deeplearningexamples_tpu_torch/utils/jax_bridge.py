@@ -16,7 +16,10 @@ for the speech models (with HiFi-GAN's discriminators, wav2vec2's CTC model
 and QuartzNet's separable blocks, which no JAX converter covers), and of
 ``convert_ncf``, ``convert_tft``, ``convert_brats_unet3d``,
 ``convert_transformer_xl`` and ``convert_moflow`` (its ``batch_stats``
-too), with nnU-Net's ``DynUNet``, which no JAX converter covers. The word table keeps its ``padded_vocab`` rows, and the MLM decoder, tied to it, has no entry of its own. The mapping is
+too), with nnU-Net's ``DynUNet``, which no JAX converter covers, and of
+``convert_maskrcnn_heads`` for Mask R-CNN (its ResNet backbone through the
+ConvNets' names) and of the SE(3)-Transformer, which no JAX converter
+covers. The word table keeps its ``padded_vocab`` rows, and the MLM decoder, tied to it, has no entry of its own. The mapping is
 structural, so it carries any tree of that shape across:
 parameters, or the gradients ``jax.grad`` returns for them.
 """
@@ -46,9 +49,11 @@ __all__ = [
     "hifigan_discriminators_state_dict_from_jax",
     "hifigan_generator_state_dict_from_jax",
     "jasper_state_dict_from_jax",
+    "maskrcnn_state_dict_from_jax",
     "moflow_state_dict_from_jax",
     "ncf_state_dict_from_jax",
     "resnet_state_dict_from_jax",
+    "se3_state_dict_from_jax",
     "ssd300_state_dict_from_jax",
     "tacotron2_state_dict_from_jax",
     "tft_state_dict_from_jax",
@@ -1004,4 +1009,67 @@ def moflow_state_dict_from_jax(params: Mapping[str, Any],
                 sd.update(_dense_sd(cp[f"lin{k}"], f"{li}.lin"))
                 sd.update(bn(cp[f"lin_bn{k}"], st(f"lin_bn{k}"), f"{li}.bn"))
             sd.update(_dense_sd(cp["out"], f"{dst}.coupling.net_lin.{n_lin}"))
+    return sd
+
+
+def maskrcnn_state_dict_from_jax(params: Mapping[str, Any],
+                                 batch_stats: Mapping[str, Any] | None = None,
+                                 pool: int = 7) -> dict[str, np.ndarray]:
+    """JAX ``MaskRCNN`` params, or their gradients, and optionally its
+    ``batch_stats`` -> the port's ``MaskRCNN`` ``state_dict``: the backbone
+    under ``backbone.`` with the ResNet's names, the heads under the
+    reference's (the inverse of ``convert_maskrcnn_heads``): ``fc6`` reads
+    its input channel-major, ``conv5_mask`` is a ``ConvTranspose2d``
+    weight (in, out, 2, 2), JAX's kernel reversed in space."""
+    stats = (batch_stats or {}).get("backbone")
+    sd = {f"backbone.{k}": v for k, v in
+          resnet_state_dict_from_jax(params["backbone"], stats).items()}
+
+    def put(dst: str, tree: Mapping[str, Any]) -> None:
+        sd[f"{dst}.weight"] = _leaf(tree["kernel"])
+        sd[f"{dst}.bias"] = np.asarray(tree["bias"])
+
+    fpn, rpn = params["fpn"], params["rpn_head"]
+    box, mask = params["box_head"], params["mask_head"]
+    for i in range(4):
+        put(f"fpn.fpn_inner{i + 1}", fpn[f"lateral_{i}"])
+        put(f"fpn.fpn_layer{i + 1}", fpn[f"out_{i}"])
+        put(f"mask_ext.mask_fcn{i + 1}", mask[f"fcn{i}"])
+    for src, dst in (("conv", "conv"), ("logits", "cls_logits"),
+                     ("deltas", "bbox_pred")):
+        put(f"rpn.{dst}", rpn[src])
+    w6 = np.asarray(box["fc6"]["kernel"])  # (pool * pool * C, fc), NHWC-major
+    c = w6.shape[0] // (pool * pool)
+    sd["box_ext.fc6.weight"] = np.ascontiguousarray(
+        w6.reshape(pool, pool, c, -1).transpose(3, 2, 0, 1).reshape(
+            w6.shape[1], -1))
+    sd["box_ext.fc6.bias"] = np.asarray(box["fc6"]["bias"])
+    for src, dst in (("fc7", "box_ext.fc7"), ("cls", "box_pred.cls_score"),
+                     ("box", "box_pred.bbox_pred")):
+        put(dst, box[src])
+    kt = np.asarray(mask["deconv"]["kernel"])  # (2, 2, in, out)
+    sd["mask_pred.conv5_mask.weight"] = np.ascontiguousarray(
+        kt[::-1, ::-1].transpose(2, 3, 0, 1))
+    sd["mask_pred.conv5_mask.bias"] = np.asarray(mask["deconv"]["bias"])
+    put("mask_pred.mask_fcn_logits", mask["predict"])
+    return sd
+
+
+def se3_state_dict_from_jax(tree: Mapping[str, Any]) -> dict[str, np.ndarray]:
+    """JAX ``SE3Transformer`` or ``SE3Trunk`` params, or their gradients ->
+    the port's ``state_dict``: JAX's module names, dense kernels transposed,
+    LayerNorm scales as weights, ``LinearSE3``'s ``w{d}`` (c_out, c_in) as
+    they are."""
+    sd: dict[str, np.ndarray] = {}
+
+    def walk(t: Mapping[str, Any], prefix: str) -> None:
+        for key, value in t.items():
+            if isinstance(value, Mapping):
+                walk(value, f"{prefix}{key}.")
+            elif key in _LEAF:
+                sd[f"{prefix}{_LEAF[key]}"] = _leaf(value)
+            else:  # w{d}
+                sd[f"{prefix}{key}"] = np.asarray(value)
+
+    walk(tree, "")
     return sd

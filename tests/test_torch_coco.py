@@ -138,9 +138,17 @@ def test_raw_loader_equals_jax(tree, train):
 
 
 def test_mask_rcnn_mode_is_refused(tree):
-    ours_ds, _ = _datasets(tree, "val")
-    with pytest.raises(NotImplementedError, match="not ported"):
-        coco.CocoRawLoader(ours_ds, 2, with_masks=True)
+    """Mask R-CNN's mode is ported: on annotations without polygons its
+    masks are empty and every other key is JAX's
+    (``tests/test_torch_maskrcnn.py`` holds it on polygons)."""
+    ours_ds, theirs_ds = _datasets(tree, "val")
+    ours = coco.CocoRawLoader(ours_ds, 2, 64, with_masks=True, train=False)
+    theirs = jax_coco.CocoRawLoader(theirs_ds, 2, 64, with_masks=True,
+                                    train=False)
+    got, want = list(ours), list(theirs)
+    _equal_batches(got, want)
+    assert all(b["masks"].shape == (2, 64, 64, 64) and not b["masks"].any()
+               for b in got)
 
 
 def _raport(path: Path) -> list[dict]:

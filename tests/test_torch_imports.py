@@ -46,7 +46,8 @@ for name in ("core.train", "core.flat", "core.loop", "core.checkpoint",
              "models.convnets.gpunet", "models.efficientdet", "parallel",
              "parallel.dist", "parallel.mesh", "parallel.zero",
              "data.timeseries", "models.ncf", "models.tft", "models.unet",
-             "models.transformer_xl", "models.moflow"):
+             "models.transformer_xl", "models.moflow", "models.maskrcnn",
+             "ops.se3", "models.se3_transformer"):
     assert f"deeplearningexamples_tpu_torch.{name}" in names, name
 # importing builds and loads nothing: the data plane and the kernels are
 # built at first use
@@ -77,8 +78,9 @@ def test_port_imports_with_jax_blocked():
     # wav2vec2, the serving recipes), and the real-data readers with their
     # data plane (the host's C++ plane and the card's nvJPEG path and
     # resample kernel), GPUNet and EfficientDet, and NCF, TFT with its
-    # time-series reader, the U-Nets, Transformer-XL and MoFlow
-    assert int(res.stdout.strip()) >= 109
+    # time-series reader, the U-Nets, Transformer-XL and MoFlow, and Mask
+    # R-CNN and the SE(3)-Transformer with its equivariant basis
+    assert int(res.stdout.strip()) >= 112
 
 
 def test_chip_smoke_fails_without_a_card():
