@@ -188,10 +188,27 @@ and it imports nothing of JAX. Phases, one line each:
     split), ``se3-transformer`` B=256 and one ``SE3RegressionTask(
     SE3Config())`` step at the reference's width on 29 atoms, B=48
     (``chiprun_out/phase29.json``)
+30. serving: one ``InferenceServer`` with the nine recipes JAX's
+    ``serving/recipes.py`` has beyond the speech pair, fp32, full width,
+    random weights: ``bart_endpoint`` (bart-large, source 1024, beam 4, 64
+    target positions: K1 in the encoder and the cross-attention at Sq = 1),
+    ``gnmt_endpoint`` (the CLI's GNMT), ``tft_endpoint`` (the CLI's TFT),
+    ``ncf_endpoint`` (ML-20M's NeuMF), ``unet_endpoint`` (the 2-D DynUNet at
+    128 x 128), ``transformer_xl_generate_endpoint`` (WT103, seg_len 192),
+    ``efficientdet_endpoint`` (D0 at 512) and ``maskrcnn_endpoint`` (R50-FPN
+    at 800); a few seeded requests sent at once to each (the images binary,
+    the rest JSON), each answer against the endpoint's function on that
+    request alone at the bucket its dispatch ran at, K1's launches against
+    the formula and 0 K1-K6 elsewhere, p50/p99 request latency and
+    ``device_ms``; NCF through ``strip_checkpoint`` and ``hub.load`` of the
+    repository, its answers the live model's; ``quartznet_streaming_server``
+    (QuartzNet-15x5) on 3 interleaved 4 s, 16 kHz streams: partials
+    prefixes of the final transcript, streams isolated, and the windowed
+    log-probabilities the full utterance's where the context covers it
 
 The phases run in this order: 1, then 19-22 while ``nvcc`` builds the
 kernels on the host's cores (phase 2, joined before phase 3), then 3-18 and
-23-29. The float64 CPU references of phases 19, 22, 23, 25, 28 and 29 run on a
+23-30. The float64 CPU references of phases 19, 22, 23, 25, 28 and 29 run on a
 host thread while the card runs the rest of their phase (19's beside 20), so
 the times that phases 20-22 print are taken with the host under load (they
 say so); each phase's seconds are printed before the kernels line.
@@ -204,12 +221,15 @@ and WaveGlow's training and the TTS pipeline in phase 22; the beam searches
 and each encoder-decoder run of phase 23; each CLI run of phase 24; each
 speech command, both speech endpoints and the CTC step of phase 25; each
 CLI run of phase 26; the mesh runs of phase 27 in their processes; each
-CLI run of phase 28 and each run of phase 29) runs with the launch counts
-set to 0 just before it
+CLI run of phase 28 and each run of phase 29; each endpoint's traffic and
+the streams of phase 30) runs with the launch counts set to 0 just before
+it
 and read just after; on the ConvNets, SSD300, TTS, GNMT, ``--attention-impl
-xla``, HiFi-GAN, Jasper, phase 28's and phase 29's synthetic paths every
-count must stay 0, on the
-Transformer and BART paths K1 and K2 must launch and K3-K6 must not,
+xla``, HiFi-GAN, Jasper, phase 28's and phase 29's synthetic paths and phase
+30's endpoints but BART's every count must stay 0, on the
+Transformer and BART paths K1 and K2 must launch and K3-K6 must not (BART's
+endpoint K1 alone, ``encoder_layers + decoder_layers x (targets - 1)`` a
+dispatch),
 FastPitch and wav2vec2 launch K1 12 and K2 12 + 12 times a step, and on
 phase 26's and 29's real-data paths the resample kernel launches once a
 batch and
@@ -331,6 +351,8 @@ from deeplearningexamples_tpu_torch.models.tts import (
 from deeplearningexamples_tpu_torch.models.asr import (
     JASPER_10x5DR,
     QUARTZNET_15x5,
+    JasperBlock,
+    JasperConfig,
     JasperTask,
     greedy_ctc_decode,
 )
@@ -395,7 +417,11 @@ from deeplearningexamples_tpu_torch.ops import flash_attention as fa
 from deeplearningexamples_tpu_torch.ops import fused_lamb as fused
 from deeplearningexamples_tpu_torch.ops import quantization as quant
 from deeplearningexamples_tpu_torch.ops.lamb import lamb
-from deeplearningexamples_tpu_torch.tools import profile_pretrain, profile_seq2seq
+from deeplearningexamples_tpu_torch.tools import (
+    profile_pretrain,
+    profile_seq2seq,
+    profile_serving,
+)
 from deeplearningexamples_tpu_torch.tools.dlrm_hotrow import flat_ids
 from deeplearningexamples_tpu_torch.utils.jax_bridge import bert_pretrain_jax_order
 from deeplearningexamples_tpu_torch.serving import (
@@ -404,6 +430,13 @@ from deeplearningexamples_tpu_torch.serving import (
     ModelEndpoint,
     http_infer,
 )
+from deeplearningexamples_tpu_torch import hub
+from deeplearningexamples_tpu_torch.core.checkpoint import CheckpointManager
+from deeplearningexamples_tpu_torch.models.tts.audio import (
+    MelConfig,
+    mel_spectrogram,
+)
+from deeplearningexamples_tpu_torch.utils.checkpoint_tools import strip_checkpoint
 
 SEED = 0
 DEV = "cuda:0"
@@ -817,7 +850,7 @@ def phase_serving(task, model) -> int:
 
     batcher = ContinuousBatcher(infer, batch_buckets=(1, 2, 4, 8),
                                 max_delay_s=0.005)
-    batcher.warmup(reqs[0])  # build and first launches off the dispatcher
+    batcher.warmup(reqs[0])  # builds and first launches before serving
     server = InferenceServer("127.0.0.1", 0)
     server.register(ModelEndpoint(
         name="bert_large_qa", batcher=batcher,
@@ -4765,7 +4798,7 @@ def _serve_speech(ep, reqs: list[dict]) -> tuple[list, int, dict]:
     """``reqs`` sent at once, binary, to ``ep`` behind the HTTP server, with
     the counts set to 0 just before: (answers, K1 launches, the batcher's
     stats)."""
-    ep.batcher.warmup(reqs[0])  # first launches off the dispatcher
+    ep.batcher.warmup(reqs[0])  # first launches before serving
     server = InferenceServer("127.0.0.1", 0)
     server.register(ep)
     server.start()
@@ -6466,6 +6499,316 @@ def phase_last_two() -> dict[str, int]:
     return total
 
 
+# -- phase 30 ----------------------------------------------------------------
+
+# Requests sent at once to each endpoint (3 to BART and Mask R-CNN, the
+# slowest dispatches; ``tools/profile_serving.served_endpoints`` builds them)
+SERVE_REQUESTS = 4
+# A served answer against the endpoint's function on that request alone,
+# padded with the batcher's zero rows to the bucket its dispatch ran at: the
+# same shapes run the same kernels and every row's result is its own, so
+# integers are equal and floats within this share of the largest entry
+TOL_SERVE_DIRECT = 1e-6
+# Where two best beams' tokens differ: their length-normalised scores by
+# float64 teacher forcing on the CPU (``_rescore64``), relative
+TOL_SERVE_RESCORE = 1e-4
+# The reference QuartzNet's features of 16 kHz audio: 20 ms windows, 10 ms
+# hops, a 512-point FFT, 64 mels
+STREAM_MEL = MelConfig(sampling_rate=16000, n_fft=512, hop_length=160,
+                       win_length=320, n_mels=64, fmax=8000.0)
+STREAM_SAMPLES, STREAM_IDS, STREAM_CHUNKS = 4 * 16000, 3, 8
+# ``tests/test_streaming_asr.py``'s Jasper and window (chunk, context), and
+# its limit on the windowed against the full-utterance log-probabilities,
+# absolute, where a window has its whole right context. The flush's last
+# (chunk + context) / stride frames differ by design (the full forward's
+# zero padding against a window's real frames past the end); the test's 0.5
+# there is a reading on its own weights, so here the tail is read, not held
+STREAM_EXACT_CFG = JasperConfig(n_mels=64, vocab_size=12, blocks=(
+    JasperBlock(1, 32, 5, 0.0, residual=False, stride=2),
+    JasperBlock(2, 32, 5, 0.0),
+    JasperBlock(1, 48, 1, 0.0, residual=False)))
+STREAM_EXACT_WINDOW = (16, 16)
+TOL_STREAM_EXACT = 1e-4
+
+
+def _row_key(inputs: dict) -> bytes:
+    return b"".join(np.ascontiguousarray(inputs[k]).tobytes()
+                    for k in sorted(inputs))
+
+
+def _spy_buckets(ep) -> dict:
+    """Wraps the batcher's model call to note the bucket each row ran at:
+    {row key: bucket}."""
+    seen: dict[bytes, int] = {}
+    fn = ep.batcher.infer_fn
+
+    def spy(batch):
+        b = next(iter(batch.values())).shape[0]
+        for i in range(b):
+            seen[_row_key({k: v[i] for k, v in batch.items()})] = b
+        return fn(batch)
+
+    ep.batcher.infer_fn = spy
+    return seen
+
+
+def _direct(ep, req: dict, bucket: int) -> dict:
+    """The endpoint's function on ``req`` alone, padded with the batcher's
+    zero rows to ``bucket``: row 0 of each output, numpy."""
+    batch = {k: np.concatenate([v[None], np.zeros((bucket - 1, *v.shape),
+                                                   v.dtype)])
+             for k, v in req.items()}
+    return {k: v[0] for k, v in ep.batcher._run(batch).items()}
+
+
+def _beams_tie(model, req: dict, got, want) -> bool:
+    """Two best beams of one request score within TOL_SERVE_RESCORE of
+    each other by float64 teacher forcing on the CPU."""
+    model64 = _float64(copy.deepcopy(model).cpu())
+    seqs = torch.from_numpy(np.stack([got, want]).astype(np.int64))[None]
+    scores = _rescore64(model64, req["src"][None].astype(np.int64), seqs, 2,
+                        model.cfg)[0]
+    return float((scores[0] - scores[1]).abs()) <= TOL_SERVE_RESCORE * float(
+        scores.abs().max())
+
+
+def _serve_one(server, ep, reqs, binary, per_dispatch, model) -> tuple:
+    """One endpoint's requests sent at once with the counts set to 0 just
+    before; each answer against the direct call at its bucket. Returns
+    (the line, the launches)."""
+    seen = _spy_buckets(ep)
+    ep.batcher.warmup(reqs[0])  # first launches before serving
+    seen.clear()
+    results, lat, errors = [None] * len(reqs), [0.0] * len(reqs), []
+
+    def client(i):
+        try:
+            t = time.perf_counter()
+            results[i] = http_infer(server.addr, ep.name, reqs[i],
+                                    binary=binary)["outputs"]
+            lat[i] = (time.perf_counter() - t) * 1e3
+        except Exception as e:  # noqa: BLE001 - re-raised below
+            errors.append(e)
+
+    ep.batcher.stats(reset=True)
+    threads = [threading.Thread(target=client, args=(i,))
+               for i in range(len(reqs))]
+    _reset_counts()  # this endpoint's traffic starts here
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    launched = _counts()
+    check(not any(t.is_alive() for t in threads), f"{ep.name}: hung")
+    if errors:
+        raise errors[0]
+    stats = ep.batcher.stats()
+    want = {**dict.fromkeys(launched, 0),
+            **{k: v * stats["dispatches"] for k, v in per_dispatch.items()}}
+    check(launched == want, f"{ep.name}: launched {launched}, want {want}")
+    worst, ties = 0.0, 0
+    for req, res in zip(reqs, results):
+        direct = _direct(ep, req, seen[_row_key(req)])
+        check(set(res) == set(direct) == set(ep.output_names),
+              f"{ep.name}: outputs {sorted(res)}")
+        for name, w in direct.items():
+            got = np.asarray(res[name], w.dtype)
+            check(got.shape == w.shape, f"{ep.name} {name}: {got.shape}")
+            if w.dtype.kind not in "biu":
+                top = max(float(np.abs(w).max()), 1e-30)
+                worst = max(worst, float(np.abs(got - w).max()) / top)
+            elif name == "tokens" and not np.array_equal(got, w):
+                check(_beams_tie(model, req, got, w),
+                      f"{ep.name}: best beams differ and do not tie")
+                ties += 1
+            else:
+                check(np.array_equal(got, w), f"{ep.name}: {name} differs")
+    check(worst <= TOL_SERVE_DIRECT, f"{ep.name}: served vs direct {worst}")
+    counts = ", ".join(f"{k} {v}" for k, v in launched.items() if v)
+    line = (f"{ep.name} ({len(reqs)} {'binary' if binary else 'JSON'}): "
+            f"latency p50 {np.percentile(lat, 50):.1f} p99 "
+            f"{np.percentile(lat, 99):.1f} ms, device_ms p50 "
+            f"{stats['device_ms_p50']:.1f}, {stats['dispatches']} dispatches "
+            f"(mean batch {stats['mean_batch']:.2f}), vs direct {worst:.1e}"
+            + (f", {ties} tied beams" if ties else "")
+            + f"; {counts or 'K1-K6 0'}")
+    return line, launched
+
+
+def _ncf_repository(ep, model, reqs) -> str:
+    """The live NCF model through a checkpoint, ``strip_checkpoint`` and
+    ``hub.load`` of the repository: its answers the live model's, bit for
+    bit."""
+    with tempfile.TemporaryDirectory() as tmp:
+        CheckpointManager(f"{tmp}/ckpt").save(
+            3, create_train_state(model, sgd(0.1), SEED))
+        other = NcfTask(model.cfg, torch.float32).init(
+            torch.Generator().manual_seed(SEED + 1), DEV)
+        strip_checkpoint(f"{tmp}/ckpt", create_train_state(other, sgd(0.1),
+                                                           SEED),
+                         f"{tmp}/repo", "ncf", ep.input_spec)
+        loaded = hub.load("ncf", pretrained=f"{tmp}/repo/ncf", device=DEV,
+                          cfg=model.cfg, dtype=torch.float32)
+    ep2 = speech_recipes.ncf_endpoint(NcfTask(model.cfg, torch.float32),
+                                      loaded, name="ncf_repository")
+    try:
+        for req in reqs:
+            a, b = _direct(ep, req, 1), _direct(ep2, req, 1)
+            check(all(np.array_equal(a[k], b[k]) for k in a),
+                  "ncf: the repository's answers differ from the live model's")
+    finally:
+        ep2.batcher.close()
+    return (f"ncf through strip_checkpoint and hub.load of the repository: "
+            f"{len(reqs)} answers equal to the live model's")
+
+
+def _receptive_field(cfg) -> int:
+    """Input frames one output frame of a Jasper/QuartzNet sees."""
+    rf, step = 1, 1
+    for blk in cfg.blocks:
+        rf += blk.repeats * (blk.kernel - 1) * blk.dilation * step
+        step *= blk.stride
+    return rf
+
+
+def _windowed(infer, mel: np.ndarray, chunk: int, context: int,
+              stride: int) -> np.ndarray:
+    """The log-probabilities the server's windows give (JAX's test's loop):
+    each chunk evaluated with ``context`` frames each side, the kept bands
+    concatenated."""
+    emitted, bands, t = 0, [], mel.shape[0]
+    while emitted < t:
+        take = min(chunk, t - emitted)
+        start = max(emitted - context, 0)
+        ctx = emitted - start
+        w = mel[start:min(emitted + take + context, t)]
+        pad = 2 * context + chunk - w.shape[0]
+        if pad > 0:
+            w = np.pad(w, ((0, pad), (0, 0)))
+        bands.append(infer(w[None])[0][ctx // stride:-(-(ctx + take)
+                                                       // stride)])
+        emitted += take
+    return np.concatenate(bands)
+
+
+def _stream_exact(audio: np.ndarray) -> str:
+    """``tests/test_streaming_asr.py``'s first check on the card, with its
+    small Jasper (stride 2, kernels of 5: a receptive field inside the
+    context) at its chunk and context: the windowed log-probabilities equal
+    the full utterance's where a window has its whole right context (the
+    flush's last frames read), and the server's transcript is their greedy
+    decode."""
+    task = JasperTask(STREAM_EXACT_CFG, torch.float32)
+    model = task.init(torch.Generator().manual_seed(SEED), DEV)
+    chunk, context = STREAM_EXACT_WINDOW
+    srv = speech_recipes.quartznet_streaming_server(
+        task, model, chunk_frames=chunk, context_frames=context,
+        mel_cfg=STREAM_MEL)
+    s = srv.time_stride
+    mel = mel_spectrogram(audio, STREAM_MEL).T
+    full = srv.infer_fn(mel[None])[0]
+    streamed = _windowed(srv.infer_fn, mel, chunk, context, s)
+    exact = (mel.shape[0] - chunk - context) // s
+    err = float(np.abs(streamed[:exact] - full[:exact]).max())
+    tail = float(np.abs(streamed[exact:] - full[exact:]).max())
+    check(streamed.shape == full.shape and err <= TOL_STREAM_EXACT
+          and np.isfinite(tail), f"windowed vs full utterance: {err}")
+    parts = np.array_split(audio, STREAM_CHUNKS)
+    for i, part in enumerate(parts):
+        r = srv.process_chunk(0, part, last=i == len(parts) - 1)
+    check(r["transcript"] == greedy_ctc_decode(streamed[None])[0],
+          "the server's transcript is not its windows' greedy decode")
+    return (f"the test's Jasper (receptive field "
+            f"{_receptive_field(task.cfg)} frames, chunk {chunk}, context "
+            f"{context}) on stream 0: windowed vs full {err:.1e} over "
+            f"{exact} frames, {tail:.1e} over the last {full.shape[0] - exact} "
+            f"(limit {TOL_STREAM_EXACT:.0e}, the tail read), transcript "
+            f"of {len(r['transcript'])} tokens the windows' greedy decode")
+
+
+def _streaming() -> str:
+    """30e: QuartzNet-15x5 behind ``quartznet_streaming_server`` at the
+    recipe's chunk and context, 3 interleaved streams: partials prefixes of
+    the final transcript, each stream equal to its run alone, K1-K6 0; its
+    windowed log-probabilities against the full utterance's (read, not held:
+    the receptive field is far wider than the context); then
+    ``_stream_exact``."""
+    task = JasperTask(QUARTZNET_15x5, torch.float32)
+    model = task.init(torch.Generator().manual_seed(SEED), DEV)
+    rng = np.random.default_rng(SEED + 31)
+    audio = [rng.normal(size=STREAM_SAMPLES).astype(np.float32) * 0.1
+             for _ in range(STREAM_IDS)]
+    parts = np.array_split(np.arange(STREAM_SAMPLES), STREAM_CHUNKS)
+    srv = speech_recipes.quartznet_streaming_server(task, model,
+                                                    mel_cfg=STREAM_MEL)
+    srv.infer_fn(np.zeros((1, 2 * srv.context_frames + srv.chunk_frames,
+                           task.cfg.n_mels), np.float32))  # first launches
+    prev, lat = [[] for _ in audio], []
+    _reset_counts()  # the streams start here
+    for i, part in enumerate(parts):
+        for c, a in enumerate(audio):
+            t = time.perf_counter()
+            r = srv.process_chunk(c, a[part], last=i == len(parts) - 1)
+            lat.append((time.perf_counter() - t) * 1e3)
+            check(r["transcript"][:len(prev[c])] == prev[c],
+                  f"stream {c}: a partial is no prefix of the next")
+            prev[c] = r["transcript"]
+    launched = _counts()
+    check(launched == dict.fromkeys(launched, 0),
+          f"streaming launched {launched}")
+    check(srv.active_streams == 0, "streams left open")
+    alone = speech_recipes.quartznet_streaming_server(task, model,
+                                                      mel_cfg=STREAM_MEL)
+    for c, a in enumerate(audio):
+        for i, part in enumerate(parts):
+            r = alone.process_chunk(c, a[part], last=i == len(parts) - 1)
+        check(r["transcript"] == prev[c], f"stream {c} differs from its run "
+              "alone")
+    mel = mel_spectrogram(audio[0], STREAM_MEL).T
+    full = srv.infer_fn(mel[None])[0]
+    off = float(np.abs(_windowed(srv.infer_fn, mel, srv.chunk_frames,
+                                 srv.context_frames, srv.time_stride)
+                       - full).max())
+    return (f"quartznet_streaming_server (QuartzNet-15x5, chunk "
+            f"{srv.chunk_frames}, context {srv.context_frames}), "
+            f"{STREAM_IDS} interleaved 4 s 16 kHz streams in {STREAM_CHUNKS} "
+            f"chunks: chunk latency p50 {np.percentile(lat, 50):.1f} p99 "
+            f"{np.percentile(lat, 99):.1f} ms, transcripts of "
+            f"{[len(p) for p in prev]} tokens, partials prefixes, each stream "
+            f"its run alone, K1-K6 0; its windows vs the full utterance "
+            f"{off:.2f} (receptive field {_receptive_field(task.cfg)} frames "
+            f"against {mel.shape[0]}); " + _stream_exact(audio[0]))
+
+
+def phase_serving_all() -> dict[str, int]:
+    """30: the nine recipes on the card; returns the launches of the
+    endpoints' traffic."""
+    t0 = time.perf_counter()
+    models = profile_serving.served_endpoints(DEV, SEED, SERVE_REQUESTS)
+    server = InferenceServer("127.0.0.1", 0)
+    for ep, *_ in models:
+        server.register(ep)
+    server.start()
+    lines, total = [], dict.fromkeys(_counts(), 0)
+    try:
+        for ep, reqs, binary, per_dispatch, model in models:
+            line, launched = _serve_one(server, ep, reqs, binary,
+                                        per_dispatch, model)
+            lines.append(line)
+            for k, v in launched.items():
+                total[k] += v
+            if ep.name == "ncf":
+                lines.append(_ncf_repository(ep, model, reqs))
+    finally:
+        server.stop()
+    del models
+    torch.cuda.empty_cache()
+    lines.append(_streaming())
+    say("30 serving", f"on {card()}, fp32, TF32 off: " + "; ".join(lines)
+        + f" ({time.perf_counter() - t0:.1f} s)")
+    return total
+
+
 # The float64 references of phases 23 and 25 run here, one at a time, while
 # the card runs the phase's other work (torch's CPU ops release the GIL)
 _HOST = concurrent.futures.ThreadPoolExecutor(1, thread_name_prefix="float64")
@@ -6609,6 +6952,9 @@ def main() -> None:
         for k, v in phase_last_two().items():  # counts set to 0 there
             launched[k] += v
         phase_last_two_parity(refs)
+    with _phase("30"):
+        for k, v in phase_serving_all().items():  # counts set to 0 there
+            launched[k] += v
     say("phases", "seconds: " + ", ".join(
         f"{k} {v:.1f}" for k, v in PHASE_SECONDS.items())
         + f"; all {time.perf_counter() - T_START:.1f}")

@@ -8,9 +8,11 @@ resolves each request's future with its row of every output. ``infer_fn``
 may return numpy arrays or tensors on any device; tensors are copied to the
 host, which also waits for the device.
 
-``max_delay_s`` bounds the latency added when traffic is sparse. A CUDA model
-is warmed up with ``warmup`` on the caller's thread, so that the kernels'
-build and first launches never run on the dispatcher thread.
+``max_delay_s`` bounds the latency added when traffic is sparse. ``warmup``
+runs one batch per bucket on the dispatcher thread before serving starts, so
+that the kernels' builds and first launches, and the per-thread handles the
+CUDA libraries make on a thread's first call (cuBLAS, cuDNN), are not paid
+by the first requests.
 """
 
 from __future__ import annotations
@@ -55,7 +57,9 @@ class ContinuousBatcher:
         self.buckets = sorted(batch_buckets)
         self.max_delay_s = max_delay_s
         self.pad_value = pad_value
-        self._q: queue.Queue[_Request | None] = queue.Queue()
+        # requests, warmups (run on this thread) and None (stop)
+        self._q: queue.Queue[_Request | Callable[[], None] | None] = \
+            queue.Queue()
         # latency decomposition: batcher wait = enqueue -> dispatch start;
         # device time = model call + copy of the outputs to the host.
         # Rolling per-dispatch records.
@@ -69,11 +73,21 @@ class ContinuousBatcher:
         return {k: _to_numpy(v) for k, v in dict(self.infer_fn(batch)).items()}
 
     def warmup(self, example_inputs: Arrays) -> None:
-        """Run one inference per batch bucket from the calling thread, so
-        that builds and first launches happen before serving starts."""
-        for b in self.buckets:
-            self._run({k: np.stack([np.asarray(x)] * b)
-                       for k, x in example_inputs.items()})
+        """Run one inference per batch bucket on the dispatcher thread and
+        wait for it; raises what the model call raised."""
+        done: Future = Future()
+
+        def run():
+            try:
+                for b in self.buckets:
+                    self._run({k: np.stack([np.asarray(x)] * b)
+                               for k, x in example_inputs.items()})
+                done.set_result(None)
+            except Exception as e:  # noqa: BLE001 - raised to the caller
+                done.set_exception(e)
+
+        self._q.put(run)
+        done.result()
 
     # -- client side -------------------------------------------------------
     def submit(self, inputs: Arrays) -> Future:
@@ -124,6 +138,9 @@ class ContinuousBatcher:
             req = self._q.get()
             if req is None:
                 break
+            if callable(req):  # a warmup
+                req()
+                continue
             batch = [req]
             deadline = time.perf_counter() + self.max_delay_s
             max_b = self.buckets[-1]
@@ -138,6 +155,9 @@ class ContinuousBatcher:
                 if nxt is None:
                     self._running = False
                     break
+                if callable(nxt):
+                    nxt()
+                    continue
                 batch.append(nxt)
             self._dispatch(batch)
 

@@ -47,7 +47,9 @@ for name in ("core.train", "core.flat", "core.loop", "core.checkpoint",
              "parallel.dist", "parallel.mesh", "parallel.zero",
              "data.timeseries", "models.ncf", "models.tft", "models.unet",
              "models.transformer_xl", "models.moflow", "models.maskrcnn",
-             "ops.se3", "models.se3_transformer"):
+             "ops.se3", "models.se3_transformer", "hub", "serving.export",
+             "serving.streaming_asr", "utils.checkpoint_tools",
+             "utils.profiling"):
     assert f"deeplearningexamples_tpu_torch.{name}" in names, name
 # importing builds and loads nothing: the data plane and the kernels are
 # built at first use
@@ -79,8 +81,10 @@ def test_port_imports_with_jax_blocked():
     # data plane (the host's C++ plane and the card's nvJPEG path and
     # resample kernel), GPUNet and EfficientDet, and NCF, TFT with its
     # time-series reader, the U-Nets, Transformer-XL and MoFlow, and Mask
-    # R-CNN and the SE(3)-Transformer with its equivariant basis
-    assert int(res.stdout.strip()) >= 112
+    # R-CNN and the SE(3)-Transformer with its equivariant basis, and the
+    # hub, the model repository, streaming ASR and the checkpoint and
+    # profiling tools
+    assert int(res.stdout.strip()) >= 117
 
 
 def test_chip_smoke_fails_without_a_card():

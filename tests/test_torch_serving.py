@@ -192,3 +192,33 @@ def test_predict_squad_matches_jax(tmp_path):
     context = DEV["data"][0]["paragraphs"][0]["context"]
     assert set(got) == {"q1", "q2", "q3"}
     assert all(text and text in context for text in got.values())
+
+
+def test_warmup_runs_every_bucket_on_the_dispatcher_thread():
+    """The per-thread handles CUDA's libraries make on a thread's first call
+    land on the thread that serves; a failed warmup raises to its caller."""
+    seen = []
+
+    def infer(batch):
+        seen.append((threading.current_thread(), len(batch["x"])))
+        if len(batch["x"]) > 2:
+            raise RuntimeError("too large")
+        return {"y": batch["x"] * 2}
+
+    batcher = ContinuousBatcher(infer, batch_buckets=(1, 2), max_delay_s=0.0)
+    try:
+        batcher.warmup({"x": np.ones(3, np.float32)})
+        assert [b for _, b in seen] == [1, 2]
+        assert {t for t, _ in seen} == {batcher._thread}
+        out = batcher.infer({"x": np.ones(3, np.float32)}, timeout=10)
+        np.testing.assert_array_equal(out["y"], np.full(3, 2.0))
+        assert seen[-1][0] is batcher._thread
+        assert batcher.stats()["dispatches"] == 1  # warmups are not counted
+        wide = ContinuousBatcher(infer, batch_buckets=(1, 4))
+        try:
+            with pytest.raises(RuntimeError, match="too large"):
+                wide.warmup({"x": np.ones(3, np.float32)})
+        finally:
+            wide.close()
+    finally:
+        batcher.close()
