@@ -84,8 +84,8 @@ and it imports nothing of JAX. Phases, one line each:
     with ``--resume``; the bf16 eval forward at B=128 and B=1 on CUDA events
     and on the host clock
 22. Tacotron2 + WaveGlow: one fp32 Tacotron2 step (full width, B=4, text
-    64, mel 96) and one fp32 WaveGlow step (full width, B=2, segment 8000,
-    every WN ``end`` randomised) on the card, TF32 off, every dropout at 0,
+    64, mel 48) and one fp32 WaveGlow step (full width, 8 of its 12 flows,
+    B=2, segment 8000, every WN ``end`` randomised) on the card, TF32 off, every dropout at 0,
     under clip + Adam, against the same steps on the CPU in float64, the
     bf16 steps the controls; WaveGlow's
     ``infer`` at sigma 0 card against CPU float64; ``tacotron2`` (B=128,
@@ -94,8 +94,8 @@ and it imports nothing of JAX. Phases, one line each:
     ``TTSPipeline`` from three sentences to wavs (800 decoder steps, the
     denoiser at 0.01), timed by part
 23. encoder-decoder: one fp32 step of Transformer-base (B=4, source 64
-    left-padded, target 64), bart-large (B=2, source 64, target 32) and
-    GNMT (B=2, 48) on the card, TF32 off, dropout 0, under the CLI's
+    left-padded, target 64), bart-large (2 + 2 of its layers, B=2, source
+    64, target 32) and GNMT (3 of its 4 layers, B=2, 24) on the card, TF32 off, dropout 0, under the CLI's
     optimizers, against the same steps on the CPU in float64, the bf16
     steps the controls; K1 and K2 against
     their plain versions at the slice's shapes (the encoder's masked
@@ -155,14 +155,14 @@ and it imports nothing of JAX. Phases, one line each:
     32-63 of bert-pretrain's B=64) against their plain versions and against
     the whole batch's launches bit for bit; 27a ``torchrun --nproc-per-node
     1`` (NCCL at world 1) runs ``bert-pretrain --mesh-data 1 --zero``
-    (BERT-Large, B=64 S=128, 3 steps: phase 10's losses) and ``dlrm
+    (BERT-Large, B=64 S=128, 2 steps: phase 10's losses) and ``dlrm
     --mesh-model 1`` (26 x 100,000 x 128, B=65,536), then, alone on the
     card once 27b has ended, their steps on CUDA events in turns with the
     same steps without a mesh; 27b, beside 27a's first steps, two ranks on
     the card over gloo (this script under ``torchrun --nproc-per-node 2``,
     ``DLX_DIST_BACKEND=gloo``) run ``bert-pretrain --mesh-data 2 --zero``,
     ``resnet50 --mesh-data 2`` (fp32, B=64 global) and ``dlrm --mesh-model
-    2``, 3 steps each, through the CLI's start-up and builders, each held
+    2``, 2 steps each, through the CLI's start-up and builders, each held
     against the one-rank run of the same global batch on rank 0 (losses,
     parameters in norm, BN running statistics), with each rank's optimizer
     state and table rows
@@ -205,10 +205,27 @@ and it imports nothing of JAX. Phases, one line each:
     (QuartzNet-15x5) on 3 interleaved 4 s, 16 kHz streams: partials
     prefixes of the final transcript, streams isolated, and the windowed
     log-probabilities the full utterance's where the context covers it
+31. the sequence axis, GPipe and MoE, two ranks on the card over gloo (this
+    script under ``torchrun --nproc-per-node 2``): 31a ``bert-pretrain
+    --phase2 --attention-impl ring --mesh-data 1 --mesh-sequence 2``
+    (BERT-Large, B=8 S=512, bf16, dropout on, lr 0.006, 3 steps) through
+    the CLI's start-up and builder, against the one-rank ``--attention-impl
+    flash`` run of the same seed and batches (K1/K2, the same dropout
+    masks): losses and parameters within limits, the two ranks' parameters
+    equal bit for bit, 0 K1-K6 launches, step times and peak memory per
+    rank; 31b ``ring_attention`` in fp32 at B=8 H=16 S=512 D=64 with a key
+    mask, contiguous and causal zigzag, with and without dropout, against
+    ``mha_reference``; 31c ``pipeline_apply`` with 2 stages of 12
+    BERT-Large layers, 4 microbatches of B=4 S=512, fp32, without and with
+    remat, against the stages run in turn, with peak memory; 31d
+    ``MoEFeedForward`` at Switch-Base-8's width (768, 3072, 8 experts,
+    capacity factor 1.25), top-1 and top-2 at B=8 T=512 fp32, against
+    ``moe_reference`` at T=128 and itself in float64 on the CPU at T=512,
+    and 4 experts a rank against the whole layer, forward and gradients
 
 The phases run in this order: 1, then 19-22 while ``nvcc`` builds the
 kernels on the host's cores (phase 2, joined before phase 3), then 3-18 and
-23-30. The float64 CPU references of phases 19, 22, 23, 25, 28 and 29 run on a
+23-31. The float64 CPU references of phases 19, 22, 23, 25, 28 and 29 run on a
 host thread while the card runs the rest of their phase (19's beside 20), so
 the times that phases 20-22 print are taken with the host under load (they
 say so); each phase's seconds are printed before the kernels line.
@@ -220,13 +237,13 @@ phase 20; SSD300's training, resume and inference in phase 21; Tacotron2's
 and WaveGlow's training and the TTS pipeline in phase 22; the beam searches
 and each encoder-decoder run of phase 23; each CLI run of phase 24; each
 speech command, both speech endpoints and the CTC step of phase 25; each
-CLI run of phase 26; the mesh runs of phase 27 in their processes; each
-CLI run of phase 28 and each run of phase 29; each endpoint's traffic and
-the streams of phase 30) runs with the launch counts set to 0 just before
-it
-and read just after; on the ConvNets, SSD300, TTS, GNMT, ``--attention-impl
-xla``, HiFi-GAN, Jasper, phase 28's and phase 29's synthetic paths and phase
-30's endpoints but BART's every count must stay 0, on the
+CLI run of phase 26; the mesh runs of phase 27 and 31 in their processes;
+each CLI run of phase 28 and each run of phase 29; each endpoint's traffic
+and the streams of phase 30) runs with the launch counts set to 0 just
+before it and read just after; on the ConvNets, SSD300, TTS, GNMT,
+``--attention-impl xla``, HiFi-GAN, Jasper, phase 28's and phase 29's
+synthetic paths, phase 30's endpoints but BART's and phase 31's ring,
+pipeline and MoE every count must stay 0, on the
 Transformer and BART paths K1 and K2 must launch and K3-K6 must not (BART's
 endpoint K1 alone, ``encoder_layers + decoder_layers x (targets - 1)`` a
 dispatch),
@@ -248,6 +265,8 @@ from __future__ import annotations
 import concurrent.futures
 import copy
 import dataclasses
+import hashlib
+import importlib
 import json
 import math
 import os
@@ -305,6 +324,7 @@ from deeplearningexamples_tpu_torch.models.bert import (
     BertSquadTask,
     predict_squad,
 )
+from deeplearningexamples_tpu_torch.models.bert.modeling import BertLayer
 from deeplearningexamples_tpu_torch.models.bert.task import init_bert_weights_
 from deeplearningexamples_tpu_torch.models.bert.distillation import (
     STUDENT_CONFIGS,
@@ -338,6 +358,7 @@ from deeplearningexamples_tpu_torch.models.tts import (
     Tacotron2,
     Tacotron2Task,
     TTSPipeline,
+    WaveGlowConfig,
     WaveGlowTask,
 )
 from deeplearningexamples_tpu_torch.models.tts.layers import (
@@ -417,6 +438,17 @@ from deeplearningexamples_tpu_torch.ops import flash_attention as fa
 from deeplearningexamples_tpu_torch.ops import fused_lamb as fused
 from deeplearningexamples_tpu_torch.ops import quantization as quant
 from deeplearningexamples_tpu_torch.ops.lamb import lamb
+from deeplearningexamples_tpu_torch.ops.moe import (
+    MoEConfig,
+    MoEFeedForward,
+    capacity as moe_capacity,
+    moe_reference,
+)
+from deeplearningexamples_tpu_torch.ops.ring_attention import ring_attention
+from deeplearningexamples_tpu_torch.parallel.pipeline import (
+    pipeline_apply,
+    stack_stage_params,
+)
 from deeplearningexamples_tpu_torch.tools import (
     profile_pretrain,
     profile_seq2seq,
@@ -3011,6 +3043,10 @@ WG_B, WG_STEPS, WG_LR = 10, 20, "1e-4"
 # the fp32 parity steps: Tacotron2 at B=4, text length 64, mel length 96;
 # WaveGlow at B=2, segment 8000
 T2_PARITY, WG_PARITY_B = (4, 64, 48), 2  # mel 96 before PR 12
+# 22b's WaveGlow at full width and 8 of its 12 flows (one early output, at
+# flow 4, as at 12): its float64 step and infer on the host set phase 22's
+# end, 40 s after the card's work (PR 18 run 8)
+WG_PARITY_FLOWS = 8
 # One fp32 step of each on the card (TF32 off) against the CPU in float64,
 # every dropout at 0, under clip + Adam: the loss to 1e-5 relative, the BN
 # running statistics to 1e-4 of each tensor's largest entry, each gradient
@@ -3073,7 +3109,9 @@ def _tts_init(name: str):
         model = Tacotron2Task(dtype=torch.float32).init(gen, "cpu")
         _redraw_bn(model, gen)
     else:
-        model = _randomise_end(WaveGlowTask(dtype=torch.float32).init(gen, "cpu"),
+        model = _randomise_end(WaveGlowTask(
+            WaveGlowConfig(n_flows=WG_PARITY_FLOWS),
+            dtype=torch.float32).init(gen, "cpu"),
                                gen)
     return _no_dropout(model)
 
@@ -3209,9 +3247,10 @@ def _tts_references() -> dict:
 
 
 def phase_tts_parity(refs: dict) -> None:
-    """22 a-b: one fp32 Tacotron2 step (B=4, text 64, mel 96) and one fp32
-    WaveGlow step (B=2, segment 8000) on the card against the CPU in
-    float64 (``refs``: ``_tts_references``), with bf16 controls; then
+    """22 a-b: one fp32 Tacotron2 step (B=4, text 64, mel 48) and one fp32
+    WaveGlow step (WG_PARITY_FLOWS flows, B=2, segment 8000) on the card
+    against the CPU in float64 (``refs``: ``_tts_references``), with bf16
+    controls; then
     WaveGlow's infer at sigma 0 on the card against the CPU in float64."""
     t0 = time.perf_counter()
     flags = (torch.backends.cudnn.benchmark, torch.backends.cudnn.deterministic)
@@ -3384,7 +3423,7 @@ TOL_S2S_UPDATE = (1e-4, 1e-4)
 S2S_PARITY = {  # (B, source, target, source lengths, target lengths)
     "transformer": (4, 64, 64, (64, 59, 47, 24), (64, 50, 37, 21)),
     "bart": (2, 64, 32, (64, 45), (32, 19)),
-    "gnmt": (2, 48, 48, (48, 30), (48, 25)),
+    "gnmt": (2, 24, 24, (24, 15), (24, 13)),  # 48 steps before PR 18
 }
 # 23b: K1/K2 against their plain versions at this slice's shapes (B, Sq, Sk,
 # H, causal, masked), with TOL and TOL_BWD; times for bf16. Every shape at
@@ -3435,9 +3474,11 @@ S2S_BART_EPOCHS = 24  # 40 before PR 12
 TOL_S2S_ROUGE_RESCORE = 3e-2
 S2S_GNMT_B, S2S_GNMT_STEPS = 128, 5
 S2S_DECODE = (4, 4, 1024, 64)  # B, beam, source, max_len
-# 23a's bart-large step at bart-large's width and 4 + 4 of its 12 + 12 layers
-# (the CPU's float64 step of all 24 took most of 23a's 72 s, PR 12 run 1)
-S2S_BART_PARITY_LAYERS = 4
+# 23a's bart-large step at bart-large's width and 2 + 2 of its 12 + 12 layers
+# (the CPU's float64 step of all 24 took most of 23a's 72 s, PR 12 run 1; 4 +
+# 4 still set phase 23's end on a slow host, PR 17: the bf16 control missed
+# the limits by 80-200x there)
+S2S_BART_PARITY_LAYERS = 2
 
 
 def _s2s_init(kind: str):
@@ -5407,7 +5448,8 @@ def phase_real_data() -> tuple[dict, int]:
 
 # -- phase 27 ----------------------------------------------------------------
 
-MESH_STEPS = 3
+MESH_STEPS = 2  # each run's checked steps (3 before PR 18)
+MESH_TURN_STEPS = 3  # 27a's timed turns, alone on the card after 27b
 MESH_OFFSET = 32  # a data rank's half of bert-pretrain's batch of 64
 # Two gloo ranks on the card against the one-rank run of the same global
 # batch, bf16: each rank's forward multiplies 32 rows where the one rank
@@ -5624,9 +5666,9 @@ def _mesh_child(which: str, names: list[str] | None = None) -> None:
         turns = {"ms": [], "ms_no_mesh": []}
         for _ in range(3):
             pmesh.reset_mesh()
-            turns["ms_no_mesh"] += _mesh_steps(run, cfg)[1][1:]
+            turns["ms_no_mesh"] += _mesh_steps(run, cfg, MESH_TURN_STEPS)[1][1:]
             pmesh.build_mesh(pmesh.MeshSpec(cfg.mesh_data, cfg.mesh_model))
-            turns["ms"] += _mesh_steps(run, cfg)[1][1:]
+            turns["ms"] += _mesh_steps(run, cfg, MESH_TURN_STEPS)[1][1:]
         sys.stdout.write("MESH " + json.dumps({**out, f"{name}_turns": turns})
                          + "\n")
         sys.stdout.flush()
@@ -6809,6 +6851,445 @@ def phase_serving_all() -> dict[str, int]:
     return total
 
 
+# -- phase 31 ----------------------------------------------------------------
+
+SEQ_STEPS = 3
+SEQ_B = 8  # bert-pretrain --phase2's batch here: S=512, 76 predictions
+# 31a: the ring run (two gloo ranks, --mesh-sequence 2) against the one-rank
+# --attention-impl flash run (K1/K2) of the same seed and batches on rank 0,
+# and against the one-rank ring run (--mesh-sequence 1: one block) on rank
+# 1, bf16: each loss relative to the one rank's, and ||p(ring) - p(one)||
+# over ||p(one) - p(before)||, as 27b reads its runs. The ring's blocks are
+# fp32 where K1 rounds P to bf16, and the third step at lr 0.006 jumps (to
+# about 15), so the flash run's limits are loose; the one-rank ring differs
+# only in how the online softmax splits the keys, but a bf16 model rounds
+# any difference to a bf16 step. Limits between the sound readings and those
+# of planted faults (scripts/ring_fault_check.py, NVIDIA H100 80GB HBM3, 700
+# W; deterministic, equal in three runs): sound loss 5.8e-4 / 3.2e-4 (flash /
+# one-rank ring), parameters 6.4% / 6.4% of their move; the ring's dropout on
+# local positions 1.6e-3 / 1.7e-3, 14.7% / 14.6%; a rank-seeded generator
+# 2.2e-3 / 4.6e-2, 52% / 92% (and the ranks' parameters differ)
+TOL_SEQ = {"loss": 1e-3, "param_of_move": 0.1,
+           "ring_loss": 8e-4, "ring_param_of_move": 0.1}
+RING_SHAPE = (8, 16, 512, 64)  # B, H, S, D: BERT-Large's attention at S=512
+# 31b, fp32, TF32 off, against mha_reference on one rank: the output's
+# largest difference, each gradient's over its largest entry
+TOL_RING = (1e-5, 1e-4)
+# a stage's layers, the microbatches, their rows and length
+PIPE_LAYERS, PIPE_M, PIPE_B, PIPE_S = 12, 4, 4, 512
+# 31c, fp32, TF32 off: the pipe's output and its stage's gradients against
+# the stages run one after another on the rank, each over its largest entry
+# (the gradients sum the microbatches in another order)
+TOL_PIPE = (1e-6, 1e-5)
+# 31d: Switch-Base-8's expert layer (Fedus et al. 2021, google/switch-base-8)
+MOE_WIDTH = dict(d_model=768, d_ff=3072, num_experts=8, capacity_factor=1.25)
+MOE_B, MOE_T, MOE_REF_T = 8, 512, 128
+# fp32, TF32 off, each over the largest entry: the layer against
+# moe_reference at T=128 and against itself in float64 on the CPU at T=512;
+# 4 experts a rank against all 8 on one, forward and gradients
+TOL_MOE = {"reference": 1e-5, "float64": 1e-5, "world": 1e-5}
+
+
+def _digest(model) -> str:
+    """A hash of the parameters' bytes: two ranks' models equal bit for
+    bit have the same."""
+    h = hashlib.blake2b()
+    for p in model.parameters():
+        h.update(p.detach().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _rel_max(a: torch.Tensor, b: torch.Tensor) -> float:
+    """The largest difference over ``b``'s largest entry."""
+    return max_err(a, b) / max(float(b.double().abs().max()), 1e-30)
+
+
+def _seq_cli(work: Path) -> dict:
+    """31a: ``bert-pretrain --phase2 --attention-impl ring --mesh-data 1
+    --mesh-sequence 2`` through the CLI's start-up and builder, SEQ_STEPS
+    steps on CUDA events; then, side by side, rank 0 the one-rank
+    ``--attention-impl flash`` run of the same seed and batches and rank 1
+    the one-rank ring run."""
+    cfg = cli_main.BertCliConfig(
+        bert_model="large", phase2=True, attention_impl="ring", mesh_data=1,
+        mesh_sequence=2, batch_size=SEQ_B, steps_per_epoch=10,
+        lr=float(PRETRAIN_LR), workspace=str(work), device=DEV)
+    cli_main._common_setup(cfg, "bert_pretrain")
+    m = pmesh.current_mesh()
+    run = cli_main.build_bert_pretrain(cfg)
+    first = _whole(run)
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()  # the ring's training path starts here
+    losses, ms = _mesh_steps(run, cfg, SEQ_STEPS)
+    torch.cuda.synchronize()
+    got = {"losses": losses, "ms": ms, "launched": _counts(),
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "shape": m.shape, "backend": torch.distributed.get_backend(),
+           "digest": _digest(run.state.model)}
+    # the one-rank runs of the same seed and batches, one a rank, side by
+    # side: rank 0 the flash path (K1/K2), rank 1 the ring on one block
+    params = _whole(run)
+    del run
+    torch.cuda.empty_cache()
+    pmesh.reset_mesh()
+    ref_cfg = dataclasses.replace(
+        cfg, attention_impl="flash" if m.is_primary else "ring",
+        mesh_sequence=1)
+    ref = cli_main.build_bert_pretrain(ref_cfg)
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    got["ref_losses"], got["ref_ms"] = _mesh_steps(ref, ref_cfg, SEQ_STEPS)
+    torch.cuda.synchronize()
+    got["ref_launched"] = _counts()
+    got["ref_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    want = _whole(ref)
+    got["param_diff"] = _norm(params, want)
+    got["param_move"] = _norm(first, want)
+    del ref, want, params, first
+    torch.cuda.empty_cache()
+    torch.distributed.barrier()
+    return got
+
+
+def _seq_ring_op() -> dict:
+    """31b: ``ring_attention`` on the sequence line at BERT-Large's shape,
+    fp32, a key mask, contiguous and causal zigzag, with and without
+    dropout; rank 0 holds each against ``mha_reference`` (forward, and the
+    gradients of ``sum(out * g)``)."""
+    m = pmesh.build_mesh(pmesh.MeshSpec(data=1, sequence=2))
+    gen = torch.Generator().manual_seed(SEED + 31)
+    b, h, s, d = RING_SHAPE
+    q, k, v, g = (torch.randn(RING_SHAPE, generator=gen).to(DEV)
+                  for _ in range(4))
+    lengths = torch.randint(s // 2, s + 1, (b,), generator=gen)
+    mask = (torch.arange(s)[None, :] < lengths[:, None]).to(torch.int32).to(DEV)
+    cases = {"contiguous": {}, "contiguous dropout 0.1": dict(
+                 dropout_rate=0.1, dropout_seed=-31),
+             "zigzag causal": dict(causal=True, zigzag=True),
+             "zigzag causal dropout 0.1": dict(causal=True, zigzag=True,
+                                               dropout_rate=0.1,
+                                               dropout_seed=-31)}
+    got = {}
+    for name, kw in cases.items():
+        qq, kk, vv = (t.clone().requires_grad_() for t in (q, k, v))
+        _reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = ring_attention(qq, kk, vv, mask, **kw)
+        (out * g).sum().backward()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        launched = _counts()
+        if m.is_primary:
+            rq, rk, rv = (t.clone().requires_grad_() for t in (q, k, v))
+            kw_ref = {key: val for key, val in kw.items() if key != "zigzag"}
+            ref = fa.mha_reference(rq, rk, rv, mask, **kw_ref)[0]
+            (ref * g).sum().backward()
+            got[name] = {"fwd": max_err(out, ref), "ms": ms,
+                         "launched": launched,
+                         "bwd": max(_rel_max(a.grad, r.grad) for a, r in
+                                    ((qq, rq), (kk, rk), (vv, rv)))}
+            del ref, rq, rk, rv
+        del out, qq, kk, vv
+    torch.cuda.empty_cache()
+    torch.distributed.barrier()
+    return got
+
+
+class _Trunk(torch.nn.Module):
+    """PIPE_LAYERS BERT-Large layers (plain attention, no dropout) on one
+    key mask: a pipeline stage."""
+
+    def __init__(self, key_mask: torch.Tensor):
+        super().__init__()
+        cfg = dataclasses.replace(BERT_CONFIGS["large"], attention_impl="xla")
+        self.layer = torch.nn.ModuleList(
+            BertLayer(cfg, torch.float32) for _ in range(PIPE_LAYERS))
+        self.key_mask = key_mask
+
+    def forward(self, x):
+        for layer in self.layer:
+            x = layer(x, self.key_mask)
+        return x
+
+
+def _seq_pipeline() -> dict:
+    """31c: ``pipeline_apply`` over the model axis, 2 stages of PIPE_LAYERS
+    BERT-Large layers, PIPE_M microbatches of PIPE_B x PIPE_S, fp32, remat off
+    and on: the output and this rank's stage's gradients of ``sum(y * g)``
+    against the stages run one after another (microbatch by microbatch),
+    the peak memory of each."""
+    m = pmesh.build_mesh(pmesh.MeshSpec(data=1, model=2))
+    st = m.index(pmesh.MODEL_AXIS)
+    gen = torch.Generator().manual_seed(SEED + 32)
+    hidden = BERT_CONFIGS["large"].hidden_size
+    mask = torch.ones(PIPE_B, PIPE_S, dtype=torch.int32)
+    mask[:, PIPE_S * 7 // 8:] = 0  # padding
+    trunks = []
+    dgen = torch.Generator(device=DEV).manual_seed(SEED + 32)
+    for _ in range(2):  # drawn on the card: the host draws 300M normals slowly
+        trunk = _Trunk(mask.to(DEV)).to(DEV)
+        init_bert_weights_(trunk, dgen, BERT_CONFIGS["large"].initializer_range)
+        trunks.append(trunk)
+    stacked = stack_stage_params([dict(t.named_parameters()) for t in trunks])
+    x = torch.randn(PIPE_M, PIPE_B, PIPE_S, hidden, generator=gen).to(DEV)
+    g = torch.randn(x.shape, generator=gen).to(DEV)
+    got: dict = {"stage": st}
+    outs = {}
+    for remat in (False, True):
+        key = "remat" if remat else "plain"
+        got[key] = {"ms": [], "launched": dict.fromkeys(_counts(), 0)}
+        for _ in range(2):  # the first call pays for first uses (kernels, imports)
+            params = {k: v.clone().requires_grad_() for k, v in stacked.items()}
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            _reset_counts()
+            t0 = time.perf_counter()
+            y = pipeline_apply(trunks[0], params, x, remat=remat)
+            (y * g).sum().backward()
+            torch.cuda.synchronize()
+            got[key]["ms"].append((time.perf_counter() - t0) * 1e3)
+            got[key]["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+            for k, v in _counts().items():
+                got[key]["launched"][k] += v
+            outs[key] = (y.detach(), {k: p.grad[st] for k, p in params.items()})
+            del params, y
+            torch.cuda.empty_cache()
+    seq = {k: v.clone().requires_grad_() for k, v in stacked.items()}
+    ys = []
+    for mb in range(PIPE_M):  # the stages one after another
+        h = x[mb]
+        for s in range(2):
+            h = torch.func.functional_call(
+                trunks[0], {k: v[s] for k, v in seq.items()}, (h,))
+        (h * g[mb]).sum().backward()
+        ys.append(h.detach())
+    want_y = torch.stack(ys)
+    for key, (y, grads) in outs.items():
+        got[key]["fwd"] = _rel_max(y, want_y)
+        got[key]["bwd"] = max(_rel_max(grads[k], seq[k].grad[st])
+                              for k in grads)
+    del seq, ys, outs, trunks, stacked
+    torch.cuda.empty_cache()
+    torch.distributed.barrier()
+    return got
+
+
+def _moe_grads(layer, x) -> tuple:
+    xg = x.clone().requires_grad_()
+    y, aux = layer(xg)
+    ((y ** 2).mean() + 0.01 * aux).backward()
+    return y.detach(), float(aux.detach()), xg.grad, {
+        n: p.grad for n, p in layer.named_parameters()}
+
+
+def _seq_moe() -> dict:
+    """31d: ``MoEFeedForward`` at Switch-Base-8's width, top-1 and top-2,
+    B=MOE_B T=MOE_T, fp32: the whole layer on one rank (rank r holds the
+    top-(r+1) layer against ``moe_reference`` at T=MOE_REF_T and against
+    itself in float64 on the CPU), then 4 experts a rank on the model axis
+    against it, forward and the gradients of ``mean(y^2) + 0.01 aux``."""
+    rank = pmesh.current_mesh().rank
+    gen = torch.Generator().manual_seed(SEED + 33)
+    x = torch.randn(MOE_B, MOE_T, MOE_WIDTH["d_model"], generator=gen)
+    xd = x.to(DEV)
+    got = {}
+    for k in (1, 2):
+        cfg = MoEConfig(**MOE_WIDTH, router_top_k=k)
+        pmesh.reset_mesh()
+        whole = MoEFeedForward(cfg, generator=torch.Generator().manual_seed(
+            SEED + 34)).to(DEV)
+        r: dict = {"capacity": moe_capacity(cfg, MOE_T)}
+        if rank == k - 1:
+            with torch.no_grad():
+                y = whole(xd)[0]
+                short = xd[:, :MOE_REF_T]
+                r["reference"] = _rel_max(whole(short)[0], moe_reference(
+                    dict(whole.named_parameters()), short, cfg))
+                layer64 = copy.deepcopy(whole).to("cpu", torch.float64)
+                y64 = layer64(x.double())[0]
+                r["float64"] = _rel_max(y.cpu().double(), y64)
+                del layer64, y64, y
+        _reset_counts()
+        y1, aux1, dx1, g1 = _moe_grads(whole, xd)
+        m = pmesh.build_mesh(pmesh.MeshSpec(data=1, model=2))
+        part = MoEFeedForward(cfg, generator=torch.Generator().manual_seed(
+            SEED + 34)).to(DEV)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        y2, aux2, dx2, g2 = _moe_grads(part, xd)
+        torch.cuda.synchronize()
+        r["ms"] = (time.perf_counter() - t0) * 1e3
+        r["launched"] = _counts()
+        r["experts"] = part.wi.shape[0]
+        r["world"] = max(
+            _rel_max(y2, y1), abs(aux2 - aux1) / abs(aux1), _rel_max(dx2, dx1),
+            _rel_max(g2["router.weight"], g1["router.weight"]),
+            *(_rel_max(g2[n], g1[n][part.lo:part.hi]) for n in ("wi", "wo")))
+        got[f"top{k}"] = r
+        del whole, part, g1, g2
+        torch.distributed.barrier(m.groups[pmesh.MODEL_AXIS])
+    torch.cuda.empty_cache()
+    return got
+
+
+def _seq_child(names: list[str] | None = None) -> None:
+    """A rank of phase 31 (two ranks on the card over gloo, this script
+    under ``torchrun --nproc-per-node 2``): prints one ``MESH {...}`` line a
+    part (``names``: these of a, b, c, d only)."""
+    torch.backends.cuda.matmul.allow_tf32 = False  # as phase_device sets
+    torch.backends.cudnn.allow_tf32 = False
+    # the first torch.utils.checkpoint and the first autograd.grad with a
+    # cotangent import torch's compiler stack (torch._dynamo, DTensor,
+    # sympy), about 10 s a process on the card's host: on a thread of its
+    # own while 31a trains
+    threading.Thread(target=lambda: [importlib.import_module(m) for m in (
+        "torch._dynamo", "torch.distributed.tensor")], daemon=True).start()
+    work = Path(tempfile.mkdtemp(prefix="seq_"))
+    out = {"rank": int(os.environ.get("RANK", 0))}
+    parts = {"a": lambda: _seq_cli(work), "b": _seq_ring_op,
+             "c": _seq_pipeline, "d": _seq_moe}
+    for name in names or list(parts):
+        t0 = time.perf_counter()
+        got = parts[name]()
+        got["seconds"] = time.perf_counter() - t0
+        sys.stdout.write("MESH " + json.dumps({**out, name: got}) + "\n")
+        sys.stdout.flush()
+    shutil.rmtree(work, ignore_errors=True)
+    torch.distributed.destroy_process_group()
+
+
+def phase_sequence() -> None:
+    """31: the sequence axis, GPipe and MoE over two gloo ranks on the card
+    (one ``torchrun --nproc-per-node 2`` of this script's ``--mesh 31``):
+    31a ``bert-pretrain --phase2 --attention-impl ring --mesh-sequence 2``
+    against the one-rank flash run, 31b the ring op against
+    ``mha_reference``, 31c ``pipeline_apply`` against the stages in turn,
+    31d the expert-parallel ``MoEFeedForward`` against the whole layer. No
+    K1-K6 launch on any of their paths."""
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    # four host threads a rank (torchrun's default is one): the ranks draw
+    # BERT-Large's weights on the host and run 31d's float64 layer there
+    proc = _torchrun("31", 2, DLX_DIST_BACKEND="gloo", OMP_NUM_THREADS="4")
+    try:
+        r0, r1 = _ranks("31", proc, 2, 900)
+    finally:  # neither the launcher nor its ranks outlive the phase
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+    none = dict.fromkeys(_counts(), 0)
+    fails: list[str] = []  # every reading is printed before a check fails
+
+    def want(ok: bool, what: str) -> None:
+        if not ok:
+            fails.append(what)
+
+    a = r0["a"]
+    want(a["backend"] == "gloo" and a["shape"] == {"data": 1, "model": 1,
+                                                   "sequence": 2},
+         f"31a: {a['backend']} on {a['shape']}")
+    want(r0["a"]["losses"] == r1["a"]["losses"]
+         and r0["a"]["digest"] == r1["a"]["digest"],
+         f"31a: the sequence ranks differ: losses {r0['a']['losses']} "
+         f"{r1['a']['losses']}, parameters {r0['a']['digest'][:16]} "
+         f"{r1['a']['digest'][:16]}")
+    want(a["launched"] == none and r1["a"]["launched"] == none,
+         f"31a: the ring run launched {a['launched']}")
+    want(a["ref_launched"]["flash_fwd"] == LAYERS * SEQ_STEPS
+         and r1["a"]["ref_launched"] == none,
+         f"31a: the one-rank runs launched {a['ref_launched']}, "
+         f"{r1['a']['ref_launched']}")
+    (loss, of_move), (ring_loss, ring_of_move) = (
+        (max(abs(x - y) / abs(y) for x, y in zip(r["losses"], r["ref_losses"])),
+         r["param_diff"] / r["param_move"]) for r in (a, r1["a"]))
+    want(loss <= TOL_SEQ["loss"] and of_move <= TOL_SEQ["param_of_move"],
+         f"31a: losses {a['losses']} vs flash {a['ref_losses']} ({loss:.3e}),"
+         f" parameters {of_move:.3e} of their move")
+    want(ring_loss <= TOL_SEQ["ring_loss"]
+         and ring_of_move <= TOL_SEQ["ring_param_of_move"],
+         f"31a: losses {a['losses']} vs the one-rank ring's "
+         f"{r1['a']['ref_losses']} ({ring_loss:.3e}), parameters "
+         f"{ring_of_move:.3e} of their move")
+    lines = [
+        f"31a bert-pretrain --phase2 --attention-impl ring --mesh-data 1 "
+        f"--mesh-sequence 2 (BERT-Large, B={SEQ_B} S=512, bf16, dropout 0.1, "
+        f"lr {PRETRAIN_LR}): losses " + " ".join(f"{x:.4f}" for x in a["losses"])
+        + " vs one-rank flash " + " ".join(f"{x:.4f}" for x in a["ref_losses"])
+        + f" ({loss:.3e} relative, within {TOL_SEQ['loss']}); parameters "
+        f"{of_move:.3e} of their move apart (within "
+        f"{TOL_SEQ['param_of_move']}); against the one-rank ring "
+        + " ".join(f"{x:.4f}" for x in r1["a"]["ref_losses"])
+        + f" {ring_loss:.3e} and {ring_of_move:.3e} (within "
+        f"{TOL_SEQ['ring_loss']}, {TOL_SEQ['ring_param_of_move']}); the two "
+        "ranks' parameters equal bit for bit; step "
+        f"{_median_ms(a['ms']):.1f} ms on CUDA events (one-rank flash "
+        f"{_median_ms(a['ref_ms']):.1f} ms, one-rank ring "
+        f"{_median_ms(r1['a']['ref_ms']):.1f} ms, beside each other); peak "
+        f"{a['peak_gb']:.2f} GB on rank 0, {r1['a']['peak_gb']:.2f} GB on "
+        f"rank 1 (one-rank flash {a['ref_peak_gb']:.2f} GB, ring "
+        f"{r1['a']['ref_peak_gb']:.2f} GB); K1-K6 0 launches "
+        f"({a['seconds']:.1f} s)"]
+    parts = []
+    for name, c in r0["b"].items():
+        if name == "seconds":
+            continue
+        want(c["fwd"] <= TOL_RING[0] and c["bwd"] <= TOL_RING[1]
+             and c["launched"] == none,
+             f"31b {name}: forward {c['fwd']:.3e}, gradients {c['bwd']:.3e}"
+             f", launches {c['launched']}")
+        parts.append(f"{name} {c['fwd']:.2e} / {c['bwd']:.2e} "
+                     f"({c['ms']:.1f} ms)")
+    lines.append(f"31b ring_attention fp32 B, H, S, D = {RING_SHAPE} masked, "
+                 "forward / gradients against mha_reference on rank 0 (limits "
+                 f"{TOL_RING}), fwd+bwd ms on the host clock: "
+                 + ", ".join(parts) + f" ({r0['b']['seconds']:.1f} s)")
+    parts = []
+    for r in (r0, r1):
+        c = r["c"]
+        for key in ("plain", "remat"):
+            want(c[key]["fwd"] <= TOL_PIPE[0] and c[key]["bwd"] <= TOL_PIPE[1]
+                 and c[key]["launched"] == none,
+                 f"31c stage {c['stage']} {key}: forward {c[key]['fwd']:.3e},"
+                 f" gradients {c[key]['bwd']:.3e}, {c[key]['launched']}")
+        parts.append(f"stage {c['stage']}: forward {c['plain']['fwd']:.2e} / "
+                     f"{c['remat']['fwd']:.2e}, gradients "
+                     f"{c['plain']['bwd']:.2e} / {c['remat']['bwd']:.2e}, "
+                     f"fwd+bwd {c['plain']['ms'][1]:.0f} / "
+                     f"{c['remat']['ms'][1]:.0f} ms (first calls "
+                     f"{c['plain']['ms'][0]:.0f} / {c['remat']['ms'][0]:.0f}),"
+                     f" peak {c['plain']['peak_gb']:.2f} / "
+                     f"{c['remat']['peak_gb']:.2f} GB")
+    lines.append(f"31c pipeline_apply 2 stages x {PIPE_LAYERS} BERT-Large "
+                 f"layers, M={PIPE_M} of B={PIPE_B} S={PIPE_S}, fp32, without / "
+                 "with remat, against the stages in turn (limits "
+                 f"{TOL_PIPE}): " + "; ".join(parts)
+                 + f" ({r0['c']['seconds']:.1f} s)")
+    parts = []
+    for k in (1, 2):
+        own = (r0, r1)[k - 1]["d"][f"top{k}"]
+        for r in (r0, r1):
+            c = r["d"][f"top{k}"]
+            want(c["world"] <= TOL_MOE["world"] and c["experts"] == 4
+                 and c["launched"] == none,
+                 f"31d top-{k}: world 2 {c['world']:.3e}, "
+                 f"{c['experts']} experts, {c['launched']}")
+        want(own["reference"] <= TOL_MOE["reference"]
+             and own["float64"] <= TOL_MOE["float64"],
+             f"31d top-{k}: reference {own['reference']:.3e}, float64 "
+             f"{own['float64']:.3e}")
+        parts.append(f"top-{k} (capacity {own['capacity']}): moe_reference "
+                     f"{own['reference']:.2e}, float64 {own['float64']:.2e}, "
+                     f"world 2 {max(r['d'][f'top{k}']['world'] for r in (r0, r1)):.2e}"
+                     f", fwd+bwd {r0['d'][f'top{k}']['ms']:.1f} ms")
+    lines.append(f"31d MoEFeedForward {MOE_WIDTH}, B={MOE_B} T={MOE_T} fp32, "
+                 "4 experts a rank (limits " + str(TOL_MOE) + "): "
+                 + "; ".join(parts) + f" ({r0['d']['seconds']:.1f} s)")
+    say("31 sequence, pipeline, MoE", f"two gloo ranks on {card()}: "
+        + "; ".join(lines) + f"; {time.perf_counter() - t0:.1f} s")
+    check(not fails, "31: " + "; ".join(fails))
+
+
 # The float64 references of phases 23 and 25 run here, one at a time, while
 # the card runs the phase's other work (torch's CPU ops release the GIL)
 _HOST = concurrent.futures.ThreadPoolExecutor(1, thread_name_prefix="float64")
@@ -6955,6 +7436,8 @@ def main() -> None:
     with _phase("30"):
         for k, v in phase_serving_all().items():  # counts set to 0 there
             launched[k] += v
+    with _phase("31"):
+        phase_sequence()  # its paths launch no K1-K6 (checked there)
     say("phases", "seconds: " + ", ".join(
         f"{k} {v:.1f}" for k, v in PHASE_SECONDS.items())
         + f"; all {time.perf_counter() - T_START:.1f}")
@@ -7004,7 +7487,9 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    if sys.argv[1:2] == ["--mesh"]:  # a rank of phase 27, under torchrun
+    if sys.argv[1:3] == ["--mesh", "31"]:  # a rank of phase 31, under torchrun
+        _seq_child(sys.argv[3:])
+    elif sys.argv[1:2] == ["--mesh"]:  # a rank of phase 27, under torchrun
         _mesh_child(sys.argv[2], sys.argv[3:])
     else:
         main()

@@ -34,18 +34,22 @@ on its rows of it, and a step computes what JAX's program computes on the
 global batch. The BERT commands, ``dlrm`` (``--mesh-model`` row-shards its
 table), the ConvNets, the GPUNets and ``ssd300`` take the data and model
 axes (a command that does not shard over the model axis replicates over it);
-``bert-pretrain`` takes ``--zero`` (ZeRO-1). Only rank 0 logs and writes
-checkpoints.
+``bert-pretrain`` takes ``--zero`` (ZeRO-1) and the sequence axis:
+``--attention-impl ring --mesh-sequence N`` splits each layer's attention
+over the N ranks of a sequence line (``ops/ring_attention.py``), which hold
+the same rows of the batch, draw the same dropout masks and keep the same
+parameters (``--mesh-sequence N`` with ``flash`` or ``xla`` repeats the
+same work on each, as in JAX). Only rank 0 logs and writes checkpoints.
 
 Flags whose machinery is not ported yet exit with a message that says so,
-rather than being ignored: ``--mesh-sequence`` above 1 (ring attention)
-everywhere; for ``efficientdet``, ``tacotron2``, ``waveglow``,
+rather than being ignored: ``--mesh-sequence`` above 1 for every command
+but ``bert-pretrain``; for ``efficientdet``, ``tacotron2``, ``waveglow``,
 ``transformer``, ``bart``, ``gnmt``, the speech commands, ``ncf``, ``tft``,
 ``nnunet``, ``transformer-xl``, ``moflow``, ``maskrcnn`` and
 ``se3-transformer`` any mesh of more than one rank (their global loss denominators and BN statistics wait);
 for ``ssd300``, ``efficientdet`` and ``maskrcnn`` a ``--data-backend`` other than
-synthetic and coco; for ``bert-pretrain`` ``--attention-impl ring`` and
-``--zero`` with ``--flat-lamb``; for the fine-tuning commands an
+synthetic and coco; for ``bert-pretrain`` ``--zero`` with
+``--flat-lamb``; for the fine-tuning commands an
 ``--init-checkpoint`` in TF format. argparse refuses ``--zero`` for the
 fine-tuning commands, which ``dlx-train`` does not give them either.
 
@@ -191,15 +195,12 @@ def _unported(model: str, todo: list[tuple[bool, str]]) -> None:
                              "PyTorch package yet (see ROADMAP.md)")
 
 
-_NO_SEQUENCE = "--mesh-sequence above 1 (ring attention)"
+_NO_SEQUENCE = ("--mesh-sequence above 1 (the sequence axis; bert-pretrain "
+                "takes it)")
 
 
 def _unported_bert(cfg: BertCliConfig) -> None:
     _unported("bert-pretrain", [
-        (cfg.attention_impl not in ("flash", "xla"),
-         f"--attention-impl {cfg.attention_impl} (flash and xla are "
-         "ported)"),
-        (cfg.mesh_sequence != 1, _NO_SEQUENCE),
         (cfg.data_backend not in ("synthetic", "corpus"),
          f"--data-backend {cfg.data_backend} (synthetic and corpus are "
          "ported)"),
@@ -564,9 +565,9 @@ def build_bert_pretrain(cfg: BertCliConfig) -> BertPretrainRun:
     """The model, optimizer, state, step and loaders of ``bert-pretrain``:
     synthetic batches, or with ``--data-backend corpus`` a tokenized corpus
     (``_corpus_loaders``; ``--binned`` bins only its batches, as in JAX);
-    ``--remat`` checkpoints each encoder layer (recomputed whole) and
-    ``--attention-impl xla`` runs attention in plain ops, as JAX's config
-    fields do."""
+    ``--remat`` checkpoints each encoder layer (recomputed whole),
+    ``--attention-impl xla`` runs attention in plain ops and ``ring`` over
+    the mesh's sequence axis, as JAX's config fields do."""
     from ..data.synthetic import SyntheticBertLoader
     from ..models.bert import BERT_CONFIGS, BertPretrainTask
     from ..ops.lamb import lamb

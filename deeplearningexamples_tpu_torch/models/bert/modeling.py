@@ -25,10 +25,13 @@ attention output, FFN output) through ``ops.dropout``, and attention-
 probability dropout inside the flash kernel with a fresh int32 seed per call,
 both drawn from that generator.
 
-``BertConfig.attention_impl`` is ``"flash"`` (K1/K2, the default) or
+``BertConfig.attention_impl`` is ``"flash"`` (K1/K2, the default),
 ``"xla"`` (JAX's plain path, in plain torch ops: fp32 scores, -1e9 masking,
 softmax, ``RegenDropout`` on the probabilities, the PV product in the
-compute dtype). ``remat`` checkpoints each ``BertLayer`` while gradients are
+compute dtype) or ``"ring"`` (``ops.ring_attention`` over the current mesh's
+sequence axis, on the (B,H,S,D) transposes of q, k and v; its dropout seed
+comes from the generator as the flash path's does, and for one seed its
+keep mask is K1's). ``remat`` checkpoints each ``BertLayer`` while gradients are
 on and recomputes the whole layer in the backward (JAX's
 ``remat_policy="full"``; JAX's default "dots" is not kept, see ROADMAP). The
 recompute replays the layer's dropout seeds from a copy of the generator's
@@ -48,6 +51,7 @@ from torch import nn
 
 from ...ops.dropout import RegenDropout, regen_dropout
 from ...ops.flash_attention import flash_attention
+from ...ops.ring_attention import ring_attention
 from ...parallel.mesh import data_rows
 
 __all__ = [
@@ -156,10 +160,15 @@ class BertEmbeddings(nn.Module):
     def forward(self, input_ids, token_type_ids, generator=None):
         dt = self.compute_dtype or self.word_embeddings.weight.dtype
         pos = torch.arange(input_ids.shape[-1], device=input_ids.device)
-        # each lookup in the compute dtype, then summed in it, as flax Embed
-        x = (self.word_embeddings(input_ids).to(dt)
-             + self.position_embeddings(pos).to(dt)
-             + self.token_type_embeddings(token_type_ids).to(dt))
+        # each lookup in the compute dtype, then summed in it, as flax Embed.
+        # The lookups index the tables, whose backward on the card sums each
+        # row's cotangents in the order of the sorted indices; nn.Embedding's
+        # gave the token types' two rows (thousands of cotangents each) bits
+        # that differed between two processes on the same inputs, and the
+        # ranks of a sequence line must end a step with equal parameters
+        x = (self.word_embeddings.weight[input_ids].to(dt)
+             + self.position_embeddings.weight[pos].to(dt)
+             + self.token_type_embeddings.weight[token_type_ids].to(dt))
         return self.dropout(self.LayerNorm(x), generator)
 
 
@@ -175,9 +184,9 @@ class BertSelfAttention(nn.Module):
 
     def __init__(self, cfg: BertConfig, dtype: torch.dtype | None = None):
         super().__init__()
-        if cfg.attention_impl not in ("flash", "xla"):
-            raise ValueError(f"attention_impl {cfg.attention_impl!r} is not "
-                             "ported (flash or xla)")
+        if cfg.attention_impl not in ("flash", "xla", "ring"):
+            raise ValueError(f"attention_impl {cfg.attention_impl!r}: flash, "
+                             "xla or ring")
         self.num_heads, self.head_dim = cfg.num_heads, cfg.head_dim
         self.attention_dropout = cfg.attention_dropout
         self.impl = cfg.attention_impl
@@ -194,6 +203,11 @@ class BertSelfAttention(nn.Module):
         rate, seed = 0.0, 0
         if generator is not None and self.attention_dropout > 0.0:
             rate, seed = self.attention_dropout, attention_seed(generator)
+        if self.impl == "ring":
+            ctx = ring_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                 v.transpose(1, 2), key_mask=key_mask,
+                                 dropout_rate=rate, dropout_seed=seed)
+            return ctx.transpose(1, 2).reshape(b, s, hidden)
         # the hash's batch row is the global one under a data axis
         ctx = flash_attention(q, k, v, key_mask=key_mask, layout="bshd",
                               dropout_rate=rate, dropout_seed=seed,

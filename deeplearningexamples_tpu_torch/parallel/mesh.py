@@ -26,7 +26,22 @@ the data axis): its backward sums the cotangents too. ``sum_partials`` sums
 partial results that every rank then consumes alike (DLRM's lookup, whose
 MLPs and loss are replicated over the model axis): each rank already holds
 the whole cotangent, so its backward is the identity; a summing backward
-would make the table's gradient N times too large.
+would make the table's gradient N times too large. ``sum_cotangents`` is its
+transpose: the identity forward of a replicated value that each rank
+consumes in part (MoE's tokens into the rank's experts), whose backward sums
+the partial cotangents.
+
+The sequence axis and the pipeline move tensors between neighbours:
+``ppermute`` is JAX's ``lax.ppermute`` (each rank sends to its destination
+under a permutation of the axis and receives from its source; a rank that
+is no destination receives zeros), and its backward sends the cotangent
+along the inverse permutation. ``shard_along`` takes this rank's block of a
+replicated tensor (its backward gathers the blocks' cotangents, JAX's
+transpose of a ``shard_map`` input) and ``gather_along`` gathers the ranks'
+blocks (its backward keeps this rank's block). Each of these takes several
+tensors in one call and runs one collective for all of them, in the forward
+and in the backward, so that every rank runs the same collectives in the
+same order whatever order autograd visits independent nodes in.
 """
 
 from __future__ import annotations
@@ -43,9 +58,10 @@ __all__ = [
     "all_gather_rows", "all_reduce_", "all_reduce_mean_", "batch_positions",
     "build_mesh", "check_batch_split",
     "current_mesh", "data_mean", "data_rows", "gather_data_rows",
-    "gather_objects", "global_flip", "gather_sharded",
-    "mark_sharded", "mean_over_data", "rank_rows", "reset_mesh",
-    "shard_batch", "shard_rows_of", "sum_over_ranks", "sum_partials",
+    "gather_along", "gather_objects", "global_flip", "gather_sharded",
+    "mark_sharded", "mean_over_data", "ppermute", "rank_rows", "reset_mesh",
+    "shard_along", "shard_batch", "shard_rows_of", "sum_cotangents",
+    "sum_over_ranks", "sum_partials",
 ]
 
 DATA_AXIS = "data"
@@ -106,6 +122,12 @@ class Mesh:
     def is_primary(self) -> bool:
         """Rank 0: the one that logs and writes checkpoints."""
         return self.rank == 0
+
+    def rank_at(self, axis: str, index: int) -> int:
+        """The global rank at ``index`` on ``axis`` of this rank's line."""
+        coords = {**self.coords, axis: index}
+        return ((coords[DATA_AXIS] * self.shape[MODEL_AXIS]
+                 + coords[MODEL_AXIS]) * self.shape[SEQ_AXIS] + coords[SEQ_AXIS])
 
 
 _ONE = Mesh((1, 1, 1))
@@ -236,18 +258,20 @@ def shard_batch(batch: Mapping[str, Any], accum_steps: int = 1) -> dict:
 # ---------------------------------------------------------------------------
 
 
-_PINNED: dict = {}  # dtype -> the pinned host buffer gloo's staging reuses
+# (dtype, slot) -> the pinned host buffer gloo's staging reuses
+_PINNED: dict = {}
 
 
-def _staged(t: torch.Tensor):
+def _staged(t: torch.Tensor, mesh: Mesh | None = None, slot: int = 0):
     """(the tensor the collective runs on, a function that puts the result
     back): gloo on a device tensor goes through pinned host memory (one
-    buffer a dtype, grown as needed: pinning is slow, about 0.5 s a GB)."""
-    if t.device.type == "cuda" and current_mesh().backend == "gloo":
-        buf = _PINNED.get(t.dtype)
+    buffer a dtype and ``slot``, grown as needed: pinning is slow, about
+    0.5 s a GB). A send and a receive in flight together take two slots."""
+    if t.device.type == "cuda" and (mesh or current_mesh()).backend == "gloo":
+        buf = _PINNED.get((t.dtype, slot))
         if buf is None or buf.numel() < t.numel():
-            buf = _PINNED[t.dtype] = torch.empty(t.numel(), dtype=t.dtype,
-                                                 pin_memory=True)
+            buf = _PINNED[t.dtype, slot] = torch.empty(
+                t.numel(), dtype=t.dtype, pin_memory=True)
         host = buf[:t.numel()].view(t.shape)
         host.copy_(t)
         return host, lambda: t.copy_(host)
@@ -255,13 +279,14 @@ def _staged(t: torch.Tensor):
 
 
 def all_reduce_(t: torch.Tensor, axis: str = DATA_AXIS,
-                op: str = "sum") -> torch.Tensor:
+                op: str = "sum", mesh: Mesh | None = None) -> torch.Tensor:
     """Sum (or ``op``: "max") ``t`` over ``axis`` in place; not
     differentiable."""
-    group = current_mesh().groups[axis]
+    mesh = mesh or current_mesh()
+    group = mesh.groups[axis]
     if group is None:
         return t
-    work, back = _staged(t)
+    work, back = _staged(t, mesh)
     dist.all_reduce(work, op=dist.ReduceOp.MAX if op == "max"
                     else dist.ReduceOp.SUM, group=group)
     back()
@@ -322,10 +347,11 @@ def global_flip(x: torch.Tensor) -> torch.Tensor:
 
 
 def all_gather_rows(t: torch.Tensor, axis: str = DATA_AXIS,
-                    counts: Sequence[int] | None = None) -> torch.Tensor:
+                    counts: Sequence[int] | None = None,
+                    mesh: Mesh | None = None) -> torch.Tensor:
     """The ranks' ``t`` along ``axis``, concatenated on dim 0 in rank order.
     ``counts``: each rank's rows where they differ (else all are ``t``'s)."""
-    mesh = current_mesh()
+    mesh = mesh or current_mesh()
     group = mesh.groups[axis]
     if group is None:
         return t
@@ -335,7 +361,7 @@ def all_gather_rows(t: torch.Tensor, axis: str = DATA_AXIS,
     src = t.contiguous()
     if t.shape[0] < width:
         src = torch.cat([src, src.new_zeros(width - t.shape[0], *t.shape[1:])])
-    work, _ = _staged(src)
+    work, _ = _staged(src, mesh)
     parts = [torch.empty_like(work) for _ in range(k)]
     dist.all_gather(parts, work, group=group)
     out = torch.cat([p[:c] for p, c in zip(parts, counts)])
@@ -374,12 +400,12 @@ class _SumOverRanks(torch.autograd.Function):
 
 class _SumPartials(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, axis):
-        return all_reduce_(x.clone(), axis)
+    def forward(ctx, x, axis, mesh):
+        return all_reduce_(x.clone(), axis, mesh=mesh)
 
     @staticmethod
     def backward(ctx, g):
-        return g, None
+        return g, None, None
 
 
 def sum_over_ranks(x: torch.Tensor, axis: str = DATA_AXIS) -> torch.Tensor:
@@ -390,12 +416,233 @@ def sum_over_ranks(x: torch.Tensor, axis: str = DATA_AXIS) -> torch.Tensor:
     return _SumOverRanks.apply(x, axis)
 
 
-def sum_partials(x: torch.Tensor, axis: str = MODEL_AXIS) -> torch.Tensor:
+def sum_partials(x: torch.Tensor, axis: str = MODEL_AXIS,
+                 mesh: Mesh | None = None) -> torch.Tensor:
     """Differentiable sum over ``axis`` whose backward is the identity: for
-    partial results that every rank then consumes alike (DLRM's lookup)."""
-    if current_mesh().groups[axis] is None:
+    partial results that every rank then consumes alike (DLRM's lookup,
+    MoE's experts)."""
+    mesh = mesh or current_mesh()
+    if mesh.groups[axis] is None:
         return x
-    return _SumPartials.apply(x, axis)
+    return _SumPartials.apply(x, axis, mesh)
+
+
+# ---------------------------------------------------------------------------
+# Several tensors in one collective: the sequence axis, the pipeline, MoE
+# ---------------------------------------------------------------------------
+
+
+def _pack(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
+    """The tensors (of one dtype) flattened into one contiguous buffer."""
+    if len({t.dtype for t in tensors}) != 1:
+        raise ValueError("one collective takes tensors of one dtype, got "
+                         f"{sorted(str(t.dtype) for t in tensors)}")
+    if len(tensors) == 1:
+        return tensors[0].contiguous().view(-1)
+    return torch.cat([t.reshape(-1) for t in tensors])
+
+
+def _unpack(flat: torch.Tensor, shapes: Sequence[torch.Size]) -> list:
+    sizes = [int(np.prod(s)) for s in shapes]
+    return [part.view(s) for part, s in zip(flat.split(sizes), shapes)]
+
+
+def _meta(xs) -> list:
+    """Shapes and dtypes of ``xs`` for a backward, on the meta device."""
+    return [torch.empty_like(x, device="meta") for x in xs]
+
+
+def _filled(gs, like: Sequence[torch.Tensor]) -> list:
+    """Cotangents with None (an output autograd had no gradient for) as
+    zeros of ``like``'s shape and dtype, so that every rank sends the same
+    buffer."""
+    dev = next(g.device for g in gs if g is not None)
+    return [torch.zeros(t.shape, dtype=t.dtype, device=dev) if g is None
+            else g for g, t in zip(gs, like)]
+
+
+def _permute(flat: torch.Tensor, mesh: Mesh, axis: str,
+             perm: Sequence[tuple[int, int]]) -> torch.Tensor:
+    """JAX's ``ppermute`` of one buffer: this rank sends ``flat`` to its
+    destination under ``perm`` and returns what its source sent (zeros if
+    it is no destination). The send and the receive are posted together: a
+    ring of blocking sends would deadlock."""
+    i = mesh.index(axis)
+    dst = [d for s, d in perm if s == i]
+    src = [s for s, d in perm if d == i]
+    if dst == src == [i]:
+        return flat.clone()
+    out = torch.zeros_like(flat)
+    send, _ = _staged(flat, mesh, slot=0)
+    recv, back = _staged(out, mesh, slot=1)
+    group = mesh.groups[axis]
+    ops = [dist.P2POp(op, t, mesh.rank_at(axis, peer[0]), group)
+           for op, t, peer in ((dist.isend, send, dst), (dist.irecv, recv, src))
+           if peer]
+    if ops:
+        for work in dist.batch_isend_irecv(ops):
+            work.wait()
+    back()
+    return out
+
+
+def _check_perm(perm, n: int) -> tuple[tuple[int, int], ...]:
+    perm = tuple((int(s), int(d)) for s, d in perm)
+    srcs, dsts = [s for s, _ in perm], [d for _, d in perm]
+    if len(set(srcs)) != len(srcs) or len(set(dsts)) != len(dsts) or any(
+            not 0 <= j < n for j in srcs + dsts):
+        raise ValueError(f"ppermute: {perm} is not a permutation of {n} ranks")
+    return perm
+
+
+class _PPermute(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, mesh, axis, perm, *xs):
+        ctx.mesh, ctx.axis, ctx.perm = mesh, axis, perm
+        ctx.like = _meta(xs)
+        return tuple(_unpack(_permute(_pack(xs), mesh, axis, perm),
+                             [x.shape for x in xs]))
+
+    @staticmethod
+    def backward(ctx, *gs):
+        gs = _filled(gs, ctx.like)
+        inverse = tuple((d, s) for s, d in ctx.perm)
+        back = _permute(_pack(gs), ctx.mesh, ctx.axis, inverse)
+        return (None, None, None, *_unpack(back, [g.shape for g in gs]))
+
+
+def _tensors(x) -> tuple[tuple[torch.Tensor, ...], bool]:
+    if isinstance(x, torch.Tensor):
+        return (x,), True
+    return tuple(x), False
+
+
+def ppermute(x, axis: str, perm: Sequence[tuple[int, int]],
+             mesh: Mesh | None = None):
+    """JAX's ``lax.ppermute`` over ``axis``: ``perm`` holds (source,
+    destination) pairs of indices on the axis; each rank returns what its
+    source sent, zeros where it is no destination. Differentiable: the
+    cotangent goes back along the inverse permutation. ``x`` is a tensor or
+    a sequence of tensors of one dtype (one collective for all of them). The
+    identity on an axis of one rank, with no collective."""
+    mesh = mesh or current_mesh()
+    xs, single = _tensors(x)
+    perm = _check_perm(perm, mesh.size(axis))
+    if mesh.groups[axis] is None:
+        return x
+    if torch.is_grad_enabled() and any(t.requires_grad for t in xs):
+        out = _PPermute.apply(mesh, axis, perm, *xs)
+    else:
+        out = _unpack(_permute(_pack(xs), mesh, axis, perm),
+                      [t.shape for t in xs])
+    return out[0] if single else tuple(out)
+
+
+def _gathered(xs, mesh: Mesh, axis: str, dim: int) -> list:
+    """Each of ``xs`` with every rank's block concatenated along ``dim``."""
+    parts = [_unpack(p, [x.shape for x in xs]) for p in
+             all_gather_rows(_pack(xs)[None], axis, mesh=mesh)]
+    return [torch.cat([part[j] for part in parts], dim)
+            for j in range(len(xs))]
+
+
+def _block(x: torch.Tensor, mesh: Mesh, axis: str, dim: int) -> torch.Tensor:
+    n = x.shape[dim] // mesh.size(axis)
+    return x.narrow(dim, mesh.index(axis) * n, n)
+
+
+class _ShardAlong(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, mesh, axis, dim, *xs):
+        ctx.mesh, ctx.axis, ctx.dim = mesh, axis, dim
+        blocks = [_block(x, mesh, axis, dim) for x in xs]
+        ctx.like = _meta(blocks)
+        return tuple(t.clone() for t in blocks)
+
+    @staticmethod
+    def backward(ctx, *gs):
+        gs = _filled(gs, ctx.like)
+        return (None, None, None,
+                *_gathered(gs, ctx.mesh, ctx.axis, ctx.dim))
+
+
+class _GatherAlong(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, mesh, axis, dim, *xs):
+        ctx.mesh, ctx.axis, ctx.dim = mesh, axis, dim
+        return tuple(_gathered(xs, mesh, axis, dim))
+
+    @staticmethod
+    def backward(ctx, *gs):
+        return (None, None, None, *(
+            None if g is None else _block(g, ctx.mesh, ctx.axis, ctx.dim)
+            for g in gs))
+
+
+def shard_along(x, axis: str, dim: int, mesh: Mesh | None = None):
+    """This rank's block of ``dim`` (of ``mesh.size(axis)`` equal blocks) of
+    a tensor that every rank of the line holds alike, or of each of a
+    sequence of tensors of one dtype. The backward gathers every rank's
+    block of the cotangents (one collective): the whole cotangent, on every
+    rank, as the replicated input's consumers need it."""
+    mesh = mesh or current_mesh()
+    xs, single = _tensors(x)
+    k = mesh.size(axis)
+    for t in xs:
+        if t.shape[dim] % k:
+            raise ValueError(f"dim {dim} of {tuple(t.shape)} not divisible "
+                             f"by {axis}={k}")
+    if mesh.groups[axis] is None:
+        return x
+    if torch.is_grad_enabled() and any(t.requires_grad for t in xs):
+        out = _ShardAlong.apply(mesh, axis, dim, *xs)
+    else:
+        out = [_block(t, mesh, axis, dim) for t in xs]
+    return out[0] if single else tuple(out)
+
+
+def gather_along(x, axis: str, dim: int, mesh: Mesh | None = None):
+    """Every rank's ``x`` along ``axis`` concatenated on ``dim`` in rank
+    order (one collective for a sequence of tensors of one dtype). The
+    backward keeps this rank's block of the cotangent: every rank consumes
+    the gathered tensor alike, so each holds the whole cotangent."""
+    mesh = mesh or current_mesh()
+    xs, single = _tensors(x)
+    if mesh.groups[axis] is None:
+        return x
+    if torch.is_grad_enabled() and any(t.requires_grad for t in xs):
+        out = _GatherAlong.apply(mesh, axis, dim, *xs)
+    else:
+        out = _gathered(xs, mesh, axis, dim)
+    return out[0] if single else tuple(out)
+
+
+class _SumCotangents(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, mesh, axis, *xs):
+        ctx.mesh, ctx.axis = mesh, axis
+        ctx.like = _meta(xs)
+        return tuple(x.view_as(x) for x in xs)
+
+    @staticmethod
+    def backward(ctx, *gs):
+        gs = _filled(gs, ctx.like)
+        flat = all_reduce_(_pack(gs).clone(), ctx.axis, mesh=ctx.mesh)
+        return (None, None, *_unpack(flat, [g.shape for g in gs]))
+
+
+def sum_cotangents(x, axis: str = MODEL_AXIS, mesh: Mesh | None = None):
+    """The identity, whose backward sums the cotangents over ``axis`` (one
+    collective for a sequence of tensors of one dtype): the transpose of
+    ``sum_partials``, for a value every rank holds alike and consumes in
+    part (MoE's tokens and gates into the rank's own experts)."""
+    mesh = mesh or current_mesh()
+    xs, single = _tensors(x)
+    if mesh.groups[axis] is None or not torch.is_grad_enabled() or not any(
+            t.requires_grad for t in xs):
+        return x
+    out = _SumCotangents.apply(mesh, axis, *xs)
+    return out[0] if single else tuple(out)
 
 
 # ---------------------------------------------------------------------------

@@ -19,7 +19,8 @@ and QuartzNet's separable blocks, which no JAX converter covers), and of
 too), with nnU-Net's ``DynUNet``, which no JAX converter covers, and of
 ``convert_maskrcnn_heads`` for Mask R-CNN (its ResNet backbone through the
 ConvNets' names) and of the SE(3)-Transformer, which no JAX converter
-covers. The word table keeps its ``padded_vocab`` rows, and the MLM decoder, tied to it, has no entry of its own. The mapping is
+covers, and of ``MoEFeedForward`` and the stacked stage trees of
+``parallel/pipeline.py``. The word table keeps its ``padded_vocab`` rows, and the MLM decoder, tied to it, has no entry of its own. The mapping is
 structural, so it carries any tree of that shape across:
 parameters, or the gradients ``jax.grad`` returns for them.
 """
@@ -50,10 +51,12 @@ __all__ = [
     "hifigan_generator_state_dict_from_jax",
     "jasper_state_dict_from_jax",
     "maskrcnn_state_dict_from_jax",
+    "moe_state_dict_from_jax",
     "moflow_state_dict_from_jax",
     "ncf_state_dict_from_jax",
     "resnet_state_dict_from_jax",
     "se3_state_dict_from_jax",
+    "stacked_stages_from_jax",
     "ssd300_state_dict_from_jax",
     "tacotron2_state_dict_from_jax",
     "tft_state_dict_from_jax",
@@ -1073,3 +1076,32 @@ def se3_state_dict_from_jax(tree: Mapping[str, Any]) -> dict[str, np.ndarray]:
 
     walk(tree, "")
     return sd
+
+
+def moe_state_dict_from_jax(tree: Mapping[str, Any]) -> dict[str, np.ndarray]:
+    """JAX ``MoEFeedForward`` params, or their gradients (``router/kernel``
+    (d, E), ``wi`` (E, d, f), ``wo`` (E, f, d)) -> the port's
+    ``MoEFeedForward`` ``state_dict``: the router's kernel transposed, the
+    experts as they are (all E; ``parallel.mesh.shard_rows_of`` takes a
+    rank's block)."""
+    return {"router.weight": np.ascontiguousarray(
+                np.asarray(tree["router"]["kernel"]).T),
+            "wi": np.asarray(tree["wi"]), "wo": np.asarray(tree["wo"])}
+
+
+def stacked_stages_from_jax(tree: Mapping[str, Any]) -> dict[str, np.ndarray]:
+    """JAX's stacked stage tree (``stack_stage_params``: leaves with a
+    leading stage axis), or its gradients -> the dict
+    ``parallel.pipeline.pipeline_apply`` takes: each leaf under its path
+    joined by dots, the stage axis kept."""
+    out: dict[str, np.ndarray] = {}
+
+    def walk(t: Mapping[str, Any], prefix: str) -> None:
+        for key, value in t.items():
+            if isinstance(value, Mapping):
+                walk(value, f"{prefix}{key}.")
+            else:
+                out[f"{prefix}{key}"] = np.asarray(value)
+
+    walk(tree, "")
+    return out

@@ -247,11 +247,12 @@ def test_cli_trains_on_the_corpus_and_refuses_what_is_not_ported(corpus, tmp_pat
         "--steps-per-epoch", "3", "--batch-size", str(B), "--lr", "0.01",
         "--device", "cpu", "--workspace", str(tmp_path)])
     assert state.step == 3 and np.isfinite(best)
-    # --zero and --mesh-* are ported: --zero refuses --flat-lamb as JAX
-    # does, and a mesh of 2 ranks in one process is JAX's mesh error
+    # --zero, --mesh-* and the ring are ported: --zero refuses --flat-lamb
+    # as JAX does, and a mesh of 2 ranks in one process is JAX's mesh error
     for flags, error, match in (
             (["--zero", "--flat-lamb"], SystemExit, "mutually exclusive"),
-            (["--attention-impl", "ring"], SystemExit, "not ported"),
+            (["--attention-impl", "ring", "--mesh-sequence", "2"], ValueError,
+             "1 devices not divisible by 2"),
             (["--mesh-data", "2"], ValueError, "!= 1 devices")):
         with pytest.raises(error, match=match):
             cli(["bert-pretrain", "--device", "cpu", "--workspace",

@@ -341,9 +341,11 @@ def test_cli_trains_the_tiny_config_on_the_cpu(tmp_path):
               if ln["type"] == "LOG" and "train.loss" in ln.get("data", {})]
     assert len(losses) == 8 and losses[-1] < losses[0]  # one per step
     assert (tmp_path / "bert_ckpt" / "ckpt_8.pt").exists()
-    with pytest.raises(SystemExit, match="not ported"):
+    # the sequence axis is ported: two sequence ranks in one process is
+    # JAX's mesh error
+    with pytest.raises(ValueError, match="1 devices not divisible by 2"):
         cli(["bert-pretrain", "--device", "cpu", "--workspace", str(tmp_path),
-             "--attention-impl", "ring"])
+             "--attention-impl", "ring", "--mesh-sequence", "2"])
     # the YAML layers: a key the command's config lacks raises, as JAX's merge
     bad = tmp_path / "bad.yml"
     bad.write_text("models:\n  bert-pretrain:\n    no_such_key: 1\n")

@@ -49,7 +49,8 @@ for name in ("core.train", "core.flat", "core.loop", "core.checkpoint",
              "models.transformer_xl", "models.moflow", "models.maskrcnn",
              "ops.se3", "models.se3_transformer", "hub", "serving.export",
              "serving.streaming_asr", "utils.checkpoint_tools",
-             "utils.profiling"):
+             "utils.profiling", "ops.ring_attention", "ops.moe",
+             "parallel.pipeline"):
     assert f"deeplearningexamples_tpu_torch.{name}" in names, name
 # importing builds and loads nothing: the data plane and the kernels are
 # built at first use
