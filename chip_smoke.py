@@ -119,7 +119,8 @@ and it imports nothing of JAX. Phases, one line each:
     configs.yml --precision bf16`` for 20 steps, ``--phase2 --binned
     --remat`` at B=16, ``--attention-impl xla`` (K1/K2 launch 0 times), the
     host time to make a batch; a distillation step of the
-    4l-312 and 6l-768 students under a BERT-Large teacher at B=32 S=128,
+    4l-312 and 6l-768 students under a BERT-Large teacher (12 of its 24
+    layers) at B=32 S=128,
     timed, and at B=2 in fp32 against the CPU in float64; ``dlrm
     --data-backend binary`` at B=65,536 on 4M records the script writes (26
     unequal tables, 2.6M rows), 20 steps and AUC over the trailing 2%,
@@ -160,8 +161,9 @@ and it imports nothing of JAX. Phases, one line each:
     card once 27b has ended, their steps on CUDA events in turns with the
     same steps without a mesh; 27b, beside 27a's first steps, two ranks on
     the card over gloo (this script under ``torchrun --nproc-per-node 2``,
-    ``DLX_DIST_BACKEND=gloo``) run ``bert-pretrain --mesh-data 2 --zero``,
-    ``resnet50 --mesh-data 2`` (fp32, B=64 global) and ``dlrm --mesh-model
+    ``DLX_DIST_BACKEND=gloo``) run ``bert-pretrain --mesh-data 2 --zero``
+    (6 of BERT-Large's 24 layers), ``resnet50 --mesh-data 2`` (fp32, B=64
+    global) and ``dlrm --mesh-model
     2``, 2 steps each, through the CLI's start-up and builders, each held
     against the one-rank run of the same global batch on rank 0 (losses,
     parameters in norm, BN running statistics), with each rank's optimizer
@@ -222,10 +224,24 @@ and it imports nothing of JAX. Phases, one line each:
     capacity factor 1.25), top-1 and top-2 at B=8 T=512 fp32, against
     ``moe_reference`` at T=128 and itself in float64 on the CPU at T=512,
     and 4 experts a rank against the whole layer, forward and gradients
+32. the data axis of the seventeen commands PR 14 left on one rank:
+    FastPitch's K1 with attention dropout at a rank's batch offset against
+    the whole batch's rows bit for bit and its plain version; then two gloo
+    ranks on the card (this script under ``torchrun --nproc-per-node 2``)
+    run each of ``tacotron2``, ``waveglow``, ``transformer``, ``bart``,
+    ``gnmt``, ``fastpitch``, ``hifigan``, ``jasper``, ``wav2vec2``,
+    ``ncf``, ``tft``, ``nnunet``, ``transformer-xl``, ``moflow``,
+    ``se3-transformer``, ``efficientdet`` and ``maskrcnn`` (and
+    ``transformer`` with padded targets) through the CLI at ``--mesh-data
+    2``, the CLI's widths (``FAMILY_CUTS`` the depth of four), B=4 global,
+    fp32, 2 steps, while this process runs the one-rank run of the same
+    global batches: the first step's loss, every step's, the first step's
+    gradients in norm and BN running statistics, the eval metrics, the two
+    ranks' parameters bit for bit, K1/K2's launches on the attention paths
 
 The phases run in this order: 1, then 19-22 while ``nvcc`` builds the
 kernels on the host's cores (phase 2, joined before phase 3), then 3-18 and
-23-31. The float64 CPU references of phases 19, 22, 23, 25, 28 and 29 run on a
+23-32. The float64 CPU references of phases 19, 22, 23, 25, 28 and 29 run on a
 host thread while the card runs the rest of their phase (19's beside 20), so
 the times that phases 20-22 print are taken with the host under load (they
 say so); each phase's seconds are printed before the kernels line.
@@ -237,7 +253,8 @@ phase 20; SSD300's training, resume and inference in phase 21; Tacotron2's
 and WaveGlow's training and the TTS pipeline in phase 22; the beam searches
 and each encoder-decoder run of phase 23; each CLI run of phase 24; each
 speech command, both speech endpoints and the CTC step of phase 25; each
-CLI run of phase 26; the mesh runs of phase 27 and 31 in their processes;
+CLI run of phase 26; the mesh runs of phases 27, 31 and 32 in their
+processes;
 each CLI run of phase 28 and each run of phase 29; each endpoint's traffic
 and the streams of phase 30) runs with the launch counts set to 0 just
 before it and read just after; on the ConvNets, SSD300, TTS, GNMT,
@@ -263,8 +280,10 @@ script exits non-zero; without a CUDA card it fails before printing a result.
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
 import copy
 import dataclasses
+import functools
 import hashlib
 import importlib
 import json
@@ -3423,7 +3442,7 @@ TOL_S2S_UPDATE = (1e-4, 1e-4)
 S2S_PARITY = {  # (B, source, target, source lengths, target lengths)
     "transformer": (4, 64, 64, (64, 59, 47, 24), (64, 50, 37, 21)),
     "bart": (2, 64, 32, (64, 45), (32, 19)),
-    "gnmt": (2, 24, 24, (24, 15), (24, 13)),  # 48 steps before PR 18
+    "gnmt": (2, 12, 12, (12, 8), (12, 7)),  # 48 steps before PR 18, 24 PR 19
 }
 # 23b: K1/K2 against their plain versions at this slice's shapes (B, Sq, Sk,
 # H, causal, masked), with TOL and TOL_BWD; times for bf16. Every shape at
@@ -4074,6 +4093,10 @@ TOL_REMAT = 1e-6  # remat vs not, fp32 on the card: of the largest entry
 # and each gradient against the largest gradient entry of all
 TOL_DISTILL = {"loss": 1e-5, "grad": 1e-4}
 DISTILL_B, DISTILL_STEPS = 32, 10
+# 24d's teacher at BERT-Large's width and 12 of its 24 layers (a multiple of
+# both students' 4 and 6; cut for time, PR 19: it is built five times and its
+# float64 forward runs on the host)
+DISTILL_TEACHER_LAYERS = 12
 DLRM_BIN_CARDS = tuple(150_000 - 4_000 * i for i in range(26))  # 2.6M rows
 DLRM_BIN_ROWS, DLRM_BIN_STEPS = 4_000_000, 20
 
@@ -4389,11 +4412,13 @@ def _distill_train(task, teacher, student, lr=1e-4):
 
 def phase_distill() -> str:
     """24d: one distillation step (hidden MSE, AdamW) of the 4l-312 and
-    6l-768 students under a BERT-Large teacher at B=32 S=128 bf16, timed;
+    6l-768 students under a BERT-Large teacher (``DISTILL_TEACHER_LAYERS``
+    of its layers) at B=32 S=128 bf16, timed;
     the same loss and gradients at B=2 in fp32 (dropout off) on the card
     against the CPU in float64."""
     t0 = time.perf_counter()
-    tcfg = BERT_CONFIGS["large"]
+    tcfg = dataclasses.replace(BERT_CONFIGS["large"],
+                               num_layers=DISTILL_TEACHER_LAYERS)
     t_init = BertModel(tcfg)
     init_bert_weights_(t_init, torch.Generator().manual_seed(SEED),
                        tcfg.initializer_range)
@@ -4464,7 +4489,8 @@ def phase_distill() -> str:
         check(rel <= TOL_DISTILL["loss"], f"{name}: loss {l32} vs {l64}")
         check(worst <= TOL_DISTILL["grad"], f"{name}: gradient {wname} "
               f"{worst:.3e} of the largest entry")
-    say("24d distillation", "BERT-Large teacher, hidden MSE through "
+    say("24d distillation", f"BERT-Large teacher at {tcfg.num_layers} of "
+        "its 24 layers, hidden MSE through "
         "distill_proj, AdamW: " + "; ".join(lines)
         + f" ({time.perf_counter() - t0:.1f} s)")
     return "; ".join(lines)
@@ -5450,6 +5476,10 @@ def phase_real_data() -> tuple[dict, int]:
 
 MESH_STEPS = 2  # each run's checked steps (3 before PR 18)
 MESH_TURN_STEPS = 3  # 27a's timed turns, alone on the card after 27b
+# 27b's bert-pretrain at BERT-Large's width and 6 of its 24 layers (cut for
+# time, PR 19: each rank builds it, rank 0 twice, and every step stages its
+# gradients through the host; 27a keeps all 24 for phase 10's losses)
+MESH_BERT_LAYERS = 6
 MESH_OFFSET = 32  # a data rank's half of bert-pretrain's batch of 64
 # Two gloo ranks on the card against the one-rank run of the same global
 # batch, bf16: each rank's forward multiplies 32 rows where the one rank
@@ -5606,6 +5636,9 @@ def _mesh_child(which: str, names: list[str] | None = None) -> None:
     torch.backends.cuda.matmul.allow_tf32 = False  # as phase_device sets
     torch.backends.cudnn.allow_tf32 = False
     world2 = which == "27b"
+    if world2:  # the builder reads the config from this dict
+        BERT_CONFIGS["large"] = dataclasses.replace(
+            BERT_CONFIGS["large"], num_layers=MESH_BERT_LAYERS)
     work = Path(tempfile.mkdtemp(prefix="mesh_"))
     out: dict = {"rank": int(os.environ.get("RANK", 0))}
     kept = {}  # 27a's runs, timed after 27b
@@ -5717,7 +5750,8 @@ def phase_mesh() -> tuple[float, dict[str, int]]:
     phase 10's losses) and ``dlrm --mesh-model 1`` (26 x 100,000 x 128,
     B=65,536), each step on CUDA events beside the same steps with no mesh;
     27b two ranks on the card over gloo run ``bert-pretrain --mesh-data 2
-    --zero``, ``resnet50 --mesh-data 2`` (B=64 global) and ``dlrm
+    --zero`` (6 of BERT-Large's 24 layers), ``resnet50 --mesh-data 2``
+    (B=64 global) and ``dlrm
     --mesh-model 2``, each against the one-rank run of the same global
     batch. Returns the offset kernels' worst error and the launches of the
     mesh runs (27a's, 27b's rank 0)."""
@@ -5808,7 +5842,8 @@ def phase_mesh() -> tuple[float, dict[str, int]]:
             line += (f"; table rows {r0['table_rows']} on rank 0, "
                      f"{r1['table_rows']} on rank 1")
         lines.append(line)
-    check(b[0]["bert"]["launched"]["flash_fwd"] == LAYERS * MESH_STEPS
+    check(b[0]["bert"]["launched"]["flash_fwd"]
+          == MESH_BERT_LAYERS * MESH_STEPS
           and b[0]["dlrm"]["launched"]["gather_rows"] == MESH_STEPS
           and b[0]["resnet50"]["launched"] == dict.fromkeys(_counts(), 0),
           f"27b launches {[b[0][n]['launched'] for n in b[0] if n != 'rank']}")
@@ -7289,6 +7324,391 @@ def phase_sequence() -> None:
         + "; ".join(lines) + f"; {time.perf_counter() - t0:.1f} s")
     check(not fails, "31: " + "; ".join(fails))
 
+# -- phase 32 ----------------------------------------------------------------
+
+# 32: the seventeen commands PR 14 left on one rank, each through the CLI at
+# --mesh-data 2 (two gloo ranks on the card), at the CLI's widths, a global
+# batch of 4, fp32 with TF32 off, 2 steps, against the one-rank run of the
+# same global batches (in the phase's own process, beside the ranks), as
+# tests/test_torch_parallel_families.py holds them on the CPU. bart
+# (summarize) and tft train on their data's batches, of which --prof takes
+# the first two, then score the beam-decoded val split and the test split.
+# The CLI's synthetic batches give every row as many targets (bart's
+# summaries are 7 tokens each, transformer's and gnmt's rows have no pads),
+# so "transformer-padded" runs `transformer` with its target rows cut to
+# FAMILY_TARGETS tokens: rank 0 holds 117 targets, rank 1 28.
+FAMILIES = ("tacotron2", "waveglow", "transformer", "bart", "gnmt",
+            "fastpitch", "hifigan", "jasper", "wav2vec2", "ncf", "tft",
+            "nnunet", "transformer-xl", "moflow", "se3-transformer",
+            "efficientdet", "maskrcnn", "transformer-padded")
+FAMILY_TARGETS = (64, 55, 20, 10)  # transformer-padded: BOS ... EOS a row
+# Cut for time (PERF.md §4): transformer-xl at 4 of its 16 layers, waveglow
+# at 8 of its 12 flows, wav2vec2 at 4 of its 12 layers, gnmt at 2 of its 4,
+# tacotron2's synthetic mels at 200 of their 600 frames; and no run writes
+# its checkpoint (phases 20-31 write and read them)
+FAMILY_CUTS = {"transformer_xl_layers": 4, "waveglow_flows": 8,
+               "wav2vec2_layers": 4, "gnmt_layers": 2, "tacotron2_frames": 200}
+FAMILY_B, FAMILY_STEPS = 4, 2
+FAMILY_FLAGS = {"bart": ["--prof", "2"], "tft": ["--prof", "2"]}
+FAMILY_ATTENTION = ("transformer", "bart", "fastpitch", "wav2vec2",
+                    "transformer-padded")
+# Limits, between the sound readings and those of planted faults
+# (scripts/mesh_fault_check.py 32): the first step's loss relative (the CPU
+# test's); every step's loss relative; the first step's gradients after the
+# data mean, their distance from the one-rank run's over its norm, all
+# tensors together; the first step's BN running statistics, of max(1, the
+# tensor's largest entry) (the CPU test's); a continuous eval metric
+# relative (the CPU test's). The CPU test holds each gradient tensor to
+# 1e-5 of its largest entry; on the card a one-rank fp32 step's gradients
+# are themselves that far from float64 in their worst tensors (fp32 sums
+# that cancel), so two runs whose sums split differently part there too,
+# and the card is held on the norm of the whole gradient.
+TOL_FAMILY = {"loss": 1e-5, "loss_steps": 2e-3, "grad": 1e-4, "stats": 1e-5,
+              "metric": 1e-5}
+# the commands whose sound gradients lie further apart (my chip runs 1-2,
+# PR 19: transformer 8.1e-5, jasper 4.0e-3, nnunet 1.1e-3, transformer-xl
+# 7.8e-4, maskrcnn 6.2e-4; their cuBLAS and cuDNN algorithms differ between
+# B=2 and B=4, and Jasper's and Mask R-CNN's BN between flax's E[x^2] -
+# E[x]^2 at world 2 and the two-pass native kernel at world 1), about 5x
+TOL_FAMILY_GRAD = {"transformer": 5e-4, "transformer-padded": 5e-4,
+                   "jasper": 2e-2, "nnunet": 5e-3, "transformer-xl": 5e-3,
+                   "maskrcnn": 5e-3}
+
+
+def _family_argv(name: str, work: Path) -> list[str]:
+    return [name.removesuffix("-padded"), "--device", DEV.split(":")[0],
+            "--amp", "false", "--batch-size", str(FAMILY_B),
+            "--steps-per-epoch", str(FAMILY_STEPS), "--lr", "1e-3",
+            "--workspace", str(work), *FAMILY_FLAGS.get(name, [])]
+
+
+def _padded_transformer(cfg):
+    """``cli.main.build_transformer`` with each row's targets cut to
+    ``FAMILY_TARGETS`` tokens (BOS, then the source's, EOS, then pads)."""
+    run = _REAL_BUILD_TRANSFORMER(cfg)
+    batch = dict(run.loader[0])
+    tgt = batch["tgt"].copy()
+    pad, eos = run.task.cfg.pad_id, run.task.cfg.eos_id
+    for i, n in enumerate(FAMILY_TARGETS):
+        tgt[i, n - 1], tgt[i, n:] = eos, pad
+    run.loader = [{**batch, "tgt": tgt}] * len(run.loader)
+    return run
+
+
+_REAL_BUILD_TRANSFORMER = cli_main.build_transformer
+
+
+def _family_cuts(stack: contextlib.ExitStack) -> None:
+    """``FAMILY_CUTS`` patched into the modules the CLI's builders import
+    from when they run."""
+    from deeplearningexamples_tpu_torch.data import tts_synthetic
+    from deeplearningexamples_tpu_torch.models import (
+        transformer_xl, tts, wav2vec2)
+    from deeplearningexamples_tpu_torch.models.translation import gnmt
+
+    cut = FAMILY_CUTS
+    txl, wg, w2v = (transformer_xl.TransformerXLTask, tts.WaveGlowTask,
+                    wav2vec2.Wav2Vec2Task)
+    for module, name, new in (
+            (gnmt, "GnmtTask", functools.partial(
+                gnmt.GnmtTask, gnmt.GnmtConfig(num_layers=cut["gnmt_layers"]))),
+            (transformer_xl, "TransformerXLTask", lambda dtype: txl(
+                transformer_xl.TransformerXLConfig(
+                    n_layers=cut["transformer_xl_layers"]), dtype)),
+            (tts, "WaveGlowTask", lambda dtype: wg(
+                tts.WaveGlowConfig(n_flows=cut["waveglow_flows"]), dtype)),
+            (wav2vec2, "Wav2Vec2Task", lambda dtype: w2v(
+                wav2vec2.Wav2Vec2Config(n_layers=cut["wav2vec2_layers"]),
+                dtype)),
+            (tts_synthetic, "SyntheticTacotronLoader", functools.partial(
+                tts_synthetic.SyntheticTacotronLoader,
+                max_mel_len=cut["tacotron2_frames"])),
+            (CheckpointManager, "save", lambda *a, **k: None)):
+        stack.enter_context(mock.patch.object(module, name, new))
+
+
+def _family_run(argv: list[str], padded: bool = False) -> dict:
+    """The CLI on ``argv``: each step's loss, the first step's gradients
+    (after the data mean) and BN running statistics (Adam moves a parameter
+    whose gradient is 0 but for rounding by the rate, either way: compared
+    at the parameters every run starts from), the modules trained, and the
+    eval metrics the run logs."""
+    from deeplearningexamples_tpu_torch.models.tts import hifigan
+
+    rec: dict = {"losses": [], "grads": None, "stats": {}, "metrics": {}}
+    real_loop, real_grads = cli_main.train_loop, hifigan.HiFiGanTask.grads
+
+    def stats(model) -> dict:
+        return {n: b.detach().clone() for n, b in model.named_buffers()
+                if ".running_" in n or n.startswith("running_")}
+
+    def loop(state, train_step, *a, **kw):
+        def step(state, batch):
+            state, m = train_step(state, batch)
+            rec["losses"].append(float(m["loss"]))
+            if rec["grads"] is None:
+                rec["grads"] = {n: p.grad.detach().clone() for n, p in
+                                state.model.named_parameters()
+                                if p.grad is not None}
+                rec["stats"] = stats(state.model)
+            return state, m
+        return real_loop(state, step, *a, **kw)
+
+    def gan_grads(model, loss):  # d_step's, then g_step's
+        g = real_grads(model, loss)
+        side = "disc" if len(rec.setdefault("gan", [])) % 2 == 0 else "gen"
+        if len(rec["gan"]) < 2:
+            rec["gan"].append({f"{side}.{n}": t.clone() for n, t in g.items()})
+        return g
+
+    with contextlib.ExitStack() as stack:
+        _family_cuts(stack)
+        for module, name, new in (
+                (cli_main, "train_loop", loop),
+                (hifigan.HiFiGanTask, "grads", staticmethod(gan_grads)),
+                (cli_main, "build_transformer", _padded_transformer if padded
+                 else _REAL_BUILD_TRANSFORMER)):
+            stack.enter_context(mock.patch.object(module, name, new))
+        out = cli(argv)
+    if argv[0] == "hifigan":
+        gen, disc, metrics = out
+        d_grads, g_grads = rec.pop("gan")
+        rec["grads"] = {**d_grads, **g_grads}
+        rec["losses"] = [metrics["train.d_loss"], metrics["train.g_loss"]]
+        rec["metrics"], rec["modules"] = metrics, (gen, disc)
+        return rec
+    rec["modules"] = (out[0].model,)
+    rec["metrics"] = {"bart": out[1] if argv[0] == "bart" else {},
+                      "tft": out[-1] if argv[0] == "tft" else {}}.get(
+                          argv[0], {})
+    return rec
+
+
+def _one_rank_setup(cfg, name, accum_steps=None):
+    """``cli.main._common_setup`` for a one-rank run: the 1 x 1 x 1 mesh
+    (no collective, in a process group too) and no logger."""
+    pmesh.reset_mesh()
+    return cli_main.Logger(backends=[], enabled=False)
+
+
+def _family_reference(name: str, work: Path) -> dict:
+    """The one-rank run of ``name`` (the same seed, flags and global
+    batches) and its launches; ``modules`` dropped."""
+    with mock.patch.object(cli_main, "_common_setup", _one_rank_setup):
+        _reset_counts()
+        ref = _family_run(_family_argv(name, work / f"{name}_one"),
+                          name.endswith("-padded"))
+        ref["launched"] = _counts()
+    del ref["modules"]
+    return ref
+
+
+def _await_reference(path: Path, timeout: float = 900.0) -> dict:
+    """The reference the phase's process writes to ``path`` (whole, by a
+    rename), on this rank's card; the file is removed once read."""
+    deadline = time.monotonic() + timeout
+    while not path.exists():
+        check(time.monotonic() < deadline, f"32: no {path.name} after "
+              f"{timeout} s")
+        time.sleep(0.05)
+    ref = torch.load(path, map_location=DEV, weights_only=False)
+    path.unlink()
+    return ref
+
+
+def _grad_diff(got: dict, want: dict) -> tuple[float, float, str]:
+    """(``got``'s distance from ``want`` over ``want``'s norm, all tensors
+    together; the worst tensor's largest difference over max(its largest
+    entry, a tenth of the largest of all), and its name)."""
+    top = max(float(w.abs().max()) for w in want.values())
+    diff = sum(float((got[n].double() - w.double()).square().sum())
+               for n, w in want.items())
+    norm = sum(float(w.double().square().sum()) for w in want.values())
+    worst = max((max_err(got[n], w) / max(float(w.abs().max()), 0.1 * top), n)
+                for n, w in want.items())
+    return math.sqrt(diff / norm), *worst
+
+
+def _family_child(names: list[str] | None = None) -> None:
+    """A rank of phase 32 (two ranks on the card over gloo, this script
+    under ``torchrun --nproc-per-node 2``): one ``MESH {...}`` line a
+    command (``names``: these of ``FAMILIES`` only). Rank 0 holds each run
+    against the one-rank run that the phase's process writes to the
+    directory ``FAMILY_REFS`` names, or without it runs that itself after
+    the data-axis run."""
+    torch.backends.cuda.matmul.allow_tf32 = False  # as phase_device sets
+    torch.backends.cudnn.allow_tf32 = False
+    work = Path(tempfile.mkdtemp(prefix="families_"))
+    refs = os.environ.get("FAMILY_REFS")
+    out: dict = {"rank": int(os.environ.get("RANK", 0))}
+    for name in names or FAMILIES:
+        t0 = time.perf_counter()
+        argv = _family_argv(name, work / f"{name}_{out['rank']}")
+        _reset_counts()  # the command's data-axis run starts here
+        rec = _family_run([*argv, "--mesh-data", "2"],
+                          name.endswith("-padded"))
+        got = {"losses": rec["losses"], "launched": _counts(),
+               "digest": hashlib.blake2b(b"".join(
+                   bytes.fromhex(_digest(m)) for m in rec["modules"])
+               ).hexdigest(),
+               "metrics": rec["metrics"], "shape": pmesh.current_mesh().shape,
+               "backend": torch.distributed.get_backend()}
+        if pmesh.current_mesh().is_primary:
+            grads, stats = rec["grads"], rec["stats"]
+            del rec
+            ref = (_await_reference(Path(refs) / f"{name}.pt") if refs
+                   else _family_reference(name, work))
+            got["ref_launched"] = ref["launched"]
+            got["ref_losses"] = ref["losses"]
+            got["ref_metrics"] = ref["metrics"]
+            got["grad_err"] = _grad_diff(grads, ref["grads"])
+            got["grad_keys"] = sorted(grads) == sorted(ref["grads"])
+            got["stats_err"] = max(
+                [(max_err(stats[n], w) / max(1.0, float(w.abs().max())), n)
+                 for n, w in ref["stats"].items()] or [(0.0, "")])
+            got["stats_keys"] = sorted(stats) == sorted(ref["stats"])
+            del ref, grads, stats
+        else:
+            del rec
+        torch.cuda.empty_cache()
+        torch.distributed.barrier()
+        got["seconds"] = time.perf_counter() - t0
+        sys.stdout.write("MESH " + json.dumps({**out, name: got}) + "\n")
+        sys.stdout.flush()
+    shutil.rmtree(work, ignore_errors=True)
+    torch.distributed.destroy_process_group()
+
+
+def _fastpitch_offset() -> float:
+    """K1 with FastPitch's attention dropout at a data rank's batch offset:
+    rank 1's rows (2 of the global 4) at offset 2 take rows 2.. of the whole
+    batch's launch bit for bit (the masks the one-rank run draws for them),
+    and agree with the plain version at the offset. Returns that error."""
+    fcfg = FastPitchConfig()
+    q, k, v, mask = _attn_inputs(FAMILY_B, 32, fcfg.n_heads, fcfg.head_dim,
+                                 torch.float32, "bshd")
+    kw = dict(layout="bshd", dropout_rate=fcfg.dropatt, dropout_seed=12345)
+    off = FAMILY_B // 2
+    whole, whole_lse = fa.flash_attention_with_lse(q, k, v, mask, **kw)
+    half = [t[off:].contiguous() for t in (q, k, v, mask)]
+    out, lse = fa.flash_attention_with_lse(*half, dropout_batch_offset=off,
+                                           **kw)
+    check(torch.equal(out, whole[off:]) and torch.equal(lse, whole_lse[off:]),
+          "32: FastPitch's K1 at batch offset 2 is not rows 2.. of the "
+          "whole batch's")
+    ref, _ = fa.mha_reference(*half, **kw, dropout_batch_offset=off)
+    err = max_err(out, ref)
+    check(err <= TOL[torch.float32][0],
+          f"32: FastPitch's K1 at batch offset 2 against its plain version: "
+          f"{err}")
+    return err
+
+
+def phase_families() -> tuple[float, dict[str, int]]:
+    """32: ``--mesh-data 2`` for the seventeen commands PR 14 left on one
+    rank: FastPitch's K1 dropout at a rank's batch offset; then one
+    ``torchrun --nproc-per-node 2`` of this script's ``--mesh 32`` runs each
+    command through the CLI while this process runs the one-rank run of the
+    same global batches, which rank 0 holds it against. Returns the offset
+    kernel's error against its plain version and rank 0's launches of the
+    data-axis runs."""
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    err = _fastpitch_offset()
+    # the one-rank runs here, beside the ranks' runs, each written for rank
+    # 0 to read; the ranks draw each model's weights on 3 host threads each
+    refs = Path(tempfile.mkdtemp(prefix="family_refs_"))
+    proc = _torchrun("32", 2, DLX_DIST_BACKEND="gloo", OMP_NUM_THREADS="3",
+                     FAMILY_REFS=str(refs))
+    try:
+        for name in FAMILIES:
+            ref = _family_reference(name, refs)
+            tmp = refs / f"{name}.tmp"
+            torch.save({k: ({n: t.cpu() for n, t in v.items()}
+                            if k in ("grads", "stats") else v)
+                        for k, v in ref.items()}, tmp)
+            os.replace(tmp, refs / f"{name}.pt")
+            del ref
+            torch.cuda.empty_cache()
+        r0, r1 = _ranks("32", proc, 2, 900)
+    finally:  # neither the launcher nor its ranks outlive the phase
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+        shutil.rmtree(refs, ignore_errors=True)
+    none = dict.fromkeys(_counts(), 0)
+    launched = dict(none)
+    fails: list[str] = []  # every reading is printed before a check fails
+    lines = []
+    for name in FAMILIES:
+        a, b = r0[name], r1[name]
+
+        def want(ok: bool, what: str) -> None:
+            if not ok:
+                fails.append(f"{name}: {what}")
+
+        want(a["backend"] == "gloo" and a["shape"] == {
+            "data": 2, "model": 1, "sequence": 1}, f"{a['backend']} on "
+             f"{a['shape']}")
+        want(a["digest"] == b["digest"] and a["losses"] == b["losses"],
+             "the ranks' parameters or losses differ")
+        first, loss = (max(abs(x - y) / abs(y) for x, y in zip(
+            a["losses"][:n], a["ref_losses"][:n])) for n in (1, FAMILY_STEPS))
+        want(len(a["losses"]) == len(a["ref_losses"]) == FAMILY_STEPS
+             and first <= TOL_FAMILY["loss"]
+             and loss <= TOL_FAMILY["loss_steps"],
+             f"losses {a['losses']} vs one rank's {a['ref_losses']}")
+        grad, worst, gname = a["grad_err"]
+        gtol = TOL_FAMILY_GRAD.get(name, TOL_FAMILY["grad"])
+        want(a["grad_keys"] and grad <= gtol,
+             f"gradients {grad:.3e} of their norm apart (limit {gtol})")
+        stat, sname = a["stats_err"]
+        want(a["stats_keys"] and stat <= TOL_FAMILY["stats"],
+             f"BN statistics {sname} {stat:.3e}")
+        metrics = sorted(a["ref_metrics"])
+        want(sorted(a["metrics"]) == metrics and all(
+            abs(a["metrics"][k] - a["ref_metrics"][k])
+            <= TOL_FAMILY["metric"] * abs(a["ref_metrics"][k])
+            for k in metrics), f"metrics {a['metrics']} vs one rank's "
+             f"{a['ref_metrics']}")
+        if name == "bart":
+            want(a["metrics"] == a["ref_metrics"] and bool(metrics),
+                 "ROUGE differs from the one-rank run's")
+        if name in FAMILY_ATTENTION:  # K1/K2 at each rank's rows
+            want(a["launched"] == a["ref_launched"] == b["launched"]
+                 and a["launched"]["flash_fwd"] > 0
+                 and a["launched"]["flash_bwd_dq"] > 0
+                 and {**a["launched"], "flash_fwd": 0, "flash_bwd_dq": 0,
+                      "flash_bwd_dkv": 0} == none,
+                 f"launches {a['launched']}, one rank's {a['ref_launched']}")
+        else:
+            want(a["launched"] == a["ref_launched"] == none,
+                 f"launches {a['launched']}, one rank's {a['ref_launched']}")
+        for k, v in a["launched"].items():
+            launched[k] += v
+        k1 = (f", K1 {a['launched']['flash_fwd']} K2 "
+              f"{a['launched']['flash_bwd_dq']} + "
+              f"{a['launched']['flash_bwd_dkv']}"
+              if name in FAMILY_ATTENTION else "")
+        shown = {k: round(v, 4) for k, v in a["metrics"].items()
+                 if not k.startswith("train.")}
+        lines.append(f"{name} losses {first:.2e} / {loss:.2e} gradients "
+                     f"{grad:.2e} (worst tensor {worst:.2e}, {gname}) BN "
+                     f"{stat:.2e}{k1}"
+                     + (f" {shown}" if shown else "")
+                     + f" ({a['seconds']:.1f} s)")
+    say("32 the data axis of 17 commands", f"two gloo ranks on {card()}, "
+        f"each command (and transformer with targets cut to "
+        f"{FAMILY_TARGETS}) at --mesh-data 2, B={FAMILY_B} global, fp32, "
+        f"{FAMILY_STEPS} steps, against the one-rank run on rank 0 (losses "
+        "at the first step / every step; gradients: distance over norm; "
+        f"limits {TOL_FAMILY}, {TOL_FAMILY_GRAD}), the ranks' parameters "
+        "equal bit for bit: " + "; ".join(lines)
+        + f"; FastPitch's K1 at batch offset 2: rows 2.. of the whole "
+        f"batch's, {err:.3e} from plain; {time.perf_counter() - t0:.1f} s")
+    check(not fails, "32: " + "; ".join(fails))
+    return err, launched
+
 
 # The float64 references of phases 23 and 25 run here, one at a time, while
 # the card runs the phase's other work (torch's CPU ops release the GIL)
@@ -7438,6 +7858,12 @@ def main() -> None:
             launched[k] += v
     with _phase("31"):
         phase_sequence()  # its paths launch no K1-K6 (checked there)
+    with _phase("32"):
+        fam_err, fam_launched = phase_families()
+        results["flash_fwd"]["max_abs_err"] = max(
+            results["flash_fwd"]["max_abs_err"], fam_err)
+        for k, v in fam_launched.items():  # counts set to 0 in the ranks
+            launched[k] += v
     say("phases", "seconds: " + ", ".join(
         f"{k} {v:.1f}" for k, v in PHASE_SECONDS.items())
         + f"; all {time.perf_counter() - T_START:.1f}")
@@ -7489,6 +7915,8 @@ def main() -> None:
 if __name__ == "__main__":
     if sys.argv[1:3] == ["--mesh", "31"]:  # a rank of phase 31, under torchrun
         _seq_child(sys.argv[3:])
+    elif sys.argv[1:3] == ["--mesh", "32"]:  # a rank of phase 32
+        _family_child(sys.argv[3:])
     elif sys.argv[1:2] == ["--mesh"]:  # a rank of phase 27, under torchrun
         _mesh_child(sys.argv[2], sys.argv[3:])
     else:

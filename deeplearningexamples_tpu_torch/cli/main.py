@@ -31,9 +31,12 @@ deeplearningexamples_tpu_torch.cli ...``) each process drives one card and
 the ranks form JAX's ``(data, model, sequence)`` mesh from ``--mesh-*``
 (``parallel/``): ``--batch-size`` is the global batch, each data rank trains
 on its rows of it, and a step computes what JAX's program computes on the
-global batch. The BERT commands, ``dlrm`` (``--mesh-model`` row-shards its
-table), the ConvNets, the GPUNets and ``ssd300`` take the data and model
-axes (a command that does not shard over the model axis replicates over it);
+global batch: its loss denominators, BN statistics and random draws are the
+global batch's, and its eval metrics come from every rank's rows. Every
+command takes the data axis. ``dlrm`` (``--mesh-model`` row-shards its
+table) and ``bert-pretrain`` shard along the model or sequence axis; every
+other command repeats the data rank's work on each rank of those axes, as
+JAX does, and its ranks end each step with equal parameters.
 ``bert-pretrain`` takes ``--zero`` (ZeRO-1) and the sequence axis:
 ``--attention-impl ring --mesh-sequence N`` splits each layer's attention
 over the N ranks of a sequence line (``ops/ring_attention.py``), which hold
@@ -42,11 +45,7 @@ parameters (``--mesh-sequence N`` with ``flash`` or ``xla`` repeats the
 same work on each, as in JAX). Only rank 0 logs and writes checkpoints.
 
 Flags whose machinery is not ported yet exit with a message that says so,
-rather than being ignored: ``--mesh-sequence`` above 1 for every command
-but ``bert-pretrain``; for ``efficientdet``, ``tacotron2``, ``waveglow``,
-``transformer``, ``bart``, ``gnmt``, the speech commands, ``ncf``, ``tft``,
-``nnunet``, ``transformer-xl``, ``moflow``, ``maskrcnn`` and
-``se3-transformer`` any mesh of more than one rank (their global loss denominators and BN statistics wait);
+rather than being ignored:
 for ``ssd300``, ``efficientdet`` and ``maskrcnn`` a ``--data-backend`` other than
 synthetic and coco; for ``bert-pretrain`` ``--zero`` with
 ``--flat-lamb``; for the fine-tuning commands an
@@ -83,7 +82,8 @@ from ..core.train import create_train_state, make_eval_step, make_train_step
 from ..parallel.dist import device_for_rank, initialize_distributed
 from ..parallel.mesh import (DATA_AXIS, MeshSpec, batch_positions,
                              build_mesh, check_batch_split, current_mesh,
-                             gather_objects, rank_rows, shard_batch)
+                             data_rows, gather_data_rows, gather_objects,
+                             rank_rows, shard_batch)
 
 __all__ = ["BartCliConfig", "BertCliConfig", "BertPretrainRun", "BreadthRun",
            "CommonConfig", "ConvNetCliConfig", "ConvNetRun", "DlrmCliConfig",
@@ -195,26 +195,11 @@ def _unported(model: str, todo: list[tuple[bool, str]]) -> None:
                              "PyTorch package yet (see ROADMAP.md)")
 
 
-_NO_SEQUENCE = ("--mesh-sequence above 1 (the sequence axis; bert-pretrain "
-                "takes it)")
-
-
 def _unported_bert(cfg: BertCliConfig) -> None:
     _unported("bert-pretrain", [
         (cfg.data_backend not in ("synthetic", "corpus"),
          f"--data-backend {cfg.data_backend} (synthetic and corpus are "
          "ported)"),
-    ])
-
-
-def _unported_mesh(model: str, cfg: CommonConfig) -> None:
-    """Refuse a mesh of more than one rank for a command whose global
-    loss denominators and BN statistics are not ported yet."""
-    _unported(model, [
-        (cfg.mesh_data not in (-1, 1) or cfg.mesh_model != 1
-         or cfg.mesh_sequence != 1 or current_mesh().world > 1,
-         "a mesh of more than one rank (its global loss denominators and "
-         "BN statistics)"),
     ])
 
 
@@ -224,7 +209,6 @@ def _unported_coco(model: str, cfg: CommonConfig) -> None:
         (cfg.data_backend not in ("synthetic", "coco"),
          f"--data-backend {cfg.data_backend} (synthetic and coco are "
          "ported)"),
-        (cfg.mesh_sequence != 1, _NO_SEQUENCE),
     ])
 
 
@@ -233,24 +217,18 @@ def _dtype(cfg: CommonConfig) -> torch.dtype:
     return torch.bfloat16 if cfg.amp else torch.float32
 
 
-def _common_setup(cfg: CommonConfig, name: str, only: str | None = None,
+def _common_setup(cfg: CommonConfig, name: str,
                   accum_steps: int | None = None) -> Logger:
     """Join ``torchrun``'s process group if there is one (each rank on its
     card), build the ``--mesh-*`` mesh over the ranks (1 x 1 x 1 without
     one), and the logger: only rank 0 logs, as in JAX. A ``--batch-size``
     that does not split evenly over the data ranks and the step's
-    microbatches (``accum_steps``, ``cfg.accum_steps`` by default) raises.
-    ``only``: the name of a command that runs on one rank only so far,
-    refused on a bigger mesh."""
-    if only:
-        _unported_mesh(only, cfg)
+    microbatches (``accum_steps``, ``cfg.accum_steps`` by default) raises."""
     initialize_distributed(device=cfg.device)
     if torch.distributed.is_initialized():
         cfg.device = str(device_for_rank(cfg.device))
     mesh = build_mesh(MeshSpec(data=cfg.mesh_data, model=cfg.mesh_model,
                                sequence=cfg.mesh_sequence))
-    if only:
-        _unported_mesh(only, cfg)
     check_batch_split(cfg.batch_size, accum_steps or cfg.accum_steps)
     logger = Logger(backends=[
         StdOutBackend(),
@@ -346,7 +324,6 @@ def build_convnet(arch: str, cfg: ConvNetCliConfig) -> ConvNetRun:
     from ..data.synthetic import SyntheticImageLoader
     from ..models.convnets import EFFNET_ARCHS, GPUNET_ARCHS, ClassificationTask
 
-    _unported(arch, [(cfg.mesh_sequence != 1, _NO_SEQUENCE)])
     if arch in EFFNET_ARCHS:
         image_size = EFFNET_ARCHS[arch].resolution
     elif arch in GPUNET_ARCHS:
@@ -391,14 +368,17 @@ def _local_rows(cfg: CommonConfig, accum_steps: int):
     return batch_positions(cfg.batch_size, accum_steps)
 
 
-def _feed(loader, device: str, real: bool, accum_steps: int = 1):
+def _feed(loader, device: str, real: bool, accum_steps: int = 1,
+          shard: bool = False):
     """A loader's batches on ``device``; a loader that reads files runs on a
     worker thread (``data.prefetch.background``), as JAX's does, and makes
-    only this rank's rows."""
+    only this rank's rows, unless ``shard`` (one that reads the whole batch,
+    whose rows ``to_device`` then takes)."""
     from ..data.prefetch import background
 
     if real:
-        return to_device(background(iter(loader)), device, shard=False)
+        return to_device(background(iter(loader)), device, accum_steps,
+                         shard=shard)
     return to_device(loader, device, accum_steps)
 
 
@@ -707,7 +687,6 @@ def _bert_finetune_tx(optimizer: str, lr: float, total: int, params):
 
 def _unported_finetune(name: str, cfg: CommonConfig) -> None:
     _unported(name, [
-        (cfg.mesh_sequence != 1, _NO_SEQUENCE),
         (bool(cfg.init_checkpoint)
          and os.path.exists(cfg.init_checkpoint + ".index"),
          f"--init-checkpoint {cfg.init_checkpoint} (a TF checkpoint: its "
@@ -1067,7 +1046,6 @@ def build_dlrm(cfg: DlrmCliConfig) -> DlrmRun:
         (cfg.data_backend not in ("synthetic", "binary"),
          f"--data-backend {cfg.data_backend} (synthetic and binary are "
          "ported)"),
-        (cfg.mesh_sequence != 1, _NO_SEQUENCE),
     ])
     spec = None
     if cfg.data_backend == "binary":
@@ -1152,7 +1130,6 @@ def build_tts(model_name: str, cfg: CommonConfig) -> TtsRun:
     CommonConfig's 0.1."""
     from ..models.tts import Tacotron2Task, WaveGlowTask
 
-    _unported_mesh(model_name, cfg)
     if cfg.data_backend not in ("synthetic", "ljspeech"):
         raise SystemExit(f"{model_name}: --data-backend {cfg.data_backend}: "
                          "synthetic or ljspeech")
@@ -1197,7 +1174,7 @@ def run_tts(model_name: str, cfg: CommonConfig):
     ``{workspace}/{model_name}_ckpt``; no evaluation. As JAX's ``run_tts``,
     it never reads ``--resume`` (each run starts from the seed's weights)
     nor ``--weight-decay``. Returns ``(state, best)``."""
-    logger = _common_setup(cfg, model_name, only=model_name)
+    logger = _common_setup(cfg, model_name)
     run = build_tts(model_name, cfg)
     ckpt = CheckpointManager(f"{cfg.workspace}/{model_name}_ckpt")
     return train_loop(
@@ -1227,7 +1204,6 @@ def build_transformer(cfg: CommonConfig) -> Seq2SeqRun:
     which never falls back: without ``--lr`` it is CommonConfig's 0.1."""
     from ..models.translation import TransformerConfig, TransformerTask
 
-    _unported_mesh("transformer", cfg)
     tcfg = TransformerConfig()
     task = TransformerTask(tcfg, _dtype(cfg))
     model = task.init(torch.Generator().manual_seed(cfg.seed), device=cfg.device)
@@ -1251,7 +1227,7 @@ def run_transformer(cfg: CommonConfig):
     ``{workspace}/transformer_ckpt``; no evaluation. As JAX's
     ``run_transformer``, it reads neither ``--resume`` nor
     ``--data-backend``. Returns ``(state, best)``."""
-    logger = _common_setup(cfg, "transformer", only="transformer")
+    logger = _common_setup(cfg, "transformer")
     run = build_transformer(cfg)
     ckpt = CheckpointManager(f"{cfg.workspace}/transformer_ckpt")
     return train_loop(
@@ -1303,7 +1279,8 @@ def bart_corpus(cfg: BartCliConfig):
 def bart_decode_val(cfg: BartCliConfig, model, data_dir: str, tok) -> dict:
     """``run_bart``'s summarize evaluation: every val batch beam-decoded
     with ``beam_search_cached`` (``--beam-size``, ``max_target_len + 2``
-    steps). Returns ``hyps`` and ``refs`` (the best sequences and the
+    steps), each data rank its rows of the batch, gathered in row order.
+    Returns ``hyps`` and ``refs`` (the best sequences and the
     targets without BOS, EOS and pads, for ``rouge_scores``), and per
     example ``src`` (numpy), the best sequence ``seqs`` and its
     length-normalised ``scores`` (on the host)."""
@@ -1318,21 +1295,29 @@ def bart_decode_val(cfg: BartCliConfig, model, data_dir: str, tok) -> dict:
     special = (mcfg.bos_id, mcfg.eos_id, mcfg.pad_id)
     out = {"hyps": [], "refs": [], "src": [], "seqs": [], "scores": []}
     for batch in val:
-        src = torch.from_numpy(batch["src"]).to(cfg.device)
-        with torch.no_grad():
-            memory, memory_mask = model.encode(src)
-        seqs, scores = beam_search_cached(
-            model, memory.repeat_interleave(beam, 0),
-            memory_mask.repeat_interleave(beam, 0), src.shape[0], beam,
-            max_len=cfg.max_target_len + 2, bos_id=mcfg.bos_id,
-            eos_id=mcfg.eos_id, pad_id=mcfg.pad_id, vocab_size=mcfg.vocab_size)
-        best = seqs[:, 0].cpu()
-        for row, tgt in zip(best.numpy(), batch["tgt"]):
-            out["hyps"].append([t for t in row.tolist() if t not in special])
-            out["refs"].append([t for t in tgt.tolist() if t not in special])
+        # each data rank decodes its rows; every rank gets all of them
+        lo, hi = rank_rows(len(batch["src"]))
+        part = ([], [], [])
+        if hi > lo:
+            src = torch.from_numpy(batch["src"][lo:hi]).to(cfg.device)
+            with torch.no_grad():
+                memory, memory_mask = model.encode(src)
+            seqs, scores = beam_search_cached(
+                model, memory.repeat_interleave(beam, 0),
+                memory_mask.repeat_interleave(beam, 0), src.shape[0], beam,
+                max_len=cfg.max_target_len + 2, bos_id=mcfg.bos_id,
+                eos_id=mcfg.eos_id, pad_id=mcfg.pad_id,
+                vocab_size=mcfg.vocab_size)
+            part = (list(seqs[:, 0].cpu()), list(scores[:, 0].cpu()),
+                    [[t for t in row.tolist() if t not in special]
+                     for row in seqs[:, 0].cpu().numpy()])
+        best, score, hyps = (sum(x, []) for x in zip(*gather_objects(part)))
+        out["hyps"] += hyps
+        out["refs"] += [[t for t in tgt.tolist() if t not in special]
+                        for tgt in batch["tgt"]]
         out["src"].append(batch["src"])
-        out["seqs"].append(best)
-        out["scores"].append(scores[:, 0].cpu())
+        out["seqs"].append(torch.stack(best))
+        out["scores"].append(torch.stack(score))
     if out["src"]:
         out["src"] = np.concatenate(out["src"])
         out["seqs"], out["scores"] = (torch.cat(out[k])
@@ -1354,7 +1339,7 @@ def run_bart(cfg: BartCliConfig):
     from ..models.bart import BartTask
     from ..models.translation import TransformerConfig
 
-    logger = _common_setup(cfg, "bart", only="bart")
+    logger = _common_setup(cfg, "bart")
     data_dir, tok = bart_corpus(cfg)
     tcfg = TransformerConfig(
         vocab_size=len(tok.vocab), d_model=256, d_ff=1024, num_heads=4,
@@ -1420,7 +1405,6 @@ def build_ncf(cfg: CommonConfig) -> NcfRun:
     step takes no ``--accum-steps``."""
     from ..models.ncf import NcfConfig, NcfTask
 
-    _unported_mesh("ncf", cfg)
     ncfg = NcfConfig()
     task = NcfTask(ncfg, _dtype(cfg))
     model = task.init(torch.Generator().manual_seed(cfg.seed), device=cfg.device)
@@ -1440,7 +1424,7 @@ def run_ncf(cfg: CommonConfig):
     """Train NeuMF (``build_ncf``) with checkpoints in
     ``{workspace}/ncf_ckpt``; no evaluation. As JAX's ``run_ncf``, it reads
     neither ``--resume`` nor ``--data-backend``. Returns ``(state, best)``."""
-    logger = _common_setup(cfg, "ncf", only="ncf", accum_steps=1)
+    logger = _common_setup(cfg, "ncf", accum_steps=1)
     run = build_ncf(cfg)
     ckpt = CheckpointManager(f"{cfg.workspace}/ncf_ckpt")
     return train_loop(
@@ -1475,7 +1459,6 @@ def build_tft(cfg: CommonConfig) -> TftRun:
                                    make_synthetic_series)
     from ..models.tft import TFTConfig, TFTTask
 
-    _unported_mesh("tft", cfg)
     if cfg.data_backend == "npy":
         panel = np.load(f"{cfg.data_dir}/panel.npy")
     else:
@@ -1500,16 +1483,17 @@ def build_tft(cfg: CommonConfig) -> TftRun:
 def tft_test_metrics(cfg: CommonConfig, run: TftRun, model) -> dict:
     """The test split's forecasts without dropout, and their
     ``forecast_metrics`` (MAE, RMSE, SMAPE, ND, P50, P90); {} when the
-    split has no whole batch."""
+    split has no whole batch. Under a data axis each rank forecasts its
+    rows of a batch and the metrics are over every rank's."""
     from ..data.timeseries import WindowedTimeSeriesDataset, forecast_metrics
 
     test = WindowedTimeSeriesDataset(run.panel, run.spec, cfg.batch_size,
                                      split="test", seed=cfg.seed)
     preds, targets = [], []
     for batch in to_device(test, cfg.device):
-        preds.append(run.task.predict_fn(model, batch["observed"],
-                                         batch["known"]).cpu().numpy())
-        targets.append(batch["target"].cpu().numpy())
+        pred = run.task.predict_fn(model, batch["observed"], batch["known"])
+        preds.append(gather_data_rows(pred).cpu().numpy())
+        targets.append(gather_data_rows(batch["target"]).cpu().numpy())
     if not preds:
         return {}
     return forecast_metrics(np.concatenate(preds), np.concatenate(targets),
@@ -1520,7 +1504,7 @@ def run_tft(cfg: CommonConfig):
     """Train TFT (``build_tft``) with checkpoints in ``{workspace}/tft_ckpt``
     (``--resume`` reads them), then the test split's metrics, logged as
     ``test.*``. Returns ``(state, best, test metrics)``."""
-    logger = _common_setup(cfg, "tft", only="tft")
+    logger = _common_setup(cfg, "tft")
     run = build_tft(cfg)
     ckpt = CheckpointManager(f"{cfg.workspace}/tft_ckpt")
     state, start_epoch = _maybe_resume(cfg, ckpt, run.state, len(run.loader))
@@ -1712,9 +1696,10 @@ def build_breadth(name: str, cfg: CommonConfig) -> BreadthRun:
     loader = [batch_fn() for _ in range(min(cfg.steps_per_epoch, 16))]
     loader = (loader * (-(-cfg.steps_per_epoch // len(loader))))[
         :cfg.steps_per_epoch]
-    if hasattr(task, "initial_state"):
+    if hasattr(task, "initial_state"):  # this rank's rows' memories
         model_state = task.initial_state(
-            model, cfg.batch_size // cfg.accum_steps)
+            model, cfg.batch_size // cfg.accum_steps
+            // current_mesh().size(DATA_AXIS))
     else:
         model_state = task.model_state(model) \
             if hasattr(task, "model_state") else None
@@ -1727,7 +1712,7 @@ def build_breadth(name: str, cfg: CommonConfig) -> BreadthRun:
 def run_breadth(name: str, cfg: CommonConfig):
     """JAX's ``run_breadth`` (``build_breadth``), ``--resume`` from
     ``{workspace}/{name}_ckpt``. Returns ``(state, best)``."""
-    logger = _common_setup(cfg, name.replace("-", "_"), only=name)
+    logger = _common_setup(cfg, name.replace("-", "_"))
     run = build_breadth(name, cfg)
     ckpt = CheckpointManager(f"{cfg.workspace}/{name.replace('-', '_')}_ckpt")
     state, start_epoch = _maybe_resume(cfg, ckpt, run.state, len(run.loader))
@@ -1744,7 +1729,7 @@ def run_hifigan(cfg: CommonConfig):
     and ``train.mel_l1``. Returns ``(gen, disc, last metrics)``."""
     from ..models.tts import HiFiGanTask
 
-    logger = _common_setup(cfg, "hifigan", only="hifigan")
+    logger = _common_setup(cfg, "hifigan")
     task = HiFiGanTask(dtype=_dtype(cfg))
     gen, disc = task.init(torch.Generator().manual_seed(cfg.seed),
                           device=cfg.device)
@@ -1772,6 +1757,15 @@ def run_hifigan(cfg: CommonConfig):
     return gen, disc, out
 
 
+def _gathered_images(batch: dict, images: list) -> list:
+    """Every data rank's per-image eval records of a val batch, in the
+    batch's row order, without the pad rows past its ``n_valid``: each rank
+    holds ``images`` for its rows of the batch (``to_device``'s)."""
+    lo = data_rows(len(images))[0]
+    mine = images[:max(0, int(batch["n_valid"]) - lo)]
+    return [x for part in gather_objects(mine) for x in part]
+
+
 def run_efficientdet(cfg: DetectorCliConfig):
     """EfficientDet-D0 training (reference ``Efficientdet/train.py``), as
     JAX's ``run_efficientdet``: synthetic COCO-shaped batches, or with
@@ -1784,7 +1778,7 @@ def run_efficientdet(cfg: DetectorCliConfig):
     from ..data.det_synthetic import SyntheticDetectionLoader
     from ..models.efficientdet import EfficientDetConfig, EfficientDetTask
 
-    logger = _common_setup(cfg, "efficientdet", only="efficientdet")
+    logger = _common_setup(cfg, "efficientdet")
     _unported_coco("efficientdet", cfg)
     task = EfficientDetTask(EfficientDetConfig(image_size=cfg.image_size or 512),
                             dtype=_dtype(cfg))
@@ -1815,7 +1809,8 @@ def run_efficientdet(cfg: DetectorCliConfig):
     state, start_epoch = _maybe_resume(cfg, ckpt, state, len(loader))
     train_step = make_train_step(task.loss_fn, tx, accum_steps=cfg.accum_steps)
     state, best = train_loop(
-        state, train_step, lambda: _feed(loader, cfg.device, real),
+        state, train_step,
+        lambda: _feed(loader, cfg.device, real, cfg.accum_steps, shard=True),
         cfg=_loop_cfg(cfg), logger=logger, checkpoints=ckpt,
         batch_size=cfg.batch_size, start_epoch=start_epoch)
     if ds_val is None:
@@ -1831,10 +1826,11 @@ def run_efficientdet(cfg: DetectorCliConfig):
             state.model, batch["image"], max_out=100, score_threshold=0.05))
         gt_boxes, gt_labels, gt_valid = (batch[k].cpu().numpy() for k in
                                          ("boxes", "labels", "valid"))
-        for i in range(batch["n_valid"]):
-            keep, gv = valid[i], gt_valid[i]
-            ev.add_image(boxes[i][keep], labels[i][keep], scores[i][keep],
-                         gt_boxes[i][gv], gt_labels[i][gv])
+        for image in _gathered_images(batch, [
+                (boxes[i][k], labels[i][k], scores[i][k], gt_boxes[i][g],
+                 gt_labels[i][g])
+                for i, (k, g) in enumerate(zip(valid, gt_valid))]):
+            ev.add_image(*image)
     m = ev.compute()
     metrics = {"val.bbox_mAP": m["mAP"], "val.bbox_mAP50": m["mAP50"]}
     logger.log((), metrics)
@@ -1857,7 +1853,7 @@ def run_maskrcnn(cfg: DetectorCliConfig):
     from ..data.det_synthetic import SyntheticDetectionLoader
     from ..models.maskrcnn import MaskRCNNConfig, MaskRCNNTask
 
-    logger = _common_setup(cfg, "maskrcnn", only="maskrcnn")
+    logger = _common_setup(cfg, "maskrcnn")
     _unported_coco("maskrcnn", cfg)
     task = MaskRCNNTask(MaskRCNNConfig(image_size=cfg.image_size or 800),
                         dtype=_dtype(cfg))
@@ -1889,7 +1885,8 @@ def run_maskrcnn(cfg: DetectorCliConfig):
     state, start_epoch = _maybe_resume(cfg, ckpt, state, len(loader))
     train_step = make_train_step(task.loss_fn, tx, accum_steps=cfg.accum_steps)
     state, best = train_loop(
-        state, train_step, lambda: _feed(loader, cfg.device, real),
+        state, train_step,
+        lambda: _feed(loader, cfg.device, real, cfg.accum_steps, shard=True),
         cfg=_loop_cfg(cfg), logger=logger, checkpoints=ckpt,
         batch_size=cfg.batch_size, start_epoch=start_epoch)
     if ds_val is None:
@@ -1909,13 +1906,12 @@ def run_maskrcnn(cfg: DetectorCliConfig):
         gt_boxes, gt_labels, gt_valid, gt_masks = (
             batch[k].cpu().numpy() for k in ("boxes", "labels", "valid",
                                              "masks"))
-        for i in range(batch["n_valid"]):
-            keep, gv = valid[i], gt_valid[i]
-            box_ev.add_image(boxes[i][keep], labels[i][keep], scores[i][keep],
-                             gt_boxes[i][gv], gt_labels[i][gv])
-            mask_ev.add_image_masks(boxes[i][keep], masks[i][keep],
-                                    labels[i][keep], scores[i][keep],
-                                    gt_masks[i][gv], gt_labels[i][gv])
+        for b, m, lab, s, gb, gm, gl in _gathered_images(batch, [
+                (boxes[i][k], masks[i][k], labels[i][k], scores[i][k],
+                 gt_boxes[i][g], gt_masks[i][g], gt_labels[i][g])
+                for i, (k, g) in enumerate(zip(valid, gt_valid))]):
+            box_ev.add_image(b, lab, s, gb, gl)
+            mask_ev.add_image_masks(b, m, lab, s, gm, gl)
     box_m, mask_m = box_ev.compute(), mask_ev.compute()
     metrics = {"val.bbox_mAP": box_m["mAP"], "val.bbox_mAP50": box_m["mAP50"],
                "val.segm_mAP": mask_m["mAP"],

@@ -39,6 +39,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.detection import batched_nms, box_iou, match_proposals
+from ..parallel.mesh import data_mean
 from .convnets.efficientnet import EFFNET_ARCHS, EfficientNet
 from .convnets.layers import _TRUNC_STD, BatchNorm2d, Conv2d, init_weights_
 
@@ -362,7 +363,7 @@ class EfficientDetTask:
         cls, box = model(batch["image"].permute(0, 3, 1, 2), generator)
         cls_t, box_t, pos, ignore = self.targets(
             batch["boxes"], batch["labels"], batch["valid"])
-        n_pos = pos.sum().float().clamp_min(1.0)
+        n_pos = pos.sum().float()  # summed over the data axis by data_mean
         # focal loss over anchors; background = all-zero one-hot
         onehot = F.one_hot(cls_t.clamp_min(0), self.cfg.num_classes).float()
         onehot = onehot * (cls_t >= 0)[..., None]
@@ -373,12 +374,13 @@ class EfficientDetTask:
         bce = -torch.log(pt.clamp_min(1e-8))
         fl = a_t * (1 - pt) ** gamma * bce
         fl = torch.where(ignore[..., None], 0.0, fl)
-        cls_loss = fl.sum() / n_pos
+        cls_loss = data_mean(fl.sum(), n_pos)
         # huber box loss on positives (reference loss.py delta=0.1)
         err = box - box_t
         huber = torch.where(err.abs() < 0.1, 0.5 * err ** 2 / 0.1,
                             err.abs() - 0.05)
-        box_loss = torch.where(pos[..., None], huber, 0.0).sum() / n_pos
+        box_loss = data_mean(torch.where(pos[..., None], huber, 0.0).sum(),
+                             n_pos)
         loss = cls_loss + 50.0 * box_loss
         return loss, (model_state, {"cls_loss": cls_loss.detach(),
                                     "box_loss": box_loss.detach()})

@@ -55,6 +55,7 @@ from ..ops.detection import (batched_nms, box_iou, decode_boxes,
 from .convnets.layers import Dense, init_weights_
 from .convnets.resnet import ARCHS, ResNet
 from .efficientdet import _Conv
+from ..parallel.mesh import data_mean, draw_rows
 from .tts.layers import device_generator, lecun_normal_
 
 __all__ = ["MaskRCNN", "MaskRCNNConfig", "MaskRCNNTask", "ROI_BOX_WEIGHTS",
@@ -359,7 +360,10 @@ class MaskRCNNTask:
         b, g = batch["boxes"].shape[:2]
         a = sum(x.shape[0] for x in self._anchors)
         r = self.cfg.rpn_post_nms_top_n + g
-        return {k: torch.rand((b, n), generator=gen, device=dev)
+        # under a data axis each at the global batch's rows, of which this
+        # rank keeps its own
+        return {k: draw_rows(lambda rows, n=n: torch.rand(
+                    (rows, n), generator=gen, device=dev), b)
                 for k, n in (("rpn_pos", a), ("rpn_neg", a),
                              ("roi_pos", r), ("roi_neg", r))}
 
@@ -488,15 +492,17 @@ class MaskRCNNTask:
             cls_logits = cls_logits.reshape(b, r, -1)
             box_deltas = box_deltas.reshape(b, r, cfg.num_classes, 4)
             live = cls_t >= 0
-            n_live = live.sum().clamp_min(1).to(cls_logits.dtype)
+            # summed over the data axis by data_mean
+            n_live = live.sum().to(cls_logits.dtype)
             safe_t = cls_t.clamp_min(0)
             logp = F.log_softmax(cls_logits, -1).gather(2, safe_t[..., None])
-            cls_loss = -torch.where(live, logp[..., 0], 0.0).sum() / n_live
+            cls_loss = data_mean(-torch.where(live, logp[..., 0], 0.0).sum(),
+                                 n_live)
             pred_box = box_deltas.gather(
                 2, safe_t[..., None, None].expand(b, r, 1, 4))[:, :, 0]
             # zero the error, not the loss, on dead slots
             err = torch.where(is_pos[..., None], pred_box - box_t, 0.0)
-            box_loss = _smooth_l1(err, 1.0).sum() / n_live
+            box_loss = data_mean(_smooth_l1(err, 1.0).sum(), n_live)
 
         # the mask head on the positive slots 0..n_pos
         with span("maskrcnn.mask_head"):
@@ -512,8 +518,9 @@ class MaskRCNNTask:
                 mask_t = self.mask_targets(batch["masks"], gt_i[:, :n_pos],
                                            mrois)
             bce = _sigmoid_bce(mask_logits, mask_t.to(mask_logits.dtype))
-            mask_loss = torch.where(mok[..., None, None], bce, 0.0).sum() / (
-                mok.sum().clamp_min(1).to(bce.dtype) * m * m)
+            mask_loss = data_mean(
+                torch.where(mok[..., None, None], bce, 0.0).sum(),
+                mok.sum().to(bce.dtype)) / (m * m)
 
         metrics = {"rpn_cls": rpn_cls.mean(), "rpn_box": rpn_box.mean(),
                    "cls_loss": cls_loss, "box_loss": box_loss,

@@ -39,6 +39,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel.mesh import draw_rows
 from .convnets.layers import Dense
 from .tts.layers import BatchNorm1d, device_generator, lecun_normal_
 
@@ -388,9 +389,12 @@ class MoFlowTask:
         """The dequantisation noise: U(0, 1) of the atoms' and the
         adjacency's shapes, on their device, from ``generator``."""
         gen = device_generator(generator, batch["atoms"].device)
-        return {k: torch.rand(batch[k].shape, generator=gen,
-                              device=batch[k].device,
-                              dtype=batch[k].dtype) for k in ("atoms", "adj")}
+        # under a data axis each at the global batch's rows, of which this
+        # rank keeps its own
+        return {k: draw_rows(lambda rows, x=batch[k]: torch.rand(
+                    (rows, *x.shape[1:]), generator=gen, device=x.device,
+                    dtype=x.dtype), batch[k].shape[0])
+                for k in ("atoms", "adj")}
 
     def loss_fn(self, model: MoFlow, model_state, batch: dict,
                 generator: torch.Generator):

@@ -23,6 +23,8 @@ softmax bias) and per layer ``dec_attn.qkv_net`` (q, k and v stacked),
   JAX).
 - The memories and ``mem_valid`` travel in the train state's
   ``model_state`` from step to step, detached; the checkpoint keeps them.
+  Under a data axis each rank carries its own rows' memories, and the
+  checkpoint holds them whole in the global batch's row order.
 
 Dropout is ``ops.dropout.RegenDropout`` (its bits cannot match
 ``jax.random``).
@@ -39,6 +41,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.dropout import RegenDropout
+from ..parallel.mesh import DATA_AXIS, data_rows, mark_sharded
 from .bert.modeling import LayerNorm
 from .convnets.layers import Dense
 from .tts.layers import acc_dtype
@@ -214,6 +217,16 @@ class TransformerXL(nn.Module):
         return logits + self.crit.out_layers_biases[0].to(acc), new_mems
 
 
+def _rows_of_global(mems: list[torch.Tensor]) -> list[torch.Tensor]:
+    """The memories marked as this rank's rows of the global batch's (each
+    rank carries its own rows'), so that a checkpoint holds them whole in
+    the global batch's row order and a restore at another data degree takes
+    each rank's rows back."""
+    for m in mems:
+        mark_sharded(m, DATA_AXIS, data_rows(m.shape[0])[1])
+    return mems
+
+
 @dataclass
 class TransformerXLTask:
     """A batch holds ``tokens`` and ``targets`` (B, T) int; the memories
@@ -234,7 +247,7 @@ class TransformerXLTask:
         (the same step as ``{}``), with the tensors a checkpoint restores
         into."""
         device = model.table.device
-        return {"mems": model.initial_mems(batch, device),
+        return {"mems": _rows_of_global(model.initial_mems(batch, device)),
                 "mem_valid": torch.zeros((), dtype=torch.int32, device=device)}
 
     def loss_fn(self, model: TransformerXL, model_state, batch: dict,
@@ -250,5 +263,6 @@ class TransformerXLTask:
         new_valid = torch.clamp(
             torch.as_tensor(prev, dtype=torch.int32, device=logits.device)
             + batch["tokens"].shape[1], max=self.cfg.mem_len)
-        return loss, ({"mems": new_mems, "mem_valid": new_valid},
+        return loss, ({"mems": _rows_of_global(new_mems),
+                       "mem_valid": new_valid},
                       {"ppl_proxy": loss.detach()})

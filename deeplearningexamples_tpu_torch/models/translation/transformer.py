@@ -44,6 +44,7 @@ from torch import nn
 
 from ...ops.dropout import RegenDropout
 from ...ops.flash_attention import flash_attention
+from ...parallel.mesh import data_mean
 from ..bert.modeling import LayerNorm
 from ..convnets.layers import Dense
 from ..tts.layers import acc_dtype, lecun_normal_
@@ -347,13 +348,15 @@ def label_smoothed_loss(logits: torch.Tensor, tgt_out: torch.Tensor,
                         pad_id: int, smoothing: float) -> torch.Tensor:
     """``(1 - s) * nll + s * smooth`` over the non-pad targets, where
     ``smooth`` is minus the mean log-probability over every column of the
-    logits, the padded vocab's included (JAX's ``loss_fn``)."""
+    logits, the padded vocab's included (JAX's ``loss_fn``). Under a data
+    axis the mean is over the global batch's non-pad targets
+    (``data_mean``)."""
     valid = (tgt_out != pad_id).to(logits.dtype)
     logp = F.log_softmax(logits, -1)
     nll = -logp.gather(-1, tgt_out.long()[..., None])[..., 0]
     smooth = -logp.mean(-1)
     ce = (1.0 - smoothing) * nll + smoothing * smooth
-    return (ce * valid).sum() / valid.sum().clamp(min=1.0)
+    return data_mean((ce * valid).sum(), valid.sum())
 
 
 @dataclass

@@ -30,6 +30,11 @@ external-alignment mode); the online aligner is not part of the model here
 or in JAX. Hidden dropout is ``ops.dropout.RegenDropout``, whose bits
 cannot match ``jax.random``; the attention dropout's hash is JAX's bit for
 bit, given the same seed.
+
+Under a data axis (``parallel/mesh.py``) each rank hashes its rows of K1's
+dropout as their rows of the global batch (``dropout_batch_offset``), and
+the masked means divide by the global batch's counts (``data_mean``), so a
+step computes what the one-rank run computes on the global batch.
 """
 
 from __future__ import annotations
@@ -43,6 +48,7 @@ from torch import nn
 
 from ...ops.dropout import RegenDropout
 from ...ops.flash_attention import flash_attention
+from ...parallel.mesh import data_mean, data_rows
 from ..bert.modeling import LayerNorm
 from ..convnets.layers import Dense
 from .layers import Conv1d, acc_dtype
@@ -144,8 +150,10 @@ class _MultiHeadAttn(nn.Module):
         q, k, v = (t.view(b, s, self.n_heads, self.head_dim) for t in
                    self.qkv_net(x).split(self.n_heads * self.head_dim, -1))
         rate = self.dropatt if seed is not None else 0.0
+        # K1 hashes each row's dropout bits by its row of the global batch
         ctx = flash_attention(q, k, v, key_mask=mask, layout="bshd",
-                              dropout_rate=rate, dropout_seed=seed or 0)
+                              dropout_rate=rate, dropout_seed=seed or 0,
+                              dropout_batch_offset=data_rows(b)[0])
         return ctx.reshape(b, s, self.n_heads * self.head_dim)
 
 
@@ -347,18 +355,22 @@ class FastPitchTask:
             batch["text"], batch["durations"], batch["pitch"],
             energy=energy_tgt, max_mel_len=batch["mel"].shape[1],
             generator=generator)
+        # the masked means over the global batch (``data_mean``)
         m = mel_mask[:, :, None].float()
-        denom = m.sum().clamp_min(1.0)
-        mel_loss = (((mel - batch["mel"]) ** 2) * m).sum() / (denom * cfg.n_mels)
+        mel_loss = data_mean((((mel - batch["mel"]) ** 2) * m).sum(),
+                             m.sum()) / cfg.n_mels
         tmask = (batch["text"] != 0).float()
-        tdenom = tmask.sum().clamp_min(1.0)
+        tcount = tmask.sum()
         target_dur = torch.log1p(batch["durations"].float())
-        dur_loss = (((log_dur - target_dur) ** 2) * tmask).sum() / tdenom
-        pitch_loss = (((pitch_pred - batch["pitch"]) ** 2) * tmask).sum() / tdenom
+        dur_loss = data_mean((((log_dur - target_dur) ** 2) * tmask).sum(),
+                             tcount)
+        pitch_loss = data_mean(
+            (((pitch_pred - batch["pitch"]) ** 2) * tmask).sum(), tcount)
         loss = mel_loss + 0.1 * dur_loss + 0.1 * pitch_loss
         metrics = {"mel_loss": mel_loss.detach(), "dur_loss": dur_loss.detach()}
         if cfg.energy:
-            energy_loss = (((energy_pred - energy_tgt) ** 2) * tmask).sum() / tdenom
+            energy_loss = data_mean(
+                (((energy_pred - energy_tgt) ** 2) * tmask).sum(), tcount)
             loss = loss + 0.1 * energy_loss
             metrics["energy_loss"] = energy_loss.detach()
         return loss, (model_state, metrics)

@@ -26,7 +26,9 @@ The last convolutions (the generator's ``conv_post`` and each
 discriminator's) run in fp32. ``HiFiGanTask`` gives the differentiable
 log-mel of the mel-L1 loss (reflect padding, a periodic Hann window,
 ``rfft``) and the alternating ``d_step`` and ``g_step``, the fake audio
-detached in the discriminator's loss.
+detached in the discriminator's loss. Under a data axis each step averages
+its gradients and its losses over the data ranks (the losses are plain
+means over equal rows), as JAX's steps do on the global batch.
 """
 
 from __future__ import annotations
@@ -38,6 +40,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ...parallel.mesh import all_reduce_mean_, mean_over_data
 from .audio import MelConfig, mel_filterbank
 from .layers import Conv1d, acc_dtype, lecun_normal_, same_pads
 
@@ -333,13 +336,23 @@ class HiFiGanTask:
                       "mel_l1": mel_l1.detach()}
 
     @staticmethod
-    def _update(tx, model: nn.Module, opt_state, loss: torch.Tensor):
+    def grads(model: nn.Module, loss: torch.Tensor) -> dict:
+        """The gradients of ``loss`` by parameter name, averaged over the
+        data axis (0 where the loss does not reach a parameter)."""
         params = dict(model.named_parameters())
         grads = torch.autograd.grad(loss, list(params.values()),
                                     allow_unused=True)
         with torch.no_grad():
             grads = {n: torch.zeros_like(p) if g is None else g
                      for (n, p), g in zip(params.items(), grads)}
+            all_reduce_mean_(list(grads.values()))
+        return grads
+
+    @classmethod
+    def _update(cls, tx, model: nn.Module, opt_state, loss: torch.Tensor):
+        params = dict(model.named_parameters())
+        grads = cls.grads(model, loss)
+        with torch.no_grad():
             updates, opt_state = tx.update(grads, opt_state, params)
             torch._foreach_add_(list(params.values()),
                                 [updates[n] for n in params])
@@ -352,10 +365,13 @@ class HiFiGanTask:
 
         def d_step(disc, d_opt, gen, batch):
             loss = self.d_loss(gen, disc, batch)
-            return self._update(d_tx, disc, d_opt, loss), loss.detach()
+            d_opt = self._update(d_tx, disc, d_opt, loss)
+            return d_opt, mean_over_data({"loss": loss.detach()})["loss"]
 
         def g_step(gen, g_opt, disc, batch):
             loss, aux = self.g_loss(gen, disc, batch)
-            return self._update(g_tx, gen, g_opt, loss), loss.detach(), aux
+            g_opt = self._update(g_tx, gen, g_opt, loss)
+            aux = mean_over_data({**aux, "loss": loss.detach()})
+            return g_opt, aux.pop("loss"), aux
 
         return g_step, d_step

@@ -28,7 +28,9 @@ an odd kernel is ``(k - 1) // 2 * dilation`` on each side.
   every position.
 - ``Dropout``: ``x / (1 - p)`` where kept, the keep mask drawn from a
   generator on the tensor's device; ``always`` keeps it on outside training
-  too (the reference's quirks, which JAX keeps).
+  too (the reference's quirks, which JAX keeps). Under a data axis the mask
+  is drawn at the global batch's rows and this rank keeps its own, so each
+  row takes the mask the one-rank run draws for it.
 """
 
 from __future__ import annotations
@@ -40,6 +42,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ...ops.dropout import draw_seed
+from ...parallel.mesh import draw_rows
 from ..convnets.layers import _TRUNC_STD, BatchNorm2d
 
 __all__ = ["BatchNorm1d", "Conv1d", "ConvNorm", "Dropout", "LSTMCell", "LSTMLayer",
@@ -260,5 +263,7 @@ class Dropout(nn.Module):
         if self.p == 0 or (deterministic and not self.always):
             return x
         keep = 1.0 - self.p
-        mask = torch.empty_like(x).bernoulli_(keep, generator=generator)
+        # the global batch's mask, of which this rank keeps its rows
+        mask = draw_rows(lambda rows: x.new_empty((rows, *x.shape[1:]))
+                         .bernoulli_(keep, generator=generator), x.shape[0])
         return x * mask.div_(keep)

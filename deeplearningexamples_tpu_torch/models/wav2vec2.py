@@ -30,6 +30,13 @@ keeps. The random draws, the Gumbel noise's uniforms and the negatives'
 indices in ``Wav2Vec2Task``, the time mask in ``Wav2Vec2CtcTask``, each
 come from one method, which the CPU tests replace with JAX's draws; the
 hidden dropout is ``ops.dropout.RegenDropout``.
+
+Under a data axis (``parallel/mesh.py``) each draw is made at the global
+batch's rows and a rank keeps its own (``draw_rows``), the contrastive
+loss is over the global batch's masked frames (``data_mean``), and the
+perplexity is of the codebook probabilities' mean over the global batch's
+frames (``sum_over_ranks``): a nonlinear function of a batch mean, which
+the ranks' own perplexities averaged would not give.
 """
 
 from __future__ import annotations
@@ -44,6 +51,7 @@ from torch import nn
 from ..core.losses import ctc_loss
 from ..ops.dropout import RegenDropout
 from ..ops.flash_attention import flash_attention
+from ..parallel.mesh import data_mean, data_rows, draw_rows, sum_over_ranks
 from .bert.modeling import LayerNorm
 from .convnets.layers import Dense
 from .tts.layers import Conv1d, acc_dtype
@@ -199,7 +207,11 @@ class GumbelQuantizer(nn.Module):
             y = y_hard + y - y.detach()  # straight-through
         codebook = self.vars.to(logits.dtype).reshape(g, e, -1)
         q = torch.einsum("btge,ged->btgd", y, codebook).reshape(b, t, -1)
-        avg = torch.softmax(logits, -1).mean((0, 1))
+        # the mean over the global batch's frames: the rows' sums summed
+        # over the data axis (whose backward sums the cotangents, as each
+        # rank's loss holds the whole perplexity), over the global count
+        n = data_rows(b)[1] * t
+        avg = sum_over_ranks(torch.softmax(logits, -1).sum((0, 1))) / n
         perplexity = torch.exp(-(avg * torch.log(avg + 1e-9)).sum(-1))
         return q, perplexity
 
@@ -333,11 +345,13 @@ class Wav2Vec2Task:
         cfg = self.cfg
         g = torch.Generator(device=device)
         g.manual_seed(int(torch.randint(0, 2**62, (1,), generator=generator)))
-        u = torch.rand((b, t, cfg.n_groups, cfg.n_entries), generator=g,
-                       device=device)
+        u = draw_rows(lambda rows: torch.rand(
+            (rows, t, cfg.n_groups, cfg.n_entries), generator=g,
+            device=device), b)
         return {"uniform": u * (1.0 - 2e-6) + 1e-6,
-                "negatives": torch.randint(0, t - 1, (b, t, self.n_negatives(t)),
-                                           generator=g, device=device)}
+                "negatives": draw_rows(lambda rows: torch.randint(
+                    0, t - 1, (rows, t, self.n_negatives(t)), generator=g,
+                    device=device), b)}
 
     def loss_fn(self, model: nn.Module, model_state, batch: dict,
                 generator: torch.Generator):
@@ -363,7 +377,7 @@ class Wav2Vec2Task:
         logits = torch.cat([pos_sim[..., None], neg_sim], -1)
         ce = torch.logsumexp(logits, -1) - logits[..., 0]
         m = mask.float()
-        contrastive = (ce * m).sum() / m.sum().clamp_min(1.0)
+        contrastive = data_mean((ce * m).sum(), m.sum())
         diversity = ((cfg.n_entries - perplexity) / cfg.n_entries).mean()
         loss = contrastive + cfg.diversity_weight * diversity
         return loss, (model_state, {"contrastive": contrastive.detach(),
@@ -416,7 +430,8 @@ class Wav2Vec2CtcTask:
         ``mask_prob``."""
         g = torch.Generator(device=device)
         g.manual_seed(int(torch.randint(0, 2**62, (1,), generator=generator)))
-        return torch.rand((b, frames), generator=g, device=device) < self.mask_prob
+        return draw_rows(lambda rows: torch.rand(
+            (rows, frames), generator=g, device=device), b) < self.mask_prob
 
     def loss_fn(self, model: nn.Module, model_state, batch: dict,
                 generator: torch.Generator):

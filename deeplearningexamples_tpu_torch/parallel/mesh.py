@@ -57,7 +57,7 @@ __all__ = [
     "AXES", "DATA_AXIS", "MODEL_AXIS", "SEQ_AXIS", "Mesh", "MeshSpec",
     "all_gather_rows", "all_reduce_", "all_reduce_mean_", "batch_positions",
     "build_mesh", "check_batch_split",
-    "current_mesh", "data_mean", "data_rows", "gather_data_rows",
+    "current_mesh", "data_mean", "data_rows", "draw_rows", "gather_data_rows",
     "gather_along", "gather_objects", "global_flip", "gather_sharded",
     "mark_sharded", "mean_over_data", "ppermute", "rank_rows", "reset_mesh",
     "shard_along", "shard_batch", "shard_rows_of", "sum_cotangents",
@@ -192,6 +192,16 @@ def data_rows(n_local: int) -> tuple[int, int]:
     the one-rank run draws for these rows."""
     mesh = current_mesh()
     return mesh.index(DATA_AXIS) * n_local, n_local * mesh.size(DATA_AXIS)
+
+
+def draw_rows(draw, n_local: int) -> torch.Tensor:
+    """This rank's ``n_local`` rows of ``draw(rows)``, a random draw whose
+    dim 0 is ``rows``, made at the global batch's rows: the rows the
+    one-rank run draws for this rank's part of the batch (the draw itself on
+    one data rank)."""
+    off, rows = data_rows(n_local)
+    out = draw(rows)
+    return out if rows == n_local else out[off:off + n_local]
 
 
 def check_batch_split(n: int, accum_steps: int = 1) -> None:

@@ -455,7 +455,9 @@ def test_cli_tft_takes_its_configs_yml_section(tmp_path, small_tft):
 
 
 @pytest.mark.parametrize("command", ["ncf", "tft"])
-def test_cli_refuses_a_mesh(tmp_path, command):
-    with pytest.raises(SystemExit, match="not ported"):
+def test_cli_takes_a_mesh(tmp_path, command):
+    """``--mesh-data`` is ported (``test_torch_parallel_families.py`` runs
+    it on two ranks): two data ranks in one process are JAX's mesh error."""
+    with pytest.raises(ValueError, match="!= 1 devices"):
         cli([command, "--mesh-data", "2", "--device", "cpu", "--workspace",
              str(tmp_path)])

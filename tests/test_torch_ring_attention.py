@@ -46,7 +46,6 @@ from deeplearningexamples_tpu.ops.ring_attention import (
 )
 from deeplearningexamples_tpu.parallel import MeshSpec as JaxMeshSpec
 from deeplearningexamples_tpu.parallel import build_mesh as jax_build_mesh
-from deeplearningexamples_tpu_torch.cli import main as cli_main
 from deeplearningexamples_tpu_torch.cli.main import cli
 from deeplearningexamples_tpu_torch.ops.flash_attention import (
     dropout_scale,
@@ -305,18 +304,13 @@ def _losses(ws):
             if r["type"] == "LOG" and "train.loss" in r.get("data", {})]
 
 
-def test_other_commands_still_refuse_the_sequence_axis(tmp_path):
-    """Only ``bert-pretrain`` takes ``--mesh-sequence`` above 1."""
-    ws = str(tmp_path)
-    for build, cfg in (
-            (lambda c: cli_main.build_convnet("resnet50", c),
-             cli_main.ConvNetCliConfig(mesh_sequence=2, device="cpu",
-                                       workspace=ws)),
-            (cli_main.build_dlrm, cli_main.DlrmCliConfig(
-                mesh_sequence=2, device="cpu", workspace=ws)),
-            (cli_main.build_bert_squad, cli_main.SquadCliConfig(
-                mesh_sequence=2, device="cpu", workspace=ws)),
-            (cli_main.build_transformer, cli_main.CommonConfig(
-                mesh_sequence=2, device="cpu", workspace=ws))):
-        with pytest.raises(SystemExit, match="not ported"):
-            build(cfg)
+def test_other_commands_take_the_sequence_axis(tmp_path):
+    """Every command takes ``--mesh-sequence`` (a command that does not
+    split along it repeats the data rank's work on each of its ranks, as in
+    JAX; ``test_torch_parallel_families.py`` runs one at data 1 x sequence
+    2): a sequence axis of 2 ranks in one process is JAX's mesh error."""
+    for command in ("resnet50", "ssd300", "dlrm", "bert-squad",
+                    "transformer", "efficientdet"):
+        with pytest.raises(ValueError, match="1 devices not divisible by 2"):
+            cli([command, "--mesh-sequence", "2", "--device", "cpu",
+                 "--workspace", str(tmp_path)])

@@ -731,9 +731,11 @@ def test_cli_transformer_batch_is_jaxs(tmp_path, small_models):
     np.testing.assert_array_equal(tgt[:, 1:63], src[:, :62])
 
 
-def test_cli_refuses_mesh_flags(tmp_path):
+def test_cli_takes_mesh_flags(tmp_path):
+    """``--mesh-data`` is ported (``test_torch_parallel_families.py`` runs
+    it on two ranks): two data ranks in one process are JAX's mesh error."""
     for name in ("transformer", "bart", "gnmt"):
-        with pytest.raises(SystemExit, match="not ported"):
+        with pytest.raises(ValueError, match="!= 1 devices"):
             cli([name, "--device", "cpu", "--mesh-data", "2", "--workspace",
                  str(tmp_path)])
 

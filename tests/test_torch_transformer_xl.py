@@ -277,22 +277,24 @@ def test_cli_transformer_xl_batches_and_rate_are_jaxs(tmp_path, small_txl,
 
 
 @pytest.mark.parametrize("command", ["transformer-xl", "nnunet", "moflow"])
-def test_cli_refuses_a_mesh(tmp_path, command):
-    with pytest.raises(SystemExit, match="not ported"):
+def test_cli_takes_a_mesh(tmp_path, command):
+    """``--mesh-data`` is ported (``test_torch_parallel_families.py`` runs
+    it on two ranks): two data ranks in one process are JAX's mesh error."""
+    with pytest.raises(ValueError, match="!= 1 devices"):
         cli([command, "--mesh-data", "2", "--device", "cpu", "--workspace",
              str(tmp_path)])
 
 
 @pytest.mark.parametrize("command", ["maskrcnn", "se3-transformer"])
-def test_cli_commands_not_ported_say_so(tmp_path, command):
-    """The last two commands are ported: each trains a step and refuses
-    only what is not ported yet (a mesh of more than one rank)."""
+def test_cli_last_two_commands_train_and_take_a_mesh(tmp_path, command):
+    """The last two commands are ported: each trains a step, and takes the
+    mesh flags (two data ranks in one process are JAX's mesh error)."""
     size = ["--image-size", "64"] if command == "maskrcnn" else []
     state = cli([command, *size, "--batch-size", "1", "--steps-per-epoch",
                  "1", "--lr", "1e-3", "--device", "cpu", "--workspace",
                  str(tmp_path)])[0]
     assert state.step == 1
-    with pytest.raises(SystemExit, match=f"{command}: .*not ported"):
+    with pytest.raises(ValueError, match="!= 1 devices"):
         cli([command, "--mesh-data", "2", "--device", "cpu", "--workspace",
              str(tmp_path)])
 

@@ -864,10 +864,14 @@ def test_cli_trains_on_the_cpu(tmp_path, small_tts, model, backend):
     assert (tmp_path / f"{model}_ckpt" / "ckpt_2.pt").exists()
 
 
-@pytest.mark.parametrize("flag,value", [("--mesh-data", "2"),
-                                        ("--mesh-model", "2")])
-def test_cli_refuses_unported_flags(tmp_path, flag, value):
-    with pytest.raises(SystemExit, match="not ported"):
+@pytest.mark.parametrize("flag,value,error", [
+    ("--mesh-data", "2", "!= 1 devices"),
+    ("--mesh-model", "2", "1 devices not divisible by 2")])
+def test_cli_takes_mesh_flags(tmp_path, flag, value, error):
+    """The mesh axes are ported (``test_torch_parallel_families.py`` runs
+    ``--mesh-data 2`` on two ranks): a mesh of 2 ranks in one process is
+    JAX's mesh error."""
+    with pytest.raises(ValueError, match=error):
         cli(["waveglow", "--device", "cpu", flag, value, "--workspace",
              str(tmp_path)])
 
